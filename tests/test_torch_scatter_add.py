@@ -1,0 +1,76 @@
+"""The port's row scatter-add (tensorf_tpu_torch/ops/scatter_add.py) against
+the TPU kernel it replaces (scatter_add_banked, run in interpret mode as
+tests/test_grid_sample.py runs it) and against np.add.at.
+
+Tolerance rtol 1e-5, atol 1e-4, as the JAX package's own kernel test: the
+sums are the same but taken in another order.  The CUDA kernel itself runs
+only on the card: tests/test_torch_cuda.py holds it against this plain
+version.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorf_tpu.ops.pallas.scatter_add2 import scatter_add_banked
+from tensorf_tpu_torch.ops import grid_sample as tgs
+from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
+
+TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def _case(seed, M, R, C):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, R, size=M).astype(np.int32)
+    g = rng.normal(size=(M, C)).astype(np.float32)
+    want = np.zeros((R, C), np.float32)
+    np.add.at(want, idx, g)
+    return idx, g, want
+
+
+@pytest.mark.parametrize(
+    "M,R,C",
+    [(2048, 256, 128), (2048, 256, 64), (2048, 256, 192)],
+    ids=["test_grid_sample_shape", "density_C64", "appearance_C192"],
+)
+def test_reference_matches_banked_kernel_and_add_at(M, R, C):
+    idx, g, want = _case(0, M, R, C)
+    got = scatter_add_reference(torch.from_numpy(idx), torch.from_numpy(g), R).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    banked = np.asarray(scatter_add_banked(jnp.asarray(idx), jnp.asarray(g), R))
+    np.testing.assert_allclose(got, banked, **TOL)
+    # the wrapper on a CPU tensor is the plain version and launches nothing
+    before = scatter_add.launches
+    np.testing.assert_array_equal(
+        scatter_add(torch.from_numpy(idx), torch.from_numpy(g), R).numpy(), got
+    )
+    assert scatter_add.launches == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    idx = torch.zeros(4, dtype=torch.int32)
+    g = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="int32"):
+        scatter_add(idx.long(), g, 5)
+    with pytest.raises(ValueError, match="float32"):
+        scatter_add(idx, g.double(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter_add(idx, torch.zeros(3, 4).T, 5)
+    with pytest.raises(ValueError, match="rows"):
+        scatter_add(idx[:3], g, 5)
+    with pytest.raises(ValueError, match="n_rows"):
+        scatter_add(idx, g, 0)
+
+
+def test_gather_rows_backward_is_the_scatter(rng):
+    table = torch.from_numpy(rng.normal(size=(37, 8)).astype(np.float32)).requires_grad_()
+    idx = torch.from_numpy(rng.integers(0, 37, size=300).astype(np.int32))
+    cot = torch.from_numpy(rng.normal(size=(300, 8)).astype(np.float32))
+    rows = tgs.gather_rows(table, idx)
+    np.testing.assert_array_equal(rows.detach().numpy(), table.detach().numpy()[idx.numpy()])
+    rows.backward(cot)
+    np.testing.assert_allclose(
+        table.grad.numpy(), scatter_add_reference(idx, cot, 37).numpy(), **TOL
+    )
+
