@@ -16,7 +16,12 @@ Phases (any failure exits non-zero, no phase is caught and passed over):
      stratification and sample budgets off, as they are not ported yet) for
      a few steps on an in-memory composite scene, then one test view rendered in
      chunks; the loss must fall and each kernel must have launched;
-  5. the rendered view against the CPU reference path on a few rays.
+  5. the rendered view against the CPU reference path on a few rays;
+  6. the kernel against its plain version on the real index streams: the
+     (idx, g) that one more train step of the trained field hands to the
+     first density and the first appearance scatter-add.
+Each kernel case also prints its index stream's mean run length and mean
+distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
 The scene is cut to size for the time limit (each cut is printed): 8 train
 and 2 test views instead of 40 and 8, 200x200 pixels instead of 800x800,
@@ -45,6 +50,8 @@ FP32_OPS_PER_S = 67e12
 TRAIN_STEPS = 200
 SCENE = dict(n_train=8, n_test=2, wh=(200, 200), scene="composite")
 LAUNCHES_PER_STEP = {"scatter_add": 6}  # 3 density + 3 appearance planes
+MAIN_SHAPES = ("density_128", "appearance_128", "density_300", "appearance_300",
+               "density_128_real", "appearance_128_real")
 
 
 def fail(msg: str) -> None:
@@ -88,12 +95,73 @@ def lattice_plane_indices(torch, rays, n_samples, grid, dev):
     return (y * W + x).contiguous()
 
 
-def kernel_phase(torch, dev, rays):
-    """scatter_add against scatter_add_reference, with its times."""
+def stream_stats(torch, idx, tile=64):
+    """What the kernel's run aggregation can exploit in an index stream: the
+    mean length of runs of equal consecutive indices, and the mean number of
+    distinct rows in a ``tile``-row tile (a tile with fewer distinct rows
+    than runs would gain from sorting it)."""
+    M = idx.shape[0]
+    runs = 1 + int((idx[1:] != idx[:-1]).sum())
+    n_tiles = max(1, M // tile)
+    t = torch.sort(idx[: n_tiles * tile].reshape(n_tiles, -1), dim=1).values
+    distinct = 1 + (t[:, 1:] != t[:, :-1]).sum(dim=1)
+    return M / runs, float(distinct.float().mean())
+
+
+def kernel_case(torch, name, idx, g, n_rows):
+    """scatter_add against scatter_add_reference on one (idx, g), with its
+    times, its bound and its index stream's run structure."""
     from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
 
+    M, C = g.shape
+    dev = g.device
+    got = scatter_add(idx, g, n_rows)
+    want = scatter_add_reference(idx, g, n_rows)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # fp32 sums in another order: allow 1e-6 of the largest sum of |g|
+    # that lands on one output element, plus 1e-4
+    abs_sum = scatter_add_reference(idx, g.abs(), n_rows)
+    tol = 1e-4 + 1e-6 * float(abs_sum.max())
+    del got, want, abs_sum
+    lib_out = torch.zeros((n_rows, C), device=dev)
+    reps = 10 if M * C > 50_000_000 else 30
+    kernel_ms = time_ms(torch, lambda: scatter_add(idx, g, n_rows), reps)
+    plain_ms = time_ms(torch, lambda: scatter_add_reference(idx, g, n_rows), reps)
+    library_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, g), reps)
+    del lib_out
+    # g and idx read once, the output written once
+    nbytes = M * C * 4 + M * 4 + n_rows * C * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = M * C / FP32_OPS_PER_S * 1e3
+    mean_run, distinct64 = stream_stats(torch, idx)
+    row = dict(
+        case=name, M=M, n_rows=n_rows, C=C, max_abs_err=err, tol=tol,
+        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        mean_run=mean_run, distinct_per_64=distinct64,
+    )
+    print("kernel_case " + json.dumps(row), flush=True)
+    check(err <= tol, f"scatter_add {name}: max |kernel - plain| {err} > {tol}")
+    return row
+
+
+def kernel_rays(torch, dev, scene):
+    """4096 training rays of the scene, drawn from a seed: the batch whose
+    sample lattice gives the density kernel cases their index streams."""
+    from tensorf_tpu_torch.data.blender import BlenderDataset
+
+    rays = BlenderDataset("", split="train", wh=SCENE["wh"], meta=scene["train"]).all_rays
+    perm = torch.randperm(rays.shape[0], generator=torch.Generator().manual_seed(0))
+    return torch.as_tensor(rays)[perm[:4096]].to(dev)
+
+
+def synthetic_streams(torch, dev, rays):
+    """(name, idx, g, n_rows) of each kernel case on a synthetic stream: the
+    main path's shapes, then edge cases."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    B = 4096
+    B = rays.shape[0]
     cases = [
         # name, M, n_rows, C, index stream; the first four are the main
         # path's shapes: density over the full lattice, appearance over the
@@ -106,66 +174,29 @@ def kernel_phase(torch, dev, rays):
         ("odd_C", 65_537, 1000, 5, ("uniform",)),
         ("one_row", 262_144, 128 * 128, 64, ("one_row",)),
     ]
-    results = []
     for name, M, n_rows, C, stream in cases:
         if stream[0] == "lattice":
-            idx = lattice_plane_indices(torch, rays[:B], stream[1], stream[2], dev)
+            idx = lattice_plane_indices(torch, rays, stream[1], stream[2], dev)
         elif stream[0] == "one_row":
             idx = torch.full((M,), n_rows // 2, dtype=torch.int32, device=dev)
         else:
             idx = torch.randint(0, n_rows, (M,), generator=gen, device=dev, dtype=torch.int32)
         check(idx.shape[0] == M, f"{name}: index stream has {idx.shape[0]} rows, want {M}")
-        g = torch.randn((M, C), generator=gen, device=dev)
-        got = scatter_add(idx, g, n_rows)
-        want = scatter_add_reference(idx, g, n_rows)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        # fp32 sums in another order: allow 1e-6 of the largest sum of |g|
-        # that lands on one output element, plus 1e-4
-        abs_sum = scatter_add_reference(idx, g.abs(), n_rows)
-        tol = 1e-4 + 1e-6 * float(abs_sum.max())
-        lib_out = torch.zeros((n_rows, C), device=dev)
-        reps = 10 if M * C > 50_000_000 else 30
-        kernel_ms = time_ms(torch, lambda: scatter_add(idx, g, n_rows), reps)
-        plain_ms = time_ms(torch, lambda: scatter_add_reference(idx, g, n_rows), reps)
-        library_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, g), reps)
-        # g and idx read once, the output written once (the zero-fill is a
-        # cost of this design, not of the function)
-        nbytes = M * C * 4 + M * 4 + n_rows * C * 4
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = M * C / FP32_OPS_PER_S * 1e3
-        row = dict(
-            case=name, M=M, n_rows=n_rows, C=C, max_abs_err=err, tol=tol,
-            kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        )
-        print("kernel_case " + json.dumps(row), flush=True)
-        check(err <= tol, f"scatter_add {name}: max |kernel - plain| {err} > {tol}")
-        results.append(row)
-        del g, got, want, abs_sum, lib_out
-    return results
+        yield name, idx, torch.randn((M, C), generator=gen, device=dev), n_rows
 
 
-def step_parity_phase(torch, dev, cfg, scene):
-    """One synth_full step's gradients, kernel vs plain, same inputs."""
-    from unittest import mock
-
+def step_inputs(torch, dev, cfg, scene, field, grid):
+    """A synth_full step's statics, batch, bbox and jitter for ``field``."""
     import numpy as np
 
-    from tensorf_tpu_torch.config import model_config_from
     from tensorf_tpu_torch.data.blender import BlenderDataset
-    from tensorf_tpu_torch.models import GridGeometry, TensorVMSplit
-    from tensorf_tpu_torch.models.config import cal_n_samples, n_to_reso
-    from tensorf_tpu_torch.ops import grid_sample
-    from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
+    from tensorf_tpu_torch.models import GridGeometry
+    from tensorf_tpu_torch.models.config import cal_n_samples
     from tensorf_tpu_torch.train.losses import LossWeights
-    from tensorf_tpu_torch.train.step import TrainStatics, draw_noise, loss_fn
+    from tensorf_tpu_torch.train.step import TrainStatics, draw_noise
 
     ds = BlenderDataset("", split="train", wh=SCENE["wh"], meta=scene["train"])
     aabb_np = ds.scene_bbox
-    grid = n_to_reso(cfg.N_voxel_init, aabb_np)
-    field = TensorVMSplit(model_config_from(cfg), grid, dev, torch.Generator().manual_seed(1))
     statics = TrainStatics(
         n_samples=cal_n_samples(grid, cfg.step_ratio),
         step_size=GridGeometry.create(aabb_np, grid, cfg.step_ratio).step_size,
@@ -180,6 +211,25 @@ def step_parity_phase(torch, dev, cfg, scene):
     rgbs = torch.as_tensor(ds.all_rgbs[sel], device=dev)
     aabb = torch.as_tensor(aabb_np, device=dev)
     u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), cfg.batch_size, dev)
+    return statics, aabb, rays, rgbs, u, flip
+
+
+def step_parity_phase(torch, dev, cfg, scene):
+    """One synth_full step's gradients, kernel vs plain, same inputs."""
+    from unittest import mock
+
+    from tensorf_tpu_torch.config import model_config_from
+    from tensorf_tpu_torch.data.blender import BlenderDataset
+    from tensorf_tpu_torch.models import TensorVMSplit
+    from tensorf_tpu_torch.models.config import n_to_reso
+    from tensorf_tpu_torch.ops import grid_sample
+    from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
+    from tensorf_tpu_torch.train.step import loss_fn
+
+    ds = BlenderDataset("", split="train", wh=SCENE["wh"], meta=scene["train"])
+    grid = n_to_reso(cfg.N_voxel_init, ds.scene_bbox)
+    field = TensorVMSplit(model_config_from(cfg), grid, dev, torch.Generator().manual_seed(1))
+    statics, aabb, rays, rgbs, u, flip = step_inputs(torch, dev, cfg, scene, field, grid)
 
     def grads():
         field.zero_grad(set_to_none=True)
@@ -209,6 +259,35 @@ def step_parity_phase(torch, dev, cfg, scene):
           f"max err/tol {worst:.3g} (tol = 1e-4 x max|grad| per leaf)", flush=True)
 
 
+def capture_streams(torch, dev, cfg, scene, field, grid):
+    """The index streams of a trained field: the (idx, g, n_rows) that the
+    first density and the first appearance scatter-add of one more train
+    step receive, recorded on their way to the kernel, by case name."""
+    from unittest import mock
+
+    from tensorf_tpu_torch.ops import grid_sample
+    from tensorf_tpu_torch.ops.scatter_add import scatter_add
+    from tensorf_tpu_torch.train.step import loss_fn
+
+    statics, aabb, rays, rgbs, u, flip = step_inputs(torch, dev, cfg, scene, field, grid)
+    seen = {}
+
+    def recorder(idx, g, n_rows):
+        seen.setdefault(g.shape[1], (idx.clone(), g.clone(), n_rows))
+        return scatter_add(idx, g, n_rows)
+
+    field.zero_grad(set_to_none=True)
+    with mock.patch.object(grid_sample, "scatter_add", recorder):
+        total, _ = loss_fn(field, statics, aabb, rays, rgbs, TRAIN_STEPS, u, flip)
+        total.backward()
+    torch.cuda.synchronize()
+    field.zero_grad(set_to_none=True)
+    widths = {"density": 4 * cfg.n_lamb_sigma[0], "appearance": 4 * cfg.n_lamb_sh[0]}
+    check(set(seen) == set(widths.values()), f"recorded scatter widths {sorted(seen)}, "
+          f"want {widths}")
+    return {f"{kind}_{grid[0]}_real": seen[C] for kind, C in widths.items()}
+
+
 def main() -> None:
     import torch
 
@@ -233,7 +312,9 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, "tensorf_tpu/ops/pallas/scatter_add2.py:156")}
+    # name: (wrapper, source, TPU kernel replaced, grids each call enqueues)
+    kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, "tensorf_tpu/ops/pallas/scatter_add2.py:156",
+                             ["zero_fill_kernel", "scatter_add_runs_kernel"])}
     t0 = time.perf_counter()
     built = build(list(kernels), force=True)
     print(f"build: {len(built)} kernel(s) with nvcc sm_90a in "
@@ -252,22 +333,15 @@ def main() -> None:
           f"steps (first segment only); stratify, sample_budget, prefilter_budget 0 "
           f"(not ported); widths as configured", flush=True)
     scene = make_synthetic_scene_arrays(**SCENE)
-    from tensorf_tpu_torch.data.blender import BlenderDataset
-
-    rays_all = torch.as_tensor(
-        BlenderDataset("", split="train", wh=SCENE["wh"], meta=scene["train"]).all_rays,
-        device=dev,
-    )
-    perm = torch.randperm(rays_all.shape[0], generator=torch.Generator().manual_seed(0))
-    cases = kernel_phase(torch, dev, rays_all[perm[:4096].to(dev)])
-    del rays_all
+    cases = [kernel_case(torch, *case)
+             for case in synthetic_streams(torch, dev, kernel_rays(torch, dev, scene))]
     torch.cuda.empty_cache()
 
     step_parity_phase(torch, dev, cfg, scene)
     torch.cuda.empty_cache()
 
     # ---- the main path: counts to 0 just before, read just after ----
-    for fn, _, _ in kernels.values():
+    for fn, *_ in kernels.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -294,6 +368,7 @@ def main() -> None:
     # ---- the rendered view against the CPU reference path ----
     import copy
 
+    from tensorf_tpu_torch.data.blender import BlenderDataset
     from tensorf_tpu_torch.models.config import GridGeometry
 
     ds = BlenderDataset("", split="test", wh=SCENE["wh"], is_stack=True, meta=scene["test"])
@@ -313,14 +388,22 @@ def main() -> None:
           f"mean {float(diff.mean()):.3g} (tol 1e-3)", flush=True)
     check(err <= 1e-3, f"card render differs from the CPU reference by {err}")
 
-    main_cases = [c for c in cases if c["case"] in
-                  ("density_128", "appearance_128", "density_300", "appearance_300")]
-    head = cases[0]  # density_128: the main path's widest scatter
+    streams = capture_streams(torch, dev, cfg, scene, result.field, result.grid_size)
+    cases += [kernel_case(torch, name, *stream) for name, stream in streams.items()]
+    del streams
+
+    # the headline numbers are density_128's, the main path's widest
+    # scatter; "shapes" carries the other main-path shapes beside it.
+    # "launches" counts calls of the kernel's entry point, each of which
+    # enqueues the grids in "grids"; every time covers both.
+    main_cases = [c for c in cases if c["case"] in MAIN_SHAPES]
+    head = main_cases[0]
     line = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": src,
         "replaces": replaces,
+        "grids": grids,
         "launches": launches[name],
         "max_abs_err": max(c["max_abs_err"] for c in main_cases),
         "ms": head["kernel_ms"],
@@ -328,7 +411,9 @@ def main() -> None:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-    } for name, (_, src, replaces) in kernels.items()]}
+        "shapes": [{k: c[k] for k in ("case", "kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+                   for c in main_cases],
+    } for name, (_, src, replaces, grids) in kernels.items()]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -49,34 +49,47 @@ def _check(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> None:
         raise ValueError(f"scatter_add: unsupported device {g.device}")
 
 
-def _kernel() -> ctypes.CDLL:
-    lib = load_library(KERNEL_NAME)
-    fn = lib.tftorch_scatter_add_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+_fn = None  # the C entry point, bound at first use
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = load_library(KERNEL_NAME).tftorch_scatter_add_f32
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def scatter_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
     """out[idx[m]] += g[m]; idx (M,) int32 in [0, n_rows), g (M, C) float32
     -> (n_rows, C) float32.
 
-    ``scatter_add.launches`` counts the kernel launches (CUDA tensors only).
+    ``scatter_add.launches`` counts the calls that launched the kernel (CUDA
+    tensors only); each such call enqueues two grids, the zero fill and the
+    scatter.
     """
     _check(idx, g, n_rows)
     if g.device.type == "cpu":
         return scatter_add_reference(idx, g, n_rows)
     M, C = g.shape
-    out = torch.zeros((n_rows, C), dtype=torch.float32, device=g.device)
     if M == 0 or C == 0:
-        return out
+        return torch.zeros((n_rows, C), dtype=torch.float32, device=g.device)
+    device = g.device.index
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return scatter_add(idx, g, n_rows)
     fn = _kernel()
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = fn(idx.data_ptr(), g.data_ptr(), out.data_ptr(), M, int(n_rows), C, stream)
+    # the entry point zero-fills ``out`` on the stream it launches on
+    out = g.new_empty((n_rows, C))
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # which costs more host time than the small launches themselves
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    err = fn(idx.data_ptr(), g.data_ptr(), out.data_ptr(), M, int(n_rows), C, stream)
     if err != 0:
         raise RuntimeError(f"scatter_add: kernel launch failed with CUDA error {err}")
     scatter_add.launches += 1

@@ -20,22 +20,48 @@ from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
 TOL = dict(rtol=1e-5, atol=1e-4)
 
 
-def _case(seed, M, R, C):
+def _stream(kind, M, R, rng):
+    """Index streams of the shapes the CUDA kernel's branches take: uniform
+    rows; sorted runs of random length 1-40 (the density lattice's shape,
+    where the kernel sums runs in registers); every index on one row."""
+    if kind == "uniform":
+        return rng.integers(0, R, size=M).astype(np.int32)
+    if kind == "runs":
+        lengths = rng.integers(1, 41, size=M)
+        n_runs = int(np.searchsorted(np.cumsum(lengths), M)) + 1
+        rows = np.sort(rng.integers(0, R, size=n_runs))
+        return np.repeat(rows, lengths[:n_runs])[:M].astype(np.int32)
+    assert kind == "hot_row", kind
+    return np.full(M, R // 2, np.int32)
+
+
+def _case(seed, M, R, C, kind="uniform"):
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, R, size=M).astype(np.int32)
+    idx = _stream(kind, M, R, rng)
     g = rng.normal(size=(M, C)).astype(np.float32)
-    want = np.zeros((R, C), np.float32)
-    np.add.at(want, idx, g)
+    want = np.zeros((R, C), np.float64)
+    np.add.at(want, idx, g.astype(np.float64))
     return idx, g, want
 
 
 @pytest.mark.parametrize(
-    "M,R,C",
-    [(2048, 256, 128), (2048, 256, 64), (2048, 256, 192)],
-    ids=["test_grid_sample_shape", "density_C64", "appearance_C192"],
+    "kind,M,R,C",
+    [
+        ("uniform", 2048, 256, 128),
+        ("uniform", 2048, 256, 64),
+        ("uniform", 2048, 256, 192),
+        ("runs", 4099, 256, 64),
+        ("runs", 2048, 256, 192),
+        ("hot_row", 2048, 256, 64),
+        ("runs", 4099, 7, 5),
+        ("hot_row", 2048, 7, 5),
+        ("runs", 2048, 300, 6),
+    ],
+    ids=["test_grid_sample_shape", "density_C64", "appearance_C192", "runs_C64",
+         "runs_C192", "hot_row_C64", "runs_C5", "hot_row_C5", "runs_C6"],
 )
-def test_reference_matches_banked_kernel_and_add_at(M, R, C):
-    idx, g, want = _case(0, M, R, C)
+def test_reference_matches_banked_kernel_and_add_at(kind, M, R, C):
+    idx, g, want = _case(0, M, R, C, kind)
     got = scatter_add_reference(torch.from_numpy(idx), torch.from_numpy(g), R).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     banked = np.asarray(scatter_add_banked(jnp.asarray(idx), jnp.asarray(g), R))
