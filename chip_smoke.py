@@ -4,28 +4,41 @@ CUDA kernel of that path against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero, no phase is caught and passed over):
+Phases (any failure exits non-zero, no phase is caught and passed over;
+each prints its seconds):
   1. build every kernel of the path from the checkout's sources with nvcc
      (sm_90a), all at once;
   2. kernel phase: each kernel against its plain version on the card, at the
      shapes the main path gives it plus edge cases, with its times;
   3. step parity: one synth_full train step with the kernels and one with
      the plain versions, same params, batch and jitter; gradients must agree;
-  4. main path: the trainer of configs/synth_full.txt at full width (128^3
-     segment, batch 4096, 443 samples, ranks 16/48, MLP_Fea 128; with
-     stratification and sample budgets off, as they are not ported yet) for
-     a few steps on an in-memory composite scene, then one test view rendered in
-     chunks; the loss must fall and each kernel must have launched;
-  5. the rendered view against the CPU reference path on a few rays;
+  4. main path: ``reconstruction`` of configs/synth_full.txt at full width
+     (ranks 16/48, app_dim 27, MLP_Fea 128, batch 4096) on an in-memory
+     composite scene, through a cut coarse-to-fine schedule: 128^3 until
+     iteration 200, the two alpha-mask events (shrink at the first, ray
+     re-filtering at the second), five upsamples to n_to_reso(300^3) on the
+     shrunk bbox, test-set PSNR at 200 and at the end, a final checkpoint.
+     The loss must halve over the first 200 steps, every kernel must have
+     launched on every step, the grids must follow the voxel schedule and
+     the final PSNR must beat the one at 200;
+  5. the masked render against the CPU path on 256 test rays, and the final
+     checkpoint re-rendered through the render-only entry;
   6. the kernel against its plain version on the real index streams: the
-     (idx, g) that one more train step of the trained field hands to the
-     first density and the first appearance scatter-add.
+     (idx, g) that one more train step hands to the first density and the
+     first appearance scatter-add, of the 128^3 field at iteration 200 and
+     of the masked, upsampled field at the end;
+  7. a second path: configs/synth_sphere.txt's schedule as written (300
+     steps, events at 150/200/260) on the in-memory sphere scene at 800x800
+     with downsample 8; its test PSNR must reach 28 dB.
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
-The scene is cut to size for the time limit (each cut is printed): 8 train
-and 2 test views instead of 40 and 8, 200x200 pixels instead of 800x800,
-and 200 steps of the 30000-step schedule (its first segment only).
+Cuts (each is printed): 8 train and 2 test views instead of 40 and 8,
+200x200 pixels instead of 800x800, and synth_full's 30000-step schedule cut
+to 450 steps with its events at 200-400 and the LR decay of the 30000
+(profile_step.CUT_SCHEDULE).
+Ray stratification and sample budgets are not ported yet and are off in
+both paths.
 
 Without a GPU, or outside a checkout of the repo, it exits non-zero and
 prints no result.  The last line of stdout is
@@ -35,7 +48,7 @@ prints no result.  The last line of stdout is
 from __future__ import annotations
 
 import json
-import math
+import shutil
 import subprocess
 import sys
 import time
@@ -44,14 +57,22 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
+SCENE = dict(n_train=8, n_test=2, wh=(200, 200), scene="composite")
+# configs/synth_sphere.txt's own scene: 10/2 views at 800x800, downsample 8
+SPHERE = dict(n_train=10, n_test=2, wh=(800, 800), scene="sphere")
 # A fresh synth_full field's loss sits on a plateau for its first ~140
 # steps at 128^3 (density starts near zero under density_shift -10 and the
-# FreeNeRF masks open slowly), then falls steeply: 200 steps show the fall.
-TRAIN_STEPS = 200
-SCENE = dict(n_train=8, n_test=2, wh=(200, 200), scene="composite")
-LAUNCHES_PER_STEP = {"scatter_add": 6}  # 3 density + 3 appearance planes
+# FreeNeRF masks open slowly), then falls steeply: the first segment's 200
+# steps show the fall.
+FIRST_SEGMENT = 200
+# synth_full's step shades the top-K samples: 3 density + 3 appearance planes
+MAIN_LAUNCHES_PER_STEP = 6
 MAIN_SHAPES = ("density_128", "appearance_128", "density_300", "appearance_300",
-               "density_128_real", "appearance_128_real")
+               "density_128_real", "appearance_128_real", "density_300_real",
+               "appearance_300_real")
+# the JAX package's drive of synth_sphere is held to >= 30 dB (its verify
+# notes); the port to that less 2 dB
+SPHERE_MIN_PSNR = 28.0
 
 
 def fail(msg: str) -> None:
@@ -62,6 +83,10 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def phase_done(name: str, t0: float) -> None:
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -240,7 +265,8 @@ def step_parity_phase(torch, dev, cfg, scene):
 
     before = scatter_add.launches
     loss_k, g_kernel = grads()
-    check(scatter_add.launches - before == 6, "kernel step did not launch scatter_add 6 times")
+    check(scatter_add.launches - before == MAIN_LAUNCHES_PER_STEP,
+          f"kernel step did not launch scatter_add {MAIN_LAUNCHES_PER_STEP} times")
     before = scatter_add.launches
     with mock.patch.object(grid_sample, "scatter_add", scatter_add_reference):
         loss_p, g_plain = grads()
@@ -259,33 +285,114 @@ def step_parity_phase(torch, dev, cfg, scene):
           f"max err/tol {worst:.3g} (tol = 1e-4 x max|grad| per leaf)", flush=True)
 
 
-def capture_streams(torch, dev, cfg, scene, field, grid):
-    """The index streams of a trained field: the (idx, g, n_rows) that the
-    first density and the first appearance scatter-add of one more train
-    step receive, recorded on their way to the kernel, by case name."""
+def capture_streams(torch, state, suffix):
+    """The index streams of the field in ``state``: the (idx, g, n_rows)
+    that the first density and the first appearance scatter-add of one
+    more train step (the segment's statics, its mask) receive, by case
+    name.  The step's backward runs the plain version, so capturing
+    launches no kernel."""
     from unittest import mock
 
     from tensorf_tpu_torch.ops import grid_sample
-    from tensorf_tpu_torch.ops.scatter_add import scatter_add
-    from tensorf_tpu_torch.train.step import loss_fn
+    from tensorf_tpu_torch.ops.scatter_add import scatter_add_reference
+    from tensorf_tpu_torch.train.loop import build_statics
+    from tensorf_tpu_torch.train.step import draw_noise, loss_fn
 
-    statics, aabb, rays, rgbs, u, flip = step_inputs(torch, dev, cfg, scene, field, grid)
+    dev, cfg = state.device, state.cfg
+    perm = torch.randperm(state.rays.shape[0], generator=torch.Generator().manual_seed(0))
+    ids = perm[: cfg.batch_size].to(dev)
+    u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), cfg.batch_size, dev)
     seen = {}
 
     def recorder(idx, g, n_rows):
         seen.setdefault(g.shape[1], (idx.clone(), g.clone(), n_rows))
-        return scatter_add(idx, g, n_rows)
+        return scatter_add_reference(idx, g, n_rows)
 
+    field = state.field
     field.zero_grad(set_to_none=True)
     with mock.patch.object(grid_sample, "scatter_add", recorder):
-        total, _ = loss_fn(field, statics, aabb, rays, rgbs, TRAIN_STEPS, u, flip)
+        total, _ = loss_fn(field, build_statics(state), state.aabb, state.rays[ids],
+                           state.rgbs[ids], cfg.n_iters - 1, u, flip, state.alpha_mask)
         total.backward()
     torch.cuda.synchronize()
     field.zero_grad(set_to_none=True)
     widths = {"density": 4 * cfg.n_lamb_sigma[0], "appearance": 4 * cfg.n_lamb_sh[0]}
     check(set(seen) == set(widths.values()), f"recorded scatter widths {sorted(seen)}, "
           f"want {widths}")
-    return {f"{kind}_{grid[0]}_real": seen[C] for kind, C in widths.items()}
+    return {f"{kind}_{suffix}_real": seen[C] for kind, C in widths.items()}
+
+
+def check_schedule(result, cfg):
+    """The grids follow n_voxel_schedule on the aabb of each upsample (the
+    shrunk one), the last is n_to_reso(N_voxel_final), and every event
+    fired in order."""
+    from tensorf_tpu_torch.models.config import n_to_reso, n_voxel_schedule
+
+    kinds = [(e["iteration"], e["event"]) for e in result.events]
+    want = sorted([(i, "alpha_mask") for i in cfg.update_AlphaMask_list]
+                  + [(i, "upsample") for i in cfg.upsamp_list])
+    check(kinds == want, f"schedule events {kinds}, want {want}")
+    ups = [e for e in result.events if e["event"] == "upsample"]
+    counts = n_voxel_schedule(cfg.N_voxel_init, cfg.N_voxel_final, len(cfg.upsamp_list))
+    for e, n in zip(ups, counts):
+        want_grid = n_to_reso(n, e["aabb"])
+        check(e["n_voxels"] == n and tuple(e["grid"]) == want_grid,
+              f"upsample at {e['iteration']}: grid {e['grid']} for {e['n_voxels']} voxels, "
+              f"want {want_grid} for {n}")
+    final_aabb = result.state.geometry.aabb_np
+    want_final = n_to_reso(cfg.N_voxel_final, final_aabb)
+    check(tuple(result.state.geometry.grid_size) == want_final,
+          f"final grid {result.state.geometry.grid_size}, want n_to_reso("
+          f"{cfg.N_voxel_final}, {final_aabb.tolist()}) = {want_final}")
+    shrink = result.events[[k for _, k in kinds].index("alpha_mask")]
+    check("shrink_grid" in shrink, "the first alpha-mask event did not shrink")
+    check(any(e.get("refiltered") for e in result.events), "no alpha ray re-filtering")
+
+
+def scatter_launches_per_step(statics) -> int:
+    """The scatter-adds one train step launches under ``statics``: one per
+    gathered plane table.  The fused path packs density and appearance
+    into one table per plane (3) unless top-K shading gathers appearance
+    apart (6); the unfused path gathers every plane and line apart (12)."""
+    if not statics.fused:
+        return 12
+    top_k = statics.shade_top_k is not None and statics.shade_top_k < statics.n_samples
+    return 6 if top_k else 3
+
+
+def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
+    """One path through ``reconstruction``: the launch counts set to 0
+    just before it and read just after; each kernel must have launched on
+    every step, as many times as that step's statics call for."""
+    import numpy as np
+
+    from tensorf_tpu_torch.train.loop import build_statics, reconstruction
+
+    want = {"scatter_add": 0}
+
+    def count(it, state):  # runs after step ``it``, whose statics the state still holds
+        want["scatter_add"] += scatter_launches_per_step(build_statics(state))
+        if on_step is not None:
+            on_step(it, state)
+
+    for fn, *_ in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = reconstruction(cfg, scene, "cuda", save_images=False, on_step=count,
+                            log=lambda m: print(f"{name}: {m}", flush=True))
+    torch.cuda.synchronize()
+    launches = {k: v[0].launches for k, v in kernels.items()}
+    print(f"{name}: {steps} steps, test-set evaluations and checkpoint in "
+          f"{time.perf_counter() - t0:.2f} s, launches {launches} (want {want})", flush=True)
+    check(set(want) == set(launches), f"{name}: launch counts {launches}, want {want}")
+    for kernel, n in want.items():
+        check(launches[kernel] == n > 0, f"{name}: {kernel} launched {launches[kernel]} times "
+              f"in {steps} steps, want {n}")
+    losses = np.asarray(result.total_loss)
+    check(losses.shape == (steps,) and np.all(np.isfinite(losses)), f"{name}: non-finite loss")
+    check(len(result.final_psnrs) == len(result.state.test_ds.all_rays)
+          and np.all(np.isfinite(result.final_psnrs)), f"{name}: non-finite test render")
+    return result, launches
 
 
 def main() -> None:
@@ -294,16 +401,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script needs one NVIDIA GPU")
     try:
-        from tensorf_tpu_torch.config import load_config
-        from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
         from tensorf_tpu_torch.ops.scatter_add import KERNEL_NAME, KERNEL_SOURCE, scatter_add
-        from tensorf_tpu_torch.train.loop import render_view, train_steps
         from tensorf_tpu_torch.utils.cuda_build import build
     except ImportError as exc:
         fail(f"run from the root of a tensorf_tpu checkout ({exc})")
+    import tempfile
+
     import numpy as np
 
-    dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -324,79 +429,137 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"build[{res.name}]: {line.strip()}", flush=True)
     print("kernels: " + ", ".join(f"{k} (cuda, {v[1]})" for k, v in kernels.items()), flush=True)
+    phase_done("build", t0)
 
-    # stratification and sample budgets are not ported yet: run without them
-    cfg = load_config("configs/synth_full.txt",
-                      dict(stratify=0, sample_budget=0, prefilter_budget=0))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")  # the runs' checkpoints
+    try:
+        run_paths(torch, np, kernels, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+def run_paths(torch, np, kernels, workdir) -> None:
+    """Phases 2-7; prints the kernels line."""
+    import copy
+    import dataclasses
+
+    from tensorf_tpu_torch.config import load_config
+    from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
+    from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES
+    from tensorf_tpu_torch.render.chunked import render_chunked
+    from tensorf_tpu_torch.train.loop import make_handle, render_test
+
+    dev = torch.device("cuda")
+    cfg = load_config("configs/synth_full.txt", dict(OVERRIDES, **CUT_SCHEDULE, basedir=workdir,
+                                                     progress_refresh_rate=100))
     print(f"cuts: {SCENE['n_train']}/{SCENE['n_test']} train/test views (config scene 40/8), "
-          f"{SCENE['wh'][0]}x{SCENE['wh'][1]} px (800x800), {TRAIN_STEPS} of {cfg.n_iters} "
-          f"steps (first segment only); stratify, sample_budget, prefilter_budget 0 "
-          f"(not ported); widths as configured", flush=True)
+          f"{SCENE['wh'][0]}x{SCENE['wh'][1]} px (800x800), {cfg.n_iters} of 30000 steps with "
+          f"upsamples at {cfg.upsamp_list} and alpha masks at {cfg.update_AlphaMask_list} "
+          f"(config: [2000..7000], [2000, 4000]), LR decay over {cfg.lr_decay_iters}; stratify, stratify_render, sample_budget, "
+          f"prefilter_budget 0 (not ported); widths as configured", flush=True)
     scene = make_synthetic_scene_arrays(**SCENE)
+
+    t0 = time.perf_counter()
     cases = [kernel_case(torch, *case)
              for case in synthetic_streams(torch, dev, kernel_rays(torch, dev, scene))]
     torch.cuda.empty_cache()
+    phase_done("kernels", t0)
 
+    t0 = time.perf_counter()
     step_parity_phase(torch, dev, cfg, scene)
     torch.cuda.empty_cache()
+    phase_done("step_parity", t0)
 
     # ---- the main path: counts to 0 just before, read just after ----
-    for fn, *_ in kernels.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    streams = {}
+
+    def at_step(it, state):
+        if it == FIRST_SEGMENT:  # the 128^3 field, before the events at 200
+            streams.update(capture_streams(torch, state, "128"))
+
     t0 = time.perf_counter()
-    result = train_steps(cfg, TRAIN_STEPS, device="cuda", scene=scene)
-    wall_s = time.perf_counter() - t0
-    launches = {k: v[0].launches for k, v in kernels.items()}
-    print(f"main_path: {TRAIN_STEPS} steps + 1 test view in {wall_s:.2f} s, "
-          f"{result.step_ms:.3f} ms/step (steps 2..{TRAIN_STEPS}), peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}", flush=True)
-    for name, per_step in LAUNCHES_PER_STEP.items():
-        check(launches[name] == per_step * TRAIN_STEPS,
-              f"{name} launched {launches[name]} times on the main path, "
-              f"want {per_step} x {TRAIN_STEPS}")
+    result, launches = drive(torch, "main_path", cfg, scene, kernels, cfg.n_iters, at_step)
+    check(launches["scatter_add"] == MAIN_LAUNCHES_PER_STEP * cfg.n_iters,
+          f"main_path: scatter_add launched {launches['scatter_add']} times, want "
+          f"{MAIN_LAUNCHES_PER_STEP} x {cfg.n_iters}")
     losses = np.asarray(result.total_loss)
-    check(np.all(np.isfinite(losses)), "non-finite training loss")
-    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
-    print(f"loss: first-5 mean {first:.6f} -> last-5 mean {last:.6f}", flush=True)
-    check(last < 0.5 * first, "the training loss did not fall to half its start")
-    check(result.test_rgb.shape == (SCENE["wh"][1], SCENE["wh"][0], 3), "test view shape")
-    check(np.all(np.isfinite(result.test_rgb)) and math.isfinite(result.test_psnr),
-          "non-finite test render")
-    print(f"test_view: psnr {result.test_psnr:.4f} dB", flush=True)
+    first, last = float(losses[:5].mean()), float(losses[FIRST_SEGMENT - 5:FIRST_SEGMENT].mean())
+    print(f"loss: first-5 mean {first:.6f} -> mean of steps {FIRST_SEGMENT - 5}..{FIRST_SEGMENT - 1} "
+          f"{last:.6f}; last step {losses[-1]:.6f}", flush=True)
+    check(last < 0.5 * first, "the training loss did not fall to half its start in 200 steps")
+    for e in result.events:
+        print("event " + json.dumps(e), flush=True)
+    for seg in result.segments:
+        print("segment " + json.dumps(seg), flush=True)
+    check_schedule(result, cfg)
+    psnr_200 = result.test_psnrs[FIRST_SEGMENT]
+    psnr_final = float(np.mean(result.final_psnrs))
+    print(f"test_psnr: iteration {FIRST_SEGMENT} {psnr_200:.4f} dB, iteration 400 "
+          f"{result.test_psnrs.get(400, float('nan')):.4f} dB, final (iteration "
+          f"{cfg.n_iters - 1}) {psnr_final:.4f} dB", flush=True)
+    check(psnr_final > psnr_200, f"final test PSNR {psnr_final} does not beat {psnr_200} at 200")
+    phase_done("main_path", t0)
 
-    # ---- the rendered view against the CPU reference path ----
-    import copy
-
-    from tensorf_tpu_torch.data.blender import BlenderDataset
-    from tensorf_tpu_torch.models.config import GridGeometry
-
-    ds = BlenderDataset("", split="test", wh=SCENE["wh"], is_stack=True, meta=scene["test"])
-    rays = torch.as_tensor(ds.all_rays[0][::156][:256])
-    kw = dict(chunk=256, step_size=GridGeometry.create(ds.scene_bbox, result.grid_size, 0.5).step_size,
-              n_samples=result.n_samples, is_train=False, white_bg=True,
-              shade_top_k=cfg.shade_top_k, fused=True)
-    aabb = torch.as_tensor(ds.scene_bbox)
-    on_card = render_view(result.field, rays.to(dev), aabb=aabb.to(dev), **kw).cpu()
-    on_cpu = render_view(copy.deepcopy(result.field).cpu(), rays, aabb=aabb, **kw)
+    # ---- the masked render against the CPU path; the checkpoint re-rendered ----
+    t0 = time.perf_counter()
+    state = result.state
+    handle = make_handle(state)
+    rays = torch.as_tensor(state.test_ds.all_rays[0][::156][:256])
+    kw = dict(chunk=256, step_size=handle.step_size, n_samples=handle.n_samples,
+              white_bg=True, shade_top_k=handle.shade_top_k, fused=True)
+    on_card = render_chunked(state.field, state.alpha_mask, rays, handle.aabb, **kw)[0].cpu()
+    on_cpu = render_chunked(copy.deepcopy(state.field).cpu(), state.alpha_mask.to("cpu"), rays,
+                            handle.aabb.cpu(), **kw)[0]
     diff = (on_card - on_cpu).abs()
     err = float(diff.max())
     # float32 rounds differently on the two devices; a sample whose weight
     # sits at the shading threshold or at the K-th place of the top-K can
     # switch sides and move its pixel by about that weight, hence 1e-3
-    print(f"reference: {rays.shape[0]} test rays, |card - cpu| max {err:.3g} "
-          f"mean {float(diff.mean()):.3g} (tol 1e-3)", flush=True)
+    print(f"reference: {rays.shape[0]} test rays, masked, grid {state.geometry.grid_size}, "
+          f"|card - cpu| max {err:.3g} mean {float(diff.mean()):.3g} (tol 1e-3)", flush=True)
     check(err <= 1e-3, f"card render differs from the CPU reference by {err}")
+    reloaded = render_test(dataclasses.replace(cfg, ckpt=result.final_path, render_test=1),
+                           scene, "cuda", save_images=False, log=lambda m: None)
+    delta = abs(float(np.mean(reloaded)) - psnr_final)
+    print(f"render_only: {result.final_path.rsplit('/', 1)[-1]} test psnr "
+          f"{float(np.mean(reloaded)):.6f} dB, |delta| {delta:.3g} (tol 1e-4)", flush=True)
+    check(delta <= 1e-4, f"the final checkpoint renders {np.mean(reloaded)}, not {psnr_final}")
+    phase_done("reference", t0)
 
-    streams = capture_streams(torch, dev, cfg, scene, result.field, result.grid_size)
+    t0 = time.perf_counter()
+    streams.update(capture_streams(torch, state, "300"))
+    del result, state, handle
+    torch.cuda.empty_cache()
     cases += [kernel_case(torch, name, *stream) for name, stream in streams.items()]
     del streams
+    torch.cuda.empty_cache()
+    phase_done("real_streams", t0)
+
+    # ---- the second path: synth_sphere as written, counts to 0 again ----
+    t0 = time.perf_counter()
+    sphere_cfg = load_config("configs/synth_sphere.txt", dict(
+        stratify=0, stratify_render=0, basedir=workdir))
+    sphere, _ = drive(torch, "sphere_path", sphere_cfg, make_synthetic_scene_arrays(**SPHERE),
+                      kernels, sphere_cfg.n_iters)
+    sphere_psnr = float(np.mean(sphere.final_psnrs))
+    print(f"sphere_path: final grid {sphere.state.geometry.grid_size}, test psnr "
+          f"{sphere_psnr:.4f} dB (min {SPHERE_MIN_PSNR})", flush=True)
+    check(sphere_psnr >= SPHERE_MIN_PSNR, f"synth_sphere test psnr {sphere_psnr} < {SPHERE_MIN_PSNR}")
+    del sphere
+    phase_done("sphere_path", t0)
 
     # the headline numbers are density_128's, the main path's widest
-    # scatter; "shapes" carries the other main-path shapes beside it.
-    # "launches" counts calls of the kernel's entry point, each of which
-    # enqueues the grids in "grids"; every time covers both.
+    # scatter in its first segment; "shapes" carries the other main-path
+    # shapes beside it.  "launches" counts calls of the kernel's entry
+    # point on the main path, each of which enqueues the grids in "grids";
+    # every time covers both.
     main_cases = [c for c in cases if c["case"] in MAIN_SHAPES]
+    check(len(main_cases) == len(MAIN_SHAPES), "a main-path kernel case is missing")
     head = main_cases[0]
     line = {"kernels": [{
         "name": name,
@@ -415,11 +578,6 @@ def main() -> None:
                    for c in main_cases],
     } for name, (_, src, replaces, grids) in kernels.items()]}
     print(json.dumps(line), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Carry weights across from the JAX package.
+"""Carry weights across between the port and the JAX package.
 
 The JAX params pytree flattens (tensorf_tpu/utils/ckpt.py::_flatten) to
 ``{"density_plane/0": ndarray, ..., "render/l1/w": ndarray}``.  Both
@@ -21,4 +21,13 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {
         key.replace("/", "."): torch.from_numpy(np.array(value, dtype=np.float32))
         for key, value in flat.items()
+    }
+
+
+def params_to_jax(field: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_jax``: a field's parameters as flat JAX
+    keys ('.' -> '/') with float32 numpy arrays."""
+    return {
+        name.replace(".", "/"): p.detach().cpu().numpy().astype(np.float32)
+        for name, p in field.named_parameters()
     }

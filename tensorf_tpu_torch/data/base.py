@@ -1,5 +1,6 @@
 """Common dataset plumbing: eager in-memory ray stores (numpy) — a copy of
-tensorf_tpu/data/base.py with PIL imported only where a file is read."""
+tensorf_tpu/data/base.py with PIL imported only where a file is read; an
+in-memory image is downsampled by a numpy copy of PIL's LANCZOS."""
 
 from __future__ import annotations
 
@@ -37,15 +38,62 @@ def select_frame_indices(
     return idxs
 
 
+_PRECISION_BITS = 22  # Pillow's fixed-point coefficients for 8-bit images
+
+
+def _lanczos_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One separable Lanczos-3 pass of an int64 image along ``axis``, with
+    Pillow's coefficients (Resample.c precompute_coeffs, rounded to 22-bit
+    fixed point) and its clip to [0, 255]."""
+    in_size = img.shape[axis]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    img = np.moveaxis(img, axis, 0)
+    out = np.full((out_size,) + img.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), in_size) - xmin
+        x = (np.arange(n) + xmin - center + 0.5) / filterscale
+        w = np.where((x >= -3.0) & (x < 3.0), np.sinc(x) * np.sinc(x / 3), 0.0)
+        if w.sum() != 0.0:
+            w = w / w.sum()
+        w = w * (1 << _PRECISION_BITS)
+        k = np.trunc(np.where(w < 0, w - 0.5, w + 0.5)).astype(np.int64)
+        out[xx] += np.tensordot(k, img[xmin : xmin + n], axes=(0, 0))
+    return np.moveaxis(np.clip(out >> _PRECISION_BITS, 0, 255), 0, axis)
+
+
+def resize_lanczos(img: np.ndarray, img_wh) -> np.ndarray:
+    """uint8 (H, W, C) -> uint8 (h, w, C), (w, h) = ``img_wh``: the pixels
+    of PIL's ``Image.resize(img_wh, LANCZOS)``, which premultiplies RGBA by
+    its alpha around the two passes, in numpy."""
+    out = img.astype(np.int64)
+    rgba = out.shape[-1] == 4
+    if rgba:
+        alpha = out[..., 3:]
+        t = out[..., :3] * alpha + 128
+        out = np.concatenate([((t >> 8) + t) >> 8, alpha], axis=-1)
+    out = _lanczos_pass(_lanczos_pass(out, 1, int(img_wh[0])), 0, int(img_wh[1]))
+    if rgba:
+        alpha = out[..., 3:]
+        unmul = np.clip(255 * out[..., :3] // np.maximum(alpha, 1), 0, 255)
+        rgb = np.where((alpha == 0) | (alpha == 255), out[..., :3], unmul)
+        out = np.concatenate([rgb, alpha], axis=-1)
+    return out.astype(np.uint8)
+
+
 def image_to_rows(img, img_wh, downsample: float) -> np.ndarray:
     """A PIL image or a uint8 (H, W, C) array -> float32 (H*W, C) in [0, 1],
-    LANCZOS-resized to ``img_wh`` on downsample."""
+    LANCZOS-resized to ``img_wh`` on downsample (an array without PIL)."""
     if downsample != 1.0:
-        from PIL import Image
-
         if isinstance(img, np.ndarray):
-            img = Image.fromarray(img)
-        img = img.resize(img_wh, Image.LANCZOS)
+            img = resize_lanczos(img, img_wh)
+        else:
+            from PIL import Image
+
+            img = img.resize(img_wh, Image.LANCZOS)
     arr = np.asarray(img, dtype=np.float32) / 255.0
     return arr.reshape(-1, arr.shape[-1]) if arr.ndim == 3 else arr.reshape(-1, 1)
 

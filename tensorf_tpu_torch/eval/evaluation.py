@@ -1,0 +1,131 @@
+"""Evaluation entry points: test-set metrics and the mid-training PSNR sweep
+(counterpart of the uniform path of tensorf_tpu/eval/evaluation.py).
+
+``evaluation`` renders each (stacked) view in chunks and computes its PSNR,
+SSIM and LPIPS (None -> NaN).  Only when ``savePath`` is given does it
+write the prediction, ground-truth and rgb+depth PNGs, the two videos and
+mean.txt; imageio is imported there and nowhere else.  Trajectory
+rendering (``evaluation_path``) and stratified serving are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..models.alpha_mask import AlphaGridMask
+from ..render.chunked import render_chunked
+from .metrics import psnr as psnr_fn
+from .metrics import rgb_lpips, rgb_ssim
+
+
+@dataclasses.dataclass
+class RendererHandle:
+    """Everything needed to render rays with the current model state."""
+
+    field: torch.nn.Module
+    alpha_mask: Optional[AlphaGridMask]
+    aabb: torch.Tensor  # (2, 3) on the field's device
+    step_size: float
+    n_samples: int
+    white_bg: bool
+    shade_top_k: Optional[int] = None
+    fused: bool = True
+
+    def render(self, rays, chunk: int = 8192):
+        """(M, 6) rays -> (rgb (M, 3), depth (M,)) numpy, shaded samples."""
+        rgb, depth, n_valid = render_chunked(
+            self.field, self.alpha_mask, rays, self.aabb, chunk=chunk,
+            step_size=float(self.step_size), n_samples=int(self.n_samples),
+            white_bg=self.white_bg, shade_top_k=self.shade_top_k, fused=self.fused,
+        )
+        return rgb.cpu().numpy(), depth.cpu().numpy(), n_valid
+
+
+def _depth_jet(depth: np.ndarray, near_far) -> np.ndarray:
+    """(H, W) depth over [near, far] -> uint8 RGB JET colormap (the numpy
+    colormap of tensorf_tpu/utils/misc.py, in RGB order)."""
+    mi, ma = float(near_far[0]), float(near_far[1])
+    x = (np.nan_to_num(depth) - mi) / (ma - mi + 1e-8)
+    t = (255 * np.clip(x, 0, 1)).astype(np.uint8).astype(np.float32) / 255.0
+    rgb = [np.clip(1.5 - np.abs(4 * t - c), 0, 1) for c in (3, 2, 1)]
+    return (np.stack(rgb, axis=-1) * 255).astype(np.uint8)
+
+
+def _write_video(imageio, path: str, frames: List[np.ndarray], fps: int = 30) -> None:
+    try:
+        imageio.mimwrite(path, np.stack(frames), fps=fps, quality=10)
+    except Exception as e:  # no mp4 backend: write a GIF beside it
+        gif = os.path.splitext(path)[0] + ".gif"
+        imageio.mimwrite(gif, np.stack(frames), format="GIF", duration=1000.0 / fps, loop=0)
+        print(f"[eval] no mp4 backend ({type(e).__name__}); wrote {gif}")
+
+
+def evaluation(
+    test_dataset,
+    handle: RendererHandle,
+    savePath: Optional[str] = None,
+    chunk: int = 8192,
+) -> List[float]:
+    """Render the stacked dataset's views and return their PSNRs
+    (reference renderer.py:148-225)."""
+    PSNRs, ssims, l_alex, l_vgg = [], [], [], []
+    rgb_frames, depth_frames = [], []
+    W, H = test_dataset.img_wh
+    imageio = None
+    if savePath is not None:
+        import imageio.v2 as imageio
+
+        for sub in ("prediction", "ground_truth", "rgbd"):
+            os.makedirs(f"{savePath}/{sub}", exist_ok=True)
+
+    for idx in range(test_dataset.all_rays.shape[0]):
+        rays = np.asarray(test_dataset.all_rays[idx]).reshape(-1, 6)
+        rgb_map, depth_map, _ = handle.render(rays, chunk=chunk)
+        rgb_map = np.clip(rgb_map, 0, 1).reshape(H, W, 3)
+        has_gt = len(test_dataset.all_rgbs) > 0
+        if has_gt:
+            gt_rgb = np.asarray(test_dataset.all_rgbs[idx]).reshape(H, W, 3)
+            PSNRs.append(psnr_fn(rgb_map, gt_rgb))
+            ssims.append(rgb_ssim(rgb_map, gt_rgb, 1))
+            la, lv = rgb_lpips(gt_rgb, rgb_map, "alex"), rgb_lpips(gt_rgb, rgb_map, "vgg")
+            if (la is None or lv is None) and not l_alex:
+                print("[eval] LPIPS weights unavailable — mean.txt LPIPS lines will be NaN")
+            l_alex.append(float("nan") if la is None else la)
+            l_vgg.append(float("nan") if lv is None else lv)
+        if imageio is None:
+            continue
+        rgb8 = (rgb_map * 255).astype(np.uint8)
+        depth_vis = _depth_jet(depth_map.reshape(H, W), test_dataset.near_far)
+        rgb_frames.append(rgb8)
+        depth_frames.append(depth_vis)
+        imageio.imwrite(f"{savePath}/prediction/{idx:03d}.png", rgb8)
+        if has_gt:
+            imageio.imwrite(f"{savePath}/ground_truth/{idx:03d}.png",
+                            (np.clip(gt_rgb, 0, 1) * 255).astype(np.uint8))
+        imageio.imwrite(f"{savePath}/rgbd/{idx:03d}.png",
+                        np.concatenate([rgb8, depth_vis], axis=1))
+
+    if imageio is not None:
+        _write_video(imageio, f"{savePath}/video.mp4", rgb_frames)
+        _write_video(imageio, f"{savePath}/depthvideo.mp4", depth_frames)
+        if PSNRs:
+            # the reference's 4-line mean.txt: psnr, ssim, lpips-alex, lpips-vgg
+            lines = [np.mean(PSNRs), np.mean(ssims), np.mean(l_alex), np.mean(l_vgg)]
+            np.savetxt(f"{savePath}/mean.txt", np.asarray(lines, np.float64))
+    return PSNRs
+
+
+def psnrs_calculate(handle: RendererHandle, dataset, chunk: int = 4096) -> List[float]:
+    """Mid-training test-set PSNR sweep (reference loss.py:10-57)."""
+    PSNRs = []
+    for idx in range(dataset.all_rays.shape[0]):
+        rgb_map, _, _ = handle.render(np.asarray(dataset.all_rays[idx]).reshape(-1, 6), chunk=chunk)
+        if len(dataset.all_rgbs):
+            gt = np.asarray(dataset.all_rgbs[idx]).reshape(-1, 3)
+            PSNRs.append(psnr_fn(np.clip(rgb_map, 0, 1), gt))
+    return PSNRs

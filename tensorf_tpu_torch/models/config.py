@@ -9,7 +9,8 @@ step = mean(units)*step_ratio; n_samples = diag/step + 1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import List, Tuple
 
 import numpy as np
 
@@ -117,3 +118,11 @@ def cal_n_samples(reso, step_ratio: float = 0.5) -> int:
     """||reso||2 / step_ratio (reference utils.py:124-125)."""
     return int(np.linalg.norm(reso) / step_ratio)
 
+
+def n_voxel_schedule(n_init: int, n_final: int, n_events: int) -> List[int]:
+    """Geometric (log-space) voxel counts of the upsample events, one per
+    event (reference train.py:209-215)."""
+    return [
+        int(round(v))
+        for v in np.exp(np.linspace(math.log(n_init), math.log(n_final), n_events + 1))
+    ][1:]

@@ -1,6 +1,6 @@
 """Tensor factorizations: TensorVMSplit (counterpart of
-tensorf_tpu/models/tensorf.py).  TensorCP, TensorVM and the shape-changing
-schedule events (upsample, shrink) are not ported yet.
+tensorf_tpu/models/tensorf.py), with the shape-changing schedule events
+(upsample, shrink).  TensorCP and TensorVM are not ported yet.
 
 Layout, as in the JAX package:
   * plane factor i: (H, W, R) with H = grid[mat_mode[i][1]],
@@ -27,6 +27,7 @@ from ..ops.grid_sample import (
     line_sample_matmul,
     make_footprint_2d,
 )
+from ..ops.resize import resize_bilinear_align_corners, resize_linear_align_corners
 from ..utils.device import resolve_device
 from .config import MAT_MODE, VEC_MODE, ModelConfig
 from .shading import init_shading
@@ -229,6 +230,42 @@ class TensorVMSplit(nn.Module):
 
     def tv_app(self) -> torch.Tensor:
         return sum(_tv_2d(p) * 1e-2 for p in self.app_plane)
+
+    # ---- shape-changing schedule events -----------------------------------
+    # Each replaces the factor Parameters with new ones (an optimizer built
+    # before the event holds the old ones and must be rebuilt).
+
+    def _replace_factors(self, make_plane, make_line) -> None:
+        for field in ("density", "app"):
+            planes = getattr(self, f"{field}_plane")
+            lines = getattr(self, f"{field}_line")
+            for i in range(3):
+                planes[i] = nn.Parameter(make_plane(i, planes[i].detach()))
+                lines[i] = nn.Parameter(make_line(i, lines[i].detach()))
+
+    @torch.no_grad()
+    def upsample(self, grid_size) -> None:
+        """Bilinear align_corners resize of every factor to ``grid_size``
+        (X, Y, Z) (reference tensoRF.py:267-288)."""
+        g = tuple(int(v) for v in grid_size)
+        self._replace_factors(
+            lambda i, p: resize_bilinear_align_corners(p, g[MAT_MODE[i][1]], g[MAT_MODE[i][0]]),
+            lambda i, l: resize_linear_align_corners(l, g[VEC_MODE[i]]),
+        )
+
+    @torch.no_grad()
+    def shrink(self, t_l, b_r) -> None:
+        """Voxel-aligned crop of every factor to [t_l, b_r) per axis
+        (reference tensoRF.py:290-314)."""
+
+        def plane(i, p):
+            m0, m1 = MAT_MODE[i]
+            return p[t_l[m1] : b_r[m1], t_l[m0] : b_r[m0], :].clone()
+
+        def line(i, l):
+            return l[t_l[VEC_MODE[i]] : b_r[VEC_MODE[i]], :].clone()
+
+        self._replace_factors(plane, line)
 
 
 FIELD_MODELS = {TensorVMSplit.name: TensorVMSplit}

@@ -5,9 +5,11 @@ from .grid_sample import (
     gather_rows,
     grid_sample_1d,
     grid_sample_2d,
+    grid_sample_3d,
     line_sample_matmul,
     make_footprint_2d,
 )
 from .rays import aabb_entry_exit, sample_along_rays
 from .render_math import exclusive_transmittance, raw2alpha
+from .resize import resize_bilinear_align_corners, resize_linear_align_corners
 from .scatter_add import scatter_add, scatter_add_reference

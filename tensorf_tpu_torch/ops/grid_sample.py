@@ -157,3 +157,33 @@ def line_sample_matmul(line: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
         cols == i0[:, None] + 1.0, w1[:, None], zero
     )
     return (a @ line).reshape(*shape, C)
+
+
+def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of a single-channel (D, H, W) volume at coords
+    (..., 3) in [-1, 1]; ``coords[..., 0]`` indexes W, ``[..., 1]`` H and
+    ``[..., 2]`` D (align_corners=True, zeros padding).  Returns (...,).
+    The alpha mask's lookup: no gradient flows to the volume."""
+    D, H, W = volume.shape
+    shape = coords.shape[:-1]
+    coords = coords.reshape(-1, 3)
+    x0, x1, wx, bx0, bx1 = _tap_1d(coords[:, 0], W)
+    y0, y1, wy, by0, by1 = _tap_1d(coords[:, 1], H)
+    z0, z1, wz, bz0, bz1 = _tap_1d(coords[:, 2], D)
+    flat = volume.reshape(-1)
+
+    def tap(zi, yi, xi, wzt, wyt, wxt):
+        v = flat[(zi * (H * W) + yi * W + xi).long()]
+        return v * (wzt * wyt * wxt)
+
+    out = (
+        tap(z0, y0, x0, (1 - wz) * bz0, (1 - wy) * by0, (1 - wx) * bx0)
+        + tap(z0, y0, x1, (1 - wz) * bz0, (1 - wy) * by0, wx * bx1)
+        + tap(z0, y1, x0, (1 - wz) * bz0, wy * by1, (1 - wx) * bx0)
+        + tap(z0, y1, x1, (1 - wz) * bz0, wy * by1, wx * bx1)
+        + tap(z1, y0, x0, wz * bz1, (1 - wy) * by0, (1 - wx) * bx0)
+        + tap(z1, y0, x1, wz * bz1, (1 - wy) * by0, wx * bx1)
+        + tap(z1, y1, x0, wz * bz1, wy * by1, (1 - wx) * bx0)
+        + tap(z1, y1, x1, wz * bz1, wy * by1, wx * bx1)
+    )
+    return out.reshape(shape)

@@ -4,7 +4,8 @@ tensorf_tpu/render/volume.py), for the unbudgeted non-NDC path.
 Dead samples contribute exactly zero density / radiance through ``where``
 gates over the full (B, n_samples) lattice.  Shading runs where the weight
 passes ``ray_march_weight_thres`` — over every sample, or (``shade_top_k``)
-over the top-K weights per ray only.  Sample budgets, the alpha mask, NDC
+over the top-K weights per ray only.  With an alpha mask, a sample lives
+only where the mask's nearest-neighbour gate is set.  Sample budgets, NDC
 rays and serving window bits are not ported yet and raise.
 """
 
@@ -14,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..models.alpha_mask import AlphaGridMask, sample_alpha_gate
 from ..models.config import ModelConfig
 from ..models.shading import apply_shading
 from ..ops.freq_mask import FreeMasks
@@ -61,14 +63,15 @@ def render_rays(
     shade_top_k: Optional[int] = None,
     fused: bool = True,
     sample_budget: Optional[int] = None,
-    alpha_mask=None,
+    alpha_mask: Optional[AlphaGridMask] = None,
     cand_window_bits=None,
     u: Optional[torch.Tensor] = None,
     flip: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     """Volume-render a batch of rays (B, 6) -> RenderOutput.
 
-    ``field`` is a TensorVMSplit; ``masks`` the per-step FreeNeRF bundle.
+    ``field`` is a TensorVMSplit; ``masks`` the per-step FreeNeRF bundle;
+    ``alpha_mask`` (or None) gates samples by occupancy.
     Where the JAX version takes a key, this takes the noise itself: ``u``
     (B, 1) is the per-ray lattice jitter and ``flip`` (scalar 0/1) the
     train-time random white-background flip for datasets whose background
@@ -76,8 +79,6 @@ def render_rays(
     """
     if sample_budget is not None and sample_budget < n_samples:
         raise NotImplementedError("sample budgets are not ported yet")
-    if alpha_mask is not None:
-        raise NotImplementedError("the alpha mask is not ported yet")
     if ndc_ray:
         raise NotImplementedError("NDC rays are not ported yet")
     if cand_window_bits is not None:
@@ -94,6 +95,9 @@ def render_rays(
     dists = torch.cat(
         [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
     )
+    if alpha_mask is not None:
+        # occupancy gate (reference tensorBase.py:349-354)
+        ray_valid = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)
     mean_alive = torch.mean(torch.sum(ray_valid.to(torch.float32), dim=-1))
     xyz_n = normalize_coord(xyz, aabb)  # (B, N, 3)
     N = n_samples

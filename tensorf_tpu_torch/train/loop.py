@@ -1,18 +1,25 @@
-"""Training loop for the first schedule segment (counterpart of the setup
-and first segment of tensorf_tpu/train/loop.py::reconstruction).
+"""The training loop (counterpart of tensorf_tpu/train/loop.py).
 
-``train_steps`` parses nothing itself: it takes a TrainConfig, builds the
-ray store, filters it by the scene bbox, initializes the field, takes
-``n_steps`` train steps, then renders one test view in chunks with no
-jitter and reports its PSNR.  Schedule events (upsample, alpha mask,
-shrink), checkpoints, ray stratification, sample budgets and multi-device
-runs are not ported yet; a config that sets stratification or a budget
-raises NotImplementedError.
+``reconstruction`` runs a config's whole coarse-to-fine schedule: the
+alpha-mask events (shrink to the tight bbox at the first, alpha-based ray
+re-filtering at the second, the L1 weight switch), the voxel upsamples
+(with an optimizer reset at every shape change), the periodic and final
+``.npz`` checkpoints and the test-set evaluations.  ``render_test`` is the
+render-only entry on a checkpoint; ``train_steps`` takes a few steps of
+the first segment and renders one view (profile_step.py uses it).
+
+Each event is a function of a ``TrainState`` (``alpha_mask_event``,
+``upsample_event``), so the tests can hold it against the JAX loop's own
+event code.  Ray stratification, sample budgets, resume, NDC rays, the
+progress figures and trajectory rendering are not ported yet: a config
+that asks for them raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import shutil
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -21,26 +28,33 @@ import torch
 
 from ..config.schema import TrainConfig, model_config_from
 from ..data import dataset_dict
-from ..models.config import GridGeometry, cal_n_samples, n_to_reso
+from ..eval.evaluation import RendererHandle, evaluation, psnrs_calculate
+from ..models.config import GridGeometry, cal_n_samples, n_to_reso, n_voxel_schedule
 from ..models.tensorf import FIELD_MODELS
-from ..ops.freq_mask import FreeMasks
-from ..render.culling import filter_rays_bbox
-from ..render.volume import render_rays
+from ..ops.freq_mask import free_masks
+from ..render.culling import filter_rays_alpha, filter_rays_bbox, update_alpha_mask
+from ..utils.ckpt import load_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from .losses import LossWeights
 from .optim import make_optimizer
 from .sampler import SimpleSampler
 from .step import TrainStatics, make_train_step
 
+# knobs of the JAX trainer that the port does not honour yet: a run that
+# sets them would compute something else than its config states
+_UNPORTED_TRAIN = ("stratify", "sample_budget", "prefilter_budget")
+_UNPORTED_SCHEDULE = ("stratify", "stratify_render", "sample_budget", "prefilter_budget",
+                      "resume", "render_train", "render_path", "ndc_ray")
 
-class TrainResult(NamedTuple):
-    total_loss: List[float]  # per step
-    step_ms: float  # mean ms/step over steps 2..n (host clock, device synced at both ends)
-    test_psnr: float
-    test_rgb: np.ndarray  # (H, W, 3) rendered test view
-    n_samples: int
-    grid_size: Tuple[int, int, int]
-    field: torch.nn.Module  # the trained field
+
+def _refuse_unported(cfg: TrainConfig, keys) -> None:
+    unported = [k for k in keys if getattr(cfg, k)]
+    if unported:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(unported)}; set "
+            + ", ".join(f"{k}=0" for k in unported)
+            + " to run without"
+        )
 
 
 def _sync(device: torch.device) -> None:
@@ -70,14 +84,393 @@ def _datasets(cfg: TrainConfig, scene: Optional[Dict[str, dict]]):
     return train, test
 
 
-@torch.no_grad()
-def render_view(field, rays: torch.Tensor, *, chunk: int, **render_kw) -> torch.Tensor:
-    """Deterministic (no jitter) render of (N, 6) rays in chunks -> (N, 3)."""
-    out = [
-        render_rays(field, rays[s : s + chunk], FreeMasks(), u=None, **render_kw).rgb
-        for s in range(0, rays.shape[0], chunk)
-    ]
-    return torch.cat(out)
+class TrainState:
+    """What the schedule carries from segment to segment: the field and its
+    optimizer, the mask, the grid geometry and lattice, the ray store and
+    its sampler, and the loss and LR settings of the current segment."""
+
+    def __init__(self, cfg: TrainConfig, device: torch.device, scene=None):
+        self.cfg = cfg
+        self.device = device
+        self.train_ds, self.test_ds = _datasets(cfg, scene)
+        self.white_bg = self.train_ds.white_bg
+        self.near_far = tuple(float(v) for v in self.train_ds.near_far)
+        aabb = np.asarray(self.train_ds.scene_bbox, np.float32).reshape(2, 3)
+        self.alpha_mask = None
+        if cfg.ckpt_path:
+            # restart from a checkpoint: its field, grid, aabb and mask
+            _, self.field, aabb, grid_size, self.alpha_mask, _ = load_checkpoint(
+                cfg.ckpt_path, device
+            )
+            print(f"resumed from {cfg.ckpt_path} (grid {grid_size})")
+        else:
+            if cfg.model_name not in FIELD_MODELS:
+                raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet")
+            model_cfg = model_config_from(cfg).replace(near_far=self.near_far)
+            grid_size = n_to_reso(cfg.N_voxel_init, aabb)
+            self.field = FIELD_MODELS[cfg.model_name](
+                model_cfg, grid_size, device, torch.Generator().manual_seed(cfg.seed)
+            )
+        self.geometry = GridGeometry.create(aabb, grid_size, cfg.step_ratio)
+        self.n_samples = min(int(cfg.nSamples), cal_n_samples(grid_size, cfg.step_ratio))
+        self.n_voxel_list = n_voxel_schedule(cfg.N_voxel_init, cfg.N_voxel_final,
+                                             len(cfg.upsamp_list))
+        decay_iters = cfg.lr_decay_iters if cfg.lr_decay_iters > 0 else cfg.n_iters
+        self.lr_factor = cfg.lr_decay_target_ratio ** (1 / decay_iters)
+        self.lr_scale = 1.0
+        self.optimizer = make_optimizer(self.field, cfg.lr_init, cfg.lr_basis, self.lr_factor)
+        self.l1_weight = cfg.L1_weight_inital
+        self.ratio = cfg.mask_ratio_list[0] if cfg.mask_ratio_list else 1.0
+        self.rays, self.rgbs = filter_rays_bbox(
+            self.train_ds.all_rays, self.train_ds.all_rgbs, aabb, device
+        )
+        self.sampler = SimpleSampler(self.rays.shape[0], cfg.batch_size, cfg.seed)
+
+    @property
+    def aabb(self) -> torch.Tensor:
+        return torch.as_tensor(self.geometry.aabb_np, device=self.device)
+
+    def drop_optimizer(self) -> None:
+        """Free the Adam state and the gradients before the factors change
+        shape (at 300^3 they are the size of the field twice over)."""
+        self.optimizer = None
+        self.field.zero_grad(set_to_none=True)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def reset_optimizer(self, lr_scale: float) -> None:
+        self.lr_scale = lr_scale
+        self.optimizer = make_optimizer(
+            self.field, self.cfg.lr_init * lr_scale, self.cfg.lr_basis * lr_scale, self.lr_factor
+        )
+
+
+def build_statics(state: TrainState) -> TrainStatics:
+    """The step's statics for the current segment (tensorf_tpu loop.py
+    build_statics, unbudgeted and unstratified)."""
+    cfg = state.cfg
+    if state.alpha_mask is not None:
+        # top-K shading once the mask concentrates the weights on surfaces
+        top_k = cfg.shade_top_k if cfg.shade_top_k > 0 else None
+    else:
+        top_k = cfg.prefilter_shade_top_k if cfg.prefilter_shade_top_k > 0 else None
+    return TrainStatics(
+        n_samples=state.n_samples,
+        step_size=state.geometry.step_size,
+        white_bg=state.white_bg,
+        ndc_ray=False,
+        total_steps=cfg.n_iters,
+        lr_factor=state.lr_factor,
+        weights=LossWeights(
+            ortho=cfg.Ortho_weight if "VM" in cfg.model_name else 0.0,
+            l1=state.l1_weight,
+            tv_density=cfg.TV_weight_density,
+            tv_app=cfg.TV_weight_app,
+            occ=cfg.occ_reg_loss_mult if (cfg.occ_reg or cfg.occ_reg_loss_mult > 0) else 0.0,
+            occ_range=cfg.occ_reg_range,
+            occ_wb_range=cfg.occ_wb_range,
+            occ_wb_prior=bool(cfg.occ_wb_prior),
+        ),
+        free_reg=bool(cfg.free_reg),
+        free_decomp=bool(cfg.free_decomp),
+        freq_reg_ratio=float(cfg.freq_reg_ratio) * float(state.ratio),
+        max_visible=cfg.max_vis_freq_ratio if cfg.max_vis_freq_ratio > 0 else None,
+        shade_top_k=top_k,
+        fused=bool(cfg.fused_gathers),
+    )
+
+
+def make_handle(state: TrainState) -> RendererHandle:
+    cfg = state.cfg
+    return RendererHandle(
+        field=state.field,
+        alpha_mask=state.alpha_mask,
+        aabb=state.aabb,
+        step_size=state.geometry.step_size,
+        n_samples=state.n_samples,
+        white_bg=state.white_bg,
+        shade_top_k=cfg.shade_top_k if cfg.shade_top_k > 0 else None,
+        fused=bool(cfg.fused_gathers),
+    )
+
+
+def alpha_mask_event(state: TrainState, iteration: int) -> dict:
+    """The alpha-mask event at ``iteration`` (tensorf_tpu loop.py:1196-1304):
+    rebuild the mask; at the first event shrink the factors to the tight
+    bbox and reset the optimizer; at the second re-filter the ray store by
+    the mask; switch the L1 weight to ``L1_weight_rest``."""
+    cfg, field = state.cfg, state.field
+    gs = state.geometry.grid_size
+    # the mask lattice is the grid, capped at 256 per axis above 256^3
+    reso_mask = gs if int(np.prod(gs)) < 256**3 else tuple(min(g, 256) for g in gs)
+    den_mask = None
+    if cfg.free_reg and cfg.free_decomp:
+        mc = field.cfg
+        den_mask = free_masks(
+            mc.pos_bit_length, mc.view_bit_length, mc.fea_bit_length,
+            mc.density_n_comp, mc.app_n_comp, iteration, cfg.n_iters,
+            float(cfg.freq_reg_ratio) * float(state.ratio), device=state.device,
+        ).den
+    state.alpha_mask, new_aabb, occupancy = update_alpha_mask(
+        field, state.alpha_mask, state.geometry.aabb_np, reso_mask,
+        state.geometry.step_size, den_mask,
+    )
+    record = dict(event="alpha_mask", iteration=iteration, occupancy=occupancy,
+                  mask_reso=tuple(int(r) for r in reso_mask), tight_aabb=new_aabb.tolist())
+    if iteration == cfg.update_AlphaMask_list[0]:
+        # shrink to the tight bbox, voxel-aligned (tensoRF.py:290-327)
+        old = state.geometry
+        units = old.units
+        t_l = np.round(np.round((new_aabb[0] - old.aabb_np[0]) / units)).astype(np.int64)
+        b_r = np.round((new_aabb[1] - old.aabb_np[0]) / units).astype(np.int64) + 1
+        b_r = np.minimum(b_r, np.asarray(old.grid_size))
+        state.drop_optimizer()
+        field.shrink(tuple(t_l.tolist()), tuple(b_r.tolist()))
+        gs_arr = np.asarray(old.grid_size, np.float64)
+        t_l_r = t_l / (gs_arr - 1)
+        b_r_r = (b_r - 1) / (gs_arr - 1)
+        corrected = np.stack([
+            (1 - t_l_r) * old.aabb_np[0] + t_l_r * old.aabb_np[1],
+            (1 - b_r_r) * old.aabb_np[0] + b_r_r * old.aabb_np[1],
+        ])
+        new_size = tuple((b_r - t_l).tolist())
+        # n_samples stays: only an upsample recomputes it
+        state.geometry = GridGeometry.create(corrected, new_size, cfg.step_ratio)
+        state.reset_optimizer(1.0)
+        record.update(shrink_grid=new_size)
+    if len(cfg.update_AlphaMask_list) > 1 and iteration == cfg.update_AlphaMask_list[1]:
+        # n_samples 256, the reference's default, not the step's lattice
+        state.rays, state.rgbs = filter_rays_alpha(
+            state.rays, state.rgbs, state.alpha_mask, state.geometry.aabb_np,
+            state.geometry.step_size, state.near_far,
+        )
+        state.sampler = SimpleSampler(state.rays.shape[0], cfg.batch_size, cfg.seed + iteration)
+        record.update(refiltered=True)
+    if state.l1_weight != cfg.L1_weight_rest and cfg.L1_weight_rest >= 0:
+        state.l1_weight = cfg.L1_weight_rest
+    record.update(_summary(state))
+    return record
+
+
+def upsample_event(state: TrainState, iteration: int) -> dict:
+    """The voxel-upsample event at ``iteration`` (tensorf_tpu
+    loop.py:1307-1338): the next voxel count of the schedule on the current
+    aabb, a new lattice, the factors resized, the optimizer reset."""
+    cfg = state.cfg
+    if len(cfg.upsamp_list) == len(cfg.mask_ratio_list):
+        state.ratio = cfg.mask_ratio_list[cfg.upsamp_list.index(iteration)]
+    n_voxels = state.n_voxel_list.pop(0)
+    new_grid = n_to_reso(n_voxels, state.geometry.aabb_np)
+    state.n_samples = min(int(cfg.nSamples), cal_n_samples(new_grid, cfg.step_ratio))
+    state.drop_optimizer()
+    state.field.upsample(new_grid)
+    state.geometry = GridGeometry.create(state.geometry.aabb_np, new_grid, cfg.step_ratio)
+    if cfg.lr_upsample_reset:
+        lr_scale = 1.0
+    else:
+        lr_scale = cfg.lr_decay_target_ratio ** (iteration / cfg.n_iters)
+    state.reset_optimizer(lr_scale)
+    return dict(event="upsample", iteration=iteration, n_voxels=n_voxels, **_summary(state))
+
+
+def _summary(state: TrainState) -> dict:
+    return dict(grid=tuple(state.geometry.grid_size), aabb=state.geometry.aabb_np.tolist(),
+                n_samples=state.n_samples, store=int(state.rays.shape[0]),
+                lr_scale=state.lr_scale, l1_weight=state.l1_weight)
+
+
+def _make_logfolder(cfg: TrainConfig) -> str:
+    """basedir/<YYYY-MM-DD>/<expname>, the date in Asia/Ho_Chi_Minh as the
+    reference writes it (train.py:193-200); emptied first on ``overwrt``."""
+    from datetime import datetime
+    from zoneinfo import ZoneInfo
+
+    date = datetime.now(ZoneInfo("Asia/Ho_Chi_Minh")).strftime("%Y-%m-%d")
+    logfolder = f"{cfg.basedir}/{date}/{cfg.expname}"
+    if cfg.overwrt and os.path.exists(logfolder):
+        shutil.rmtree(logfolder)
+    os.makedirs(logfolder, exist_ok=True)
+    return logfolder
+
+
+def _save(state: TrainState, path: str, iteration: int) -> str:
+    extra = dict(iteration=int(iteration), n_samples=int(state.n_samples),
+                 l1_weight=float(state.l1_weight), ratio=float(state.ratio),
+                 lr_scale=float(state.lr_scale))
+    return save_checkpoint(path, state.field, state.geometry.aabb_np, state.alpha_mask, extra)
+
+
+class ReconstructionResult(NamedTuple):
+    final_path: str  # the final checkpoint
+    total_loss: List[float]  # per step
+    test_psnrs: Dict[int, float]  # mean test-set PSNR at each vis_every iteration
+    final_psnrs: List[float]  # per test view after training (render_test=1)
+    segments: List[dict]  # steps, grid, n_samples, ms/step, peak GiB per segment
+    events: List[dict]  # each schedule event's outcome
+    state: TrainState
+
+
+def reconstruction(
+    cfg: TrainConfig,
+    scene: Optional[Dict[str, dict]] = None,
+    device=None,
+    *,
+    save_images: bool = True,
+    log: Callable[[str], None] = print,
+    on_step: Optional[Callable[[int, TrainState], None]] = None,
+) -> ReconstructionResult:
+    """Run ``cfg``'s schedule (tensorf_tpu loop.py:195-1420 with stratify=0
+    and no budgets).
+
+    ``scene`` is an in-memory dataset (data/synthetic.py); None reads
+    ``cfg.datadir``.  ``save_images`` writes the final evaluation's PNGs,
+    videos and mean.txt (needs imageio).  ``on_step(it, state)`` runs after
+    step ``it``, before that iteration's evaluation and events.  Segment
+    times exclude the evaluations and events between them; the first
+    segment's start after step 0.
+    """
+    device = resolve_device(device)
+    _refuse_unported(cfg, _UNPORTED_SCHEDULE)
+    state = TrainState(cfg, device, scene)
+    logfolder = _make_logfolder(cfg)
+    log(f"[port] {cfg.model_name} grid {state.geometry.grid_size} n_samples "
+        f"{state.n_samples} batch {cfg.batch_size} store {state.rays.shape[0]} rays "
+        f"on {device}; logfolder {logfolder}")
+
+    event_iters = set(cfg.update_AlphaMask_list) | set(cfg.upsamp_list)
+    noise = torch.Generator(device=device).manual_seed(cfg.seed)
+    step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
+    aabb = state.aabb
+    totals, segments, events, test_psnrs = [], [], [], {}
+    seg = None
+    run_tic = time.perf_counter()
+
+    def open_segment(start: int) -> dict:
+        _sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        return dict(start=start, grid=tuple(state.geometry.grid_size),
+                    n_samples=state.n_samples, store=int(state.rays.shape[0]),
+                    masked=state.alpha_mask is not None, t0=time.perf_counter(), paused=0.0)
+
+    def close_segment(seg: dict, end: int) -> None:
+        _sync(device)
+        seg["end"] = end
+        seg["ms_per_step"] = (time.perf_counter() - seg.pop("t0") - seg.pop("paused")) * 1e3 / (
+            end - seg["start"] + 1)
+        seg["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2**30
+                           if device.type == "cuda" else math.nan)
+        segments.append(seg)
+        log(f"[port] segment {seg['start']}..{end}: grid {seg['grid']} n_samples "
+            f"{seg['n_samples']} {seg['ms_per_step']:.3f} ms/step peak {seg['peak_gib']:.2f} GiB")
+
+    for iteration in range(cfg.n_iters):
+        ids = state.sampler.nextids().to(device)
+        metrics = step_fn(aabb, state.rays[ids], state.rgbs[ids], iteration, noise,
+                          state.alpha_mask)
+        totals.append(metrics["total_loss"])
+        if seg is None and iteration == 0:
+            seg = open_segment(1)
+        if on_step is not None:
+            on_step(iteration, state)
+        if iteration % max(int(cfg.progress_refresh_rate), 1) == 0:
+            log(f"Iteration {iteration:05d}: train_psnr = {float(metrics['psnr']):.2f} "
+                f"mse = {float(metrics['mse']):.6f} "
+                f"elapsed = {time.perf_counter() - run_tic:.1f}s")
+        boundary = iteration in event_iters or iteration == cfg.n_iters - 1
+        if boundary and seg is not None and iteration >= seg["start"]:
+            close_segment(seg, iteration)
+            seg = None
+
+        if cfg.vis_every > 0 and iteration % cfg.vis_every == 0 and iteration > 0:
+            _sync(device)
+            t0 = time.perf_counter()
+            test_psnrs[iteration] = float(np.mean(
+                psnrs_calculate(make_handle(state), state.test_ds, chunk=cfg.batch_size) or [0.0]
+            ))
+            log(f"[{iteration}] test psnr {test_psnrs[iteration]:.4f}")
+            if seg is not None:
+                seg["paused"] += time.perf_counter() - t0
+
+        if iteration in event_iters:
+            step_fn = None  # holds the optimizer, whose state the events drop
+            if iteration in cfg.update_AlphaMask_list:
+                events.append(alpha_mask_event(state, iteration))
+                log(f"[{iteration}] {events[-1]}")
+            if iteration in cfg.upsamp_list:
+                events.append(upsample_event(state, iteration))
+                log(f"[{iteration}] {events[-1]}")
+            step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
+            aabb = state.aabb
+            if iteration < cfg.n_iters - 1:
+                seg = open_segment(iteration + 1)
+
+        if iteration in (cfg.save_ckpt_every or []):
+            _save(state, f"{logfolder}/{iteration // 1000}k_{cfg.expname}.npz", iteration)
+
+    final_path = _save(state, f"{logfolder}/final_{cfg.expname}.npz", cfg.n_iters - 1)
+    elapsed = time.perf_counter() - run_tic
+    np.savetxt(f"{logfolder}/training_time.txt", np.asarray([elapsed]))
+    log(f"Total time {elapsed:.2f}s.")
+    final_psnrs = []
+    if cfg.render_test:
+        final_psnrs = evaluation(
+            state.test_ds, make_handle(state),
+            f"{logfolder}/imgs_test_all/" if save_images else None,
+        )
+        if final_psnrs:
+            log(f"======> {cfg.expname} test all psnr: {np.mean(final_psnrs)} <========")
+    totals = torch.stack(totals).tolist() if totals else []
+    return ReconstructionResult(final_path, totals, test_psnrs, final_psnrs, segments, events, state)
+
+
+def render_test(
+    cfg: TrainConfig,
+    scene: Optional[Dict[str, dict]] = None,
+    device=None,
+    *,
+    save_images: bool = True,
+    log: Callable[[str], None] = print,
+) -> List[float]:
+    """Render-only entry (reference train.py:77-165): load ``cfg.ckpt`` (or
+    ``ckpt_path``), render the test split and return its per-view PSNRs;
+    with ``render_test`` and ``save_images`` set, the images go beside the
+    checkpoint under imgs_test_all/."""
+    device = resolve_device(device)
+    _refuse_unported(cfg, _UNPORTED_SCHEDULE)
+    ckpt = cfg.ckpt or cfg.ckpt_path
+    if not ckpt or not os.path.exists(ckpt):
+        log("the ckpt path does not exists!!")
+        return []
+    model_cfg, field, aabb, grid_size, alpha_mask, _ = load_checkpoint(ckpt, device)
+    geometry = GridGeometry.create(aabb, grid_size, model_cfg.step_ratio)
+    _, test_ds = _datasets(cfg, scene)
+    handle = RendererHandle(
+        field=field,
+        alpha_mask=alpha_mask,
+        aabb=torch.as_tensor(geometry.aabb_np, device=device),
+        step_size=geometry.step_size,
+        n_samples=min(int(cfg.nSamples), geometry.n_samples),
+        white_bg=test_ds.white_bg,
+        shade_top_k=cfg.shade_top_k if cfg.shade_top_k > 0 else None,
+        fused=bool(cfg.fused_gathers),
+    )
+    psnrs = []
+    if cfg.render_test:
+        save = f"{os.path.dirname(ckpt)}/imgs_test_all/" if save_images else None
+        psnrs = evaluation(test_ds, handle, save)
+        log(f"======> {cfg.expname} test all psnr: {np.mean(psnrs)} <========")
+    return psnrs
+
+
+class TrainResult(NamedTuple):
+    total_loss: List[float]  # per step
+    step_ms: float  # mean ms/step over steps 2..n (host clock, device synced at both ends)
+    test_psnr: float
+    test_rgb: np.ndarray  # (H, W, 3) rendered test view
+    n_samples: int
+    grid_size: Tuple[int, int, int]
+    field: torch.nn.Module  # the trained field
 
 
 def train_steps(
@@ -94,8 +487,9 @@ def train_steps(
 
     ``scene`` is an in-memory dataset ({split: transforms dict with inline
     images}, see data/synthetic.py::make_synthetic_scene_arrays); None reads
-    ``cfg.datadir`` from disk.  ``on_step(it)`` runs after each step is
-    enqueued (profile_step.py brackets steps with it).
+    ``cfg.datadir`` from disk.  With ``cfg.ckpt_path`` set the steps start
+    from that checkpoint's field, grid and mask.  ``on_step(it)`` runs
+    after each step is enqueued (profile_step.py brackets steps with it).
     """
     device = resolve_device(device)
     if cfg.ndc_ray:
@@ -103,77 +497,23 @@ def train_steps(
     end = first_segment_end(cfg)
     if n_steps > end:
         raise ValueError(
-            f"the port runs the first schedule segment only: n_steps={n_steps} "
-            f"passes the first schedule event at iteration {end}"
+            f"train_steps runs the first schedule segment only: n_steps={n_steps} "
+            f"passes the first schedule event at iteration {end}; use reconstruction"
         )
-    # knobs of the JAX trainer not ported yet: a run that sets them would
-    # compute something else than its config states
-    unported = [k for k in ("stratify", "sample_budget", "prefilter_budget") if getattr(cfg, k)]
-    if unported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unported)}; set "
-            + ", ".join(f"{k}=0" for k in unported)
-            + " to run without"
-        )
-
-    train_ds, test_ds = _datasets(cfg, scene)
-    model_cfg = model_config_from(cfg).replace(
-        near_far=tuple(float(v) for v in train_ds.near_far)
-    )
-    aabb_np = np.asarray(train_ds.scene_bbox, np.float32).reshape(2, 3)
-    grid_size = n_to_reso(cfg.N_voxel_init, aabb_np)
-    if cfg.model_name not in FIELD_MODELS:
-        raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet")
-    field = FIELD_MODELS[cfg.model_name](
-        model_cfg, grid_size, device, torch.Generator().manual_seed(cfg.seed)
-    )
-    geometry = GridGeometry.create(aabb_np, grid_size, cfg.step_ratio)
-    n_samples = min(int(cfg.nSamples), cal_n_samples(grid_size, cfg.step_ratio))
-    decay_iters = cfg.lr_decay_iters if cfg.lr_decay_iters > 0 else cfg.n_iters
-    lr_factor = cfg.lr_decay_target_ratio ** (1 / decay_iters)
-    optimizer = make_optimizer(field, cfg.lr_init, cfg.lr_basis, lr_factor)
-
-    rays, rgbs = filter_rays_bbox(train_ds.all_rays, train_ds.all_rgbs, aabb_np, device)
-    sampler = SimpleSampler(rays.shape[0], cfg.batch_size, cfg.seed)
-    ratio = cfg.mask_ratio_list[0] if cfg.mask_ratio_list else 1.0
-    statics = TrainStatics(
-        n_samples=n_samples,
-        step_size=geometry.step_size,
-        white_bg=train_ds.white_bg,
-        ndc_ray=False,
-        total_steps=cfg.n_iters,
-        lr_factor=lr_factor,
-        weights=LossWeights(
-            ortho=cfg.Ortho_weight if "VM" in cfg.model_name else 0.0,
-            l1=cfg.L1_weight_inital,
-            tv_density=cfg.TV_weight_density,
-            tv_app=cfg.TV_weight_app,
-            occ=cfg.occ_reg_loss_mult if (cfg.occ_reg or cfg.occ_reg_loss_mult > 0) else 0.0,
-            occ_range=cfg.occ_reg_range,
-            occ_wb_range=cfg.occ_wb_range,
-            occ_wb_prior=bool(cfg.occ_wb_prior),
-        ),
-        free_reg=bool(cfg.free_reg),
-        free_decomp=bool(cfg.free_decomp),
-        freq_reg_ratio=float(cfg.freq_reg_ratio) * float(ratio),
-        max_visible=cfg.max_vis_freq_ratio if cfg.max_vis_freq_ratio > 0 else None,
-        # the first segment has no alpha mask: the pre-mask top-K applies
-        shade_top_k=cfg.prefilter_shade_top_k if cfg.prefilter_shade_top_k > 0 else None,
-        fused=bool(cfg.fused_gathers),
-    )
+    _refuse_unported(cfg, _UNPORTED_TRAIN)
+    state = TrainState(cfg, device, scene)
     log(
-        f"[port] {cfg.model_name} grid {grid_size} n_samples {n_samples} "
-        f"batch {cfg.batch_size} store {rays.shape[0]} rays on {device}"
+        f"[port] {cfg.model_name} grid {state.geometry.grid_size} n_samples {state.n_samples} "
+        f"batch {cfg.batch_size} store {state.rays.shape[0]} rays on {device}"
     )
-
-    step_fn = make_train_step(field, statics, optimizer)
+    step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
     noise = torch.Generator(device=device).manual_seed(cfg.seed)
-    aabb = torch.as_tensor(aabb_np, device=device)
+    aabb = state.aabb
     totals = []
     t_first = None
     for it in range(n_steps):
-        ids = sampler.nextids().to(device)
-        metrics = step_fn(aabb, rays[ids], rgbs[ids], it, noise)
+        ids = state.sampler.nextids().to(device)
+        metrics = step_fn(aabb, state.rays[ids], state.rgbs[ids], it, noise, state.alpha_mask)
         totals.append(metrics["total_loss"])
         if it == 0:
             _sync(device)
@@ -188,28 +528,19 @@ def train_steps(
     for it in range(0, n_steps, max(int(cfg.progress_refresh_rate), 1)):
         log(f"[port] iter {it}: loss {totals[it]:.6f}")
 
-    W, H = test_ds.img_wh
-    rgb = render_view(
-        field,
-        torch.as_tensor(test_ds.all_rays[0], device=device),
-        chunk=chunk,
-        aabb=aabb,
-        step_size=geometry.step_size,
-        n_samples=n_samples,
-        is_train=False,
-        white_bg=test_ds.white_bg,
-        shade_top_k=cfg.shade_top_k if cfg.shade_top_k > 0 else None,
-        fused=bool(cfg.fused_gathers),
-    ).reshape(H, W, 3).cpu().numpy()
-    gt = np.asarray(test_ds.all_rgbs[0], np.float32)
+    W, H = state.test_ds.img_wh
+    handle = make_handle(state)
+    rgb, _, _ = handle.render(state.test_ds.all_rays[0], chunk=chunk)
+    rgb = rgb.reshape(H, W, 3)
+    gt = np.asarray(state.test_ds.all_rgbs[0], np.float32)
     test_psnr = float(-10.0 * np.log10(np.mean((rgb - gt) ** 2)))
-    log(f"[port] test view 0 psnr {test_psnr:.3f}")
+    log(f"[port] test view 0 psnr {test_psnr:.4f}")
     return TrainResult(
         total_loss=totals,
         step_ms=step_ms,
         test_psnr=test_psnr,
         test_rgb=rgb,
-        n_samples=n_samples,
-        grid_size=tuple(grid_size),
-        field=field,
+        n_samples=state.n_samples,
+        grid_size=tuple(state.geometry.grid_size),
+        field=state.field,
     )

@@ -5,7 +5,9 @@ PyTorch runs it eagerly; there is no jit counterpart.  Where the JAX step
 splits a key, this step draws the same two pieces of noise from a
 torch.Generator on the device: the per-ray lattice jitter ``u`` (B, 1) and
 the background flip.  ``loss_fn`` takes them explicitly so tests can feed
-JAX's own draw.  The stratified sub-batches and sample budgets are not
+JAX's own draw.  The alpha mask rides along as an argument, as in the JAX
+step; the per-segment statics (lattice, top-K, L1 weight) come from the
+training loop.  The stratified sub-batches and sample budgets are not
 ported yet.
 """
 
@@ -15,6 +17,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..models.alpha_mask import AlphaGridMask
 from ..models.config import ModelConfig
 from ..ops.freq_mask import FreeMasks, free_masks
 from ..render.volume import render_rays
@@ -66,6 +69,7 @@ def loss_fn(
     step: int,
     u: Optional[torch.Tensor],
     flip: Optional[torch.Tensor],
+    alpha_mask: Optional[AlphaGridMask] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and its parts for one batch at iteration ``step``."""
     cfg = field.cfg
@@ -81,6 +85,7 @@ def loss_fn(
         ndc_ray=statics.ndc_ray,
         shade_top_k=statics.shade_top_k,
         fused=statics.fused,
+        alpha_mask=alpha_mask,
         u=u,
         flip=flip,
     )
@@ -128,17 +133,19 @@ def draw_noise(
 
 
 def make_train_step(field, statics: TrainStatics, optimizer):
-    """Returns ``step_fn(aabb, rays, rgbs, step, generator) -> metrics``,
-    which updates ``field`` in place through ``optimizer``."""
+    """Returns ``step_fn(aabb, rays, rgbs, step, generator, alpha_mask=None)
+    -> metrics``, which updates ``field`` in place through ``optimizer``."""
 
-    def step_fn(aabb, rays, rgbs, step: int, generator: torch.Generator):
+    def step_fn(aabb, rays, rgbs, step: int, generator: torch.Generator, alpha_mask=None):
         u, flip = draw_noise(generator, rays.shape[0], rays.device)
         optimizer.zero_grad()
-        total, metrics = loss_fn(field, statics, aabb, rays, rgbs, step, u, flip)
+        total, metrics = loss_fn(field, statics, aabb, rays, rgbs, step, u, flip, alpha_mask)
         total.backward()
         optimizer.step()
+        # detached, so a kept metric holds no graph (nor the parameters)
+        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
-        metrics["psnr"] = -10.0 * torch.log10(metrics["mse"].detach())
+        metrics["psnr"] = -10.0 * torch.log10(metrics["mse"])
         return metrics
 
     return step_fn

@@ -1,0 +1,80 @@
+"""Self-describing ``.npz`` checkpoints in the layout of
+tensorf_tpu/utils/ckpt.py, so a checkpoint loads in either package.
+
+Entries: every parameter under ``params/<flat JAX key>`` (channels-last
+planes, lines, basis, the shading MLP), ``kwargs`` (the JSON of the
+ModelConfig fields plus ``gridSize`` and ``extra``), ``aabb`` (2, 3) and,
+with a mask, ``alphaMask.{shape,mask,aabb}`` bit-packed.  Optimizer
+leaves (``opt/...``) and ``aux/...`` arrays are neither written nor read
+here: resume is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from ..convert import params_from_jax, params_to_jax
+from ..models.alpha_mask import AlphaGridMask, pack_mask, unpack_mask
+from ..models.config import ModelConfig
+from ..models.tensorf import FIELD_MODELS
+from .device import resolve_device
+
+
+def save_checkpoint(
+    path: str,
+    field,
+    aabb,
+    alpha_mask: Optional[AlphaGridMask] = None,
+    extra: Optional[Dict[str, Any]] = None,
+) -> str:
+    """Write ``field`` (its cfg, grid and params), ``aabb`` and the mask to
+    ``path`` through a ``.tmp`` file renamed into place; returns the path
+    written (``.npz`` appended when missing)."""
+    entries: Dict[str, np.ndarray] = {
+        f"params/{k}": v for k, v in params_to_jax(field).items()
+    }
+    kwargs = dataclasses.asdict(field.cfg)
+    kwargs["gridSize"] = [int(g) for g in field.grid_size]
+    if extra:
+        kwargs["extra"] = extra
+    entries["kwargs"] = np.frombuffer(json.dumps(kwargs).encode(), dtype=np.uint8)
+    entries["aabb"] = np.asarray(aabb, np.float32).reshape(2, 3)
+    if alpha_mask is not None:
+        entries.update(pack_mask(alpha_mask))
+    tmp = f"{path}.tmp"
+    np.savez(tmp, **entries)  # np.savez appends .npz
+    final = path if path.endswith(".npz") else f"{path}.npz"
+    os.replace(f"{tmp}.npz", final)
+    return final
+
+
+def load_checkpoint(path: str, device=None):
+    """Returns (cfg, field, aabb (2, 3) float32, grid_size, alpha_mask|None,
+    extra), the field and mask on ``device`` (cuda unless asked)."""
+    device = resolve_device(device)
+    data = np.load(path, allow_pickle=False)
+    kwargs = json.loads(bytes(data["kwargs"]).decode())
+    grid_size = tuple(int(g) for g in kwargs.pop("gridSize"))
+    extra = kwargs.pop("extra", None)
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(**{
+        k: (tuple(v) if isinstance(v, list) else v) for k, v in kwargs.items() if k in names
+    })
+    if cfg.model_name not in FIELD_MODELS:
+        raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet")
+    field = FIELD_MODELS[cfg.model_name](cfg, grid_size, device)
+    field.load_state_dict(params_from_jax({
+        k[len("params/"):]: data[k] for k in data.files if k.startswith("params/")
+    }))
+    alpha_mask = None
+    if "alphaMask.mask" in data.files:
+        alpha_mask = unpack_mask(
+            {k: data[k] for k in ("alphaMask.shape", "alphaMask.mask", "alphaMask.aabb")},
+            device=device,
+        )
+    return cfg, field, np.asarray(data["aabb"], np.float32), grid_size, alpha_mask, extra

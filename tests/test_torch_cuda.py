@@ -159,3 +159,88 @@ def test_gather_backward_launches_the_kernel():
     np.testing.assert_allclose(
         table.grad.cpu().numpy(), scatter_add_reference(idx, cot, 300).cpu().numpy(), **TOL
     )
+
+
+def _small_field(seed, grid=(20, 22, 24), density_shift=-3.0, density_scale=1.0):
+    from tensorf_tpu_torch.models import ModelConfig, TensorVMSplit
+
+    cfg = ModelConfig(density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8), app_dim=9, pos_pe=2,
+                      view_pe=2, fea_pe=2, feature_c=32, density_shift=density_shift)
+    field = TensorVMSplit(cfg, grid, "cpu", torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for p in [*field.density_plane, *field.density_line]:
+            p.mul_(density_scale)
+    return field
+
+
+def _rays(rng, n):
+    o = rng.normal(size=(n, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True) + 0.1 * rng.normal(size=(n, 3))
+    return torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_masked_render_on_the_card_matches_the_cpu():
+    """The masked render and its gradients, card (kernel backward) against
+    CPU (plain backward): same field, mask, rays and jitter."""
+    import copy
+
+    from tensorf_tpu_torch.models.alpha_mask import AlphaGridMask, with_dilation
+    from tensorf_tpu_torch.ops.freq_mask import FreeMasks
+    from tensorf_tpu_torch.render import render_rays
+
+    _need_gpu()
+    rng = np.random.default_rng(4)
+    field = _small_field(1)
+    vol = torch.from_numpy((rng.uniform(size=(12, 11, 10)) < 0.3).astype(np.float32))
+    mask = with_dilation(AlphaGridMask(torch.tensor([[-1.2, -1.3, -1.1], [1.3, 1.2, 1.25]]), vol))
+    rays = _rays(rng, 512)
+    u = torch.from_numpy(rng.uniform(size=(512, 1)).astype(np.float32))
+    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3])
+    kw = dict(step_size=0.04, n_samples=130, is_train=True, white_bg=True, shade_top_k=32,
+              fused=True)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        f = copy.deepcopy(field).to(dev)
+        out = render_rays(f, rays.to(dev), FreeMasks(), aabb=aabb.to(dev), alpha_mask=mask.to(dev),
+                          u=u.to(dev), **kw)
+        out.rgb.sum().backward()
+        outs[dev] = (out, {n: p.grad.cpu() for n, p in f.named_parameters()})
+    (cpu, g_cpu), (card, g_card) = outs["cpu"], outs["cuda"]
+    assert float(card.mean_alive_samples) == float(cpu.mean_alive_samples)
+    for name in ("rgb", "depth", "weights"):
+        np.testing.assert_allclose(getattr(card, name).detach().cpu().numpy(),
+                                   getattr(cpu, name).detach().numpy(), **TOL)
+    for name, g in g_cpu.items():
+        np.testing.assert_allclose(g_card[name].numpy(), g.numpy(), err_msg=name, **TOL)
+
+
+@pytest.mark.cuda
+def test_update_alpha_mask_on_the_card_matches_the_cpu():
+    """The dense alpha sweep, dilation, threshold and tight bbox on the
+    card against the CPU; bits may differ only within 1e-5 of the
+    threshold."""
+    import copy
+
+    from tensorf_tpu_torch.models.alpha_mask import max_pool_3d_same
+    from tensorf_tpu_torch.render.culling import compute_alpha_grid, update_alpha_mask
+
+    _need_gpu()
+    field = _small_field(2, density_shift=-10.0, density_scale=8.0)  # ~6% occupied
+    aabb = np.asarray([[-1.5] * 3, [1.5] * 3], np.float32)
+    grid, step = (20, 22, 24), 0.035
+    res = {}
+    for dev in ("cpu", "cuda"):
+        f = copy.deepcopy(field).to(dev)
+        alpha, _ = compute_alpha_grid(f, None, aabb, grid, step)
+        res[dev] = update_alpha_mask(f, None, aabb, grid, step) + (alpha.cpu(),)
+    (m_cpu, aabb_cpu, occ_cpu, a_cpu), (m_card, aabb_card, occ_card, a_card) = res["cpu"], res["cuda"]
+    np.testing.assert_allclose(a_card.numpy(), a_cpu.numpy(), rtol=1e-5, atol=1e-6)
+    assert 0.0 < occ_cpu < 1.0
+    pooled = max_pool_3d_same(torch.clamp(a_cpu, 0, 1).permute(2, 1, 0).contiguous(), 3).numpy()
+    differ = m_card.volume.cpu().numpy() != m_cpu.volume.numpy()
+    assert not np.any(differ & (np.abs(pooled - field.cfg.alpha_mask_thres) > 1e-5))
+    if not differ.any():
+        assert occ_card == occ_cpu
+        np.testing.assert_array_equal(aabb_card, aabb_cpu)

@@ -18,8 +18,14 @@ def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import tensorf_tpu_torch, tensorf_tpu_torch.__main__\n"
-        "from tensorf_tpu_torch import convert, ops, models, render, train, data, config\n"
+        "from tensorf_tpu_torch import convert, ops, models, render, train, data, config, eval\n"
         "from tensorf_tpu_torch.train import loop\n"
+        "from tensorf_tpu_torch.utils import ckpt\n"
+        "from tensorf_tpu_torch.models import alpha_mask\n"
+        "from tensorf_tpu_torch.ops import resize\n"
+        "from tensorf_tpu_torch.render import chunked, culling\n"
+        "from tensorf_tpu_torch.eval import evaluation, metrics\n"
+        "assert 'imageio' not in sys.modules and 'PIL' not in sys.modules\n"
         "bad = [m for m, mod in sys.modules.items()"
         " if mod is not None and m.split('.')[0] in ('jax', 'tensorf_tpu')]\n"
         "assert not bad, bad\n"
@@ -54,7 +60,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from tensorf_tpu_torch import resolve_device
     from tensorf_tpu_torch.config import TrainConfig
     from tensorf_tpu_torch.models import ModelConfig, TensorVMSplit
-    from tensorf_tpu_torch.train.loop import train_steps
+    from tensorf_tpu_torch.train.loop import reconstruction, render_test, train_steps
+    from tensorf_tpu_torch.utils.ckpt import load_checkpoint
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -63,6 +70,11 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         TensorVMSplit(ModelConfig(), (4, 4, 4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_steps(TrainConfig(), 1)
+    for entry in (reconstruction, render_test):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_checkpoint("unused.npz")
     assert resolve_device("cpu").type == "cpu"
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
