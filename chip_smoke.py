@@ -12,33 +12,44 @@ each prints its seconds):
      shapes the main path gives it plus edge cases, with its times;
   3. step parity: one synth_full train step with the kernels and one with
      the plain versions, same params, batch and jitter; gradients must agree;
-  4. main path: ``reconstruction`` of configs/synth_full.txt at full width
-     (ranks 16/48, app_dim 27, MLP_Fea 128, batch 4096) on an in-memory
-     composite scene, through a cut coarse-to-fine schedule: 128^3 until
-     iteration 200, the two alpha-mask events (shrink at the first, ray
-     re-filtering at the second), five upsamples to n_to_reso(300^3) on the
-     shrunk bbox, test-set PSNR at 200 and at the end, a final checkpoint.
-     The loss must halve over the first 200 steps, every kernel must have
-     launched on every step, the grids must follow the voxel schedule and
-     the final PSNR must beat the one at 200;
-  5. the masked render against the CPU path on 256 test rays, and the final
-     checkpoint re-rendered through the render-only entry;
-  6. the kernel against its plain version on the real index streams: the
+  4. main path: ``reconstruction`` of configs/synth_full.txt as written
+     (ray stratification, sample budgets 160/384, top-32 shading; serving
+     stratification off) at full width (ranks 16/48, app_dim 27, MLP_Fea
+     128, batch 4096) on an in-memory composite scene, through a cut
+     coarse-to-fine schedule: 128^3 until iteration 200, the two alpha-mask
+     events (shrink at the first, ray re-filtering at the second), five
+     upsamples to n_to_reso(300^3) on the shrunk bbox, a restratification
+     of the ray store after every event, test-set PSNR at 200 and at the
+     end, a final checkpoint.  Every plan and each stratum's overflow at
+     every progress read are printed.  The loss must halve over the first
+     200 steps, the kernel must launch as often as each step's strata call
+     for, every segment must be stratified, no stratum may overflow more
+     than 1% at the last read, the grids must follow the voxel schedule
+     and the final PSNR must beat the one at 200;
+  5. exactness: on 256 test rays of the final state, each stratum of their
+     own plan rendered at its candidate budget and chord lattice, and the
+     rays the eval budget covers rendered in "alive" mode at it, against
+     the unbudgeted masked render (rgb 1e-5, depth 1e-4); the masked render
+     against the CPU path; the final checkpoint re-rendered through the
+     render-only entry;
+  6. the unstratified drive: the same schedule with stratification and
+     budgets off, as the port ran before it had them, with the same checks;
+  7. the kernel against its plain version on the real index streams: the
      (idx, g) that one more train step hands to the first density and the
-     first appearance scatter-add, of the 128^3 field at iteration 200 and
-     of the masked, upsampled field at the end;
-  7. a second path: configs/synth_sphere.txt's schedule as written (300
-     steps, events at 150/200/260) on the in-memory sphere scene at 800x800
-     with downsample 8; its test PSNR must reach 28 dB.
+     first appearance scatter-add — of the unstratified drive's 128^3 field
+     at iteration 200 and of its final field, and of the largest and the
+     smallest stratum (by samples a step) of the main path's final plan;
+  8. a second path: configs/synth_sphere.txt's schedule as written but
+     serving stratification (300 steps, events at 150/200/260) on the
+     in-memory sphere scene at 800x800 with downsample 8; its test PSNR
+     must reach 30 dB.
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
 Cuts (each is printed): 8 train and 2 test views instead of 40 and 8,
 200x200 pixels instead of 800x800, and synth_full's 30000-step schedule cut
-to 450 steps with its events at 200-400 and the LR decay of the 30000
-(profile_step.CUT_SCHEDULE).
-Ray stratification and sample budgets are not ported yet and are off in
-both paths.
+to 450 steps with its events at 200-400, the LR decay of the 30000 and a
+progress read every 25 steps (profile_step.CUT_SCHEDULE).
 
 Without a GPU, or outside a checkout of the repo, it exits non-zero and
 prints no result.  The last line of stdout is
@@ -65,14 +76,19 @@ SPHERE = dict(n_train=10, n_test=2, wh=(800, 800), scene="sphere")
 # FreeNeRF masks open slowly), then falls steeply: the first segment's 200
 # steps show the fall.
 FIRST_SEGMENT = 200
-# synth_full's step shades the top-K samples: 3 density + 3 appearance planes
-MAIN_LAUNCHES_PER_STEP = 6
-MAIN_SHAPES = ("density_128", "appearance_128", "density_300", "appearance_300",
-               "density_128_real", "appearance_128_real", "density_300_real",
-               "appearance_300_real")
+# synth_full's unstratified step shades the top-K samples: 3 density + 3
+# appearance planes
+UNSTRATIFIED_LAUNCHES_PER_STEP = 6
+# the synthetic cases of the main path's shapes; the real streams join them
+SYNTHETIC_MAIN_SHAPES = ("density_128", "appearance_128", "density_300", "appearance_300")
 # the JAX package's drive of synth_sphere is held to >= 30 dB (its verify
-# notes); the port to that less 2 dB
-SPHERE_MIN_PSNR = 28.0
+# notes), and read 32.496 dB on the CPU (PERF.md)
+SPHERE_MIN_PSNR = 30.0
+SPHERE_JAX_PSNR = 32.496
+# a stratum whose last overflow read is above this fails the main path
+MAX_FINAL_OVERFLOW = 0.01
+# scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
+STREAM_KINDS = {64: "density", 192: "appearance", 256: "fused"}
 
 
 def fail(msg: str) -> None:
@@ -265,8 +281,8 @@ def step_parity_phase(torch, dev, cfg, scene):
 
     before = scatter_add.launches
     loss_k, g_kernel = grads()
-    check(scatter_add.launches - before == MAIN_LAUNCHES_PER_STEP,
-          f"kernel step did not launch scatter_add {MAIN_LAUNCHES_PER_STEP} times")
+    want = scatter_launches_per_step(statics)
+    check(scatter_add.launches - before == want, f"kernel step did not launch scatter_add {want} times")
     before = scatter_add.launches
     with mock.patch.object(grid_sample, "scatter_add", scatter_add_reference):
         loss_p, g_plain = grads()
@@ -285,12 +301,13 @@ def step_parity_phase(torch, dev, cfg, scene):
           f"max err/tol {worst:.3g} (tol = 1e-4 x max|grad| per leaf)", flush=True)
 
 
-def capture_streams(torch, state, suffix):
+def capture_streams(torch, state, suffix, stratum=None):
     """The index streams of the field in ``state``: the (idx, g, n_rows)
-    that the first density and the first appearance scatter-add of one
-    more train step (the segment's statics, its mask) receive, by case
-    name.  The step's backward runs the plain version, so capturing
-    launches no kernel."""
+    that the first scatter-add of each width (density, appearance, or both
+    fused) of one more train step (the segment's statics, its mask)
+    receives, by case name.  With ``stratum`` the step is that stratum's
+    sub-batch alone, at its quota, budget and lattice.  The step's
+    backward runs the plain version, so capturing launches no kernel."""
     from unittest import mock
 
     from tensorf_tpu_torch.ops import grid_sample
@@ -299,9 +316,27 @@ def capture_streams(torch, state, suffix):
     from tensorf_tpu_torch.train.step import draw_noise, loss_fn
 
     dev, cfg = state.device, state.cfg
-    perm = torch.randperm(state.rays.shape[0], generator=torch.Generator().manual_seed(0))
-    ids = perm[: cfg.batch_size].to(dev)
-    u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), cfg.batch_size, dev)
+    statics = build_statics(state)
+    gen = torch.Generator().manual_seed(0)
+    if stratum is None:
+        ids = torch.randperm(state.rays.shape[0], generator=gen)[: cfg.batch_size].to(dev)
+        u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), cfg.batch_size, dev)
+        batch = (state.rays[ids], state.rgbs[ids], u, flip)
+    else:
+        def one(field):
+            return None if field is None else (field[stratum],)
+
+        statics = statics._replace(
+            strata_budgets=one(statics.strata_budgets),
+            strata_alive_budgets=one(statics.strata_alive_budgets),
+            strata_n_samples=one(statics.strata_n_samples),
+            strata_loss_weights=None, strata_noise_match=False)
+        members, quota = state.sampler.strata[stratum], state.quotas[stratum]
+        reps = -(-quota // members.shape[0])
+        pick = torch.cat([torch.randperm(members.shape[0], generator=gen) for _ in range(reps)])
+        ids = members[pick[:quota]].to(dev)
+        u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), quota, dev)
+        batch = ((state.rays[ids],), (state.rgbs[ids],), (u,), (flip,))
     seen = {}
 
     def recorder(idx, g, n_rows):
@@ -311,15 +346,13 @@ def capture_streams(torch, state, suffix):
     field = state.field
     field.zero_grad(set_to_none=True)
     with mock.patch.object(grid_sample, "scatter_add", recorder):
-        total, _ = loss_fn(field, build_statics(state), state.aabb, state.rays[ids],
-                           state.rgbs[ids], cfg.n_iters - 1, u, flip, state.alpha_mask)
+        total, _ = loss_fn(field, statics, state.aabb, *batch[:2], cfg.n_iters - 1, *batch[2:],
+                           state.alpha_mask)
         total.backward()
     torch.cuda.synchronize()
     field.zero_grad(set_to_none=True)
-    widths = {"density": 4 * cfg.n_lamb_sigma[0], "appearance": 4 * cfg.n_lamb_sh[0]}
-    check(set(seen) == set(widths.values()), f"recorded scatter widths {sorted(seen)}, "
-          f"want {widths}")
-    return {f"{kind}_{suffix}_real": seen[C] for kind, C in widths.items()}
+    check(seen and set(seen) <= set(STREAM_KINDS), f"recorded scatter widths {sorted(seen)}")
+    return {f"{STREAM_KINDS[C]}_{suffix}": stream for C, stream in seen.items()}
 
 
 def check_schedule(result, cfg):
@@ -351,13 +384,16 @@ def check_schedule(result, cfg):
 
 def scatter_launches_per_step(statics) -> int:
     """The scatter-adds one train step launches under ``statics``: one per
-    gathered plane table.  The fused path packs density and appearance
-    into one table per plane (3) unless top-K shading gathers appearance
-    apart (6); the unfused path gathers every plane and line apart (12)."""
+    gathered plane table, in each stratum's render.  The fused path packs
+    density and appearance into one table per plane (3) unless top-K
+    shading below the render's width gathers appearance apart (6); the
+    unfused path gathers every plane and line apart (12)."""
+    from tensorf_tpu_torch.train.step import render_widths
+
     if not statics.fused:
-        return 12
-    top_k = statics.shade_top_k is not None and statics.shade_top_k < statics.n_samples
-    return 6 if top_k else 3
+        return 12 * len(render_widths(statics))
+    k = statics.shade_top_k
+    return sum(6 if k is not None and k < w else 3 for w in render_widths(statics))
 
 
 def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
@@ -443,25 +479,159 @@ def main() -> None:
     }}), flush=True)
 
 
-def run_paths(torch, np, kernels, workdir) -> None:
-    """Phases 2-7; prints the kernels line."""
+def full_path(torch, np, name, cfg, scene, kernels, on_step=None):
+    """Drive synth_full's cut schedule through ``drive`` and hold it to the
+    checks both synth_full paths share: the loss halves by FIRST_SEGMENT,
+    the grids follow the voxel schedule, the final PSNR beats the one at
+    FIRST_SEGMENT.  Prints its events, plans and segments."""
+    t0 = time.perf_counter()
+    result, launches = drive(torch, name, cfg, scene, kernels, cfg.n_iters, on_step)
+    losses = np.asarray(result.total_loss)
+    first, last = float(losses[:5].mean()), float(losses[FIRST_SEGMENT - 5:FIRST_SEGMENT].mean())
+    print(f"{name}: loss first-5 mean {first:.6f} -> mean of steps {FIRST_SEGMENT - 5}.."
+          f"{FIRST_SEGMENT - 1} {last:.6f}; last step {losses[-1]:.6f}", flush=True)
+    check(last < 0.5 * first, f"{name}: the training loss did not fall to half its start in "
+          f"{FIRST_SEGMENT} steps")
+    for e in result.events:
+        print(f"{name}: event " + json.dumps(e), flush=True)
+    for plan in result.plans:
+        print(f"{name}: plan " + json.dumps(plan), flush=True)
+    for seg in result.segments:
+        print(f"{name}: segment " + json.dumps(seg), flush=True)
+    check_schedule(result, cfg)
+    psnr_200 = result.test_psnrs[FIRST_SEGMENT]
+    psnr_final = float(np.mean(result.final_psnrs))
+    print(f"{name}: test_psnr iteration {FIRST_SEGMENT} {psnr_200:.4f} dB, iteration 400 "
+          f"{result.test_psnrs.get(400, float('nan')):.4f} dB, final (iteration "
+          f"{cfg.n_iters - 1}) {psnr_final:.4f} dB", flush=True)
+    check(psnr_final > psnr_200, f"{name}: final test PSNR {psnr_final} does not beat "
+          f"{psnr_200} at {FIRST_SEGMENT}")
+    phase_done(name, t0)
+    return result, launches
+
+
+def close(torch, got, want, rtol, atol):
+    """max |got - want| and whether it is within atol + rtol |want|."""
+    diff = (got - want).abs()
+    return float(diff.max()), bool(torch.all(diff <= atol + rtol * want.abs()))
+
+
+def exactness_phase(torch, np, state):
+    """256 real test rays of the final state: each stratum of their own plan
+    at its candidate budget and chord lattice, and the rays the eval
+    budget covers in "alive" mode at it, against the unbudgeted masked
+    render (the JAX package's tolerances: rgb 1e-5, depth 1e-4)."""
+    from tensorf_tpu_torch.render.chunked import render_chunked
+    from tensorf_tpu_torch.render.culling import (
+        _budget_hint,
+        count_ray_candidates_and_alive,
+        count_ray_candidates_and_chord,
+        stratify_rays,
+    )
+    from tensorf_tpu_torch.train.loop import make_handle
+
+    handle = make_handle(state)
+    n, aabb_np = state.n_samples, state.geometry.aabb_np
+    count_args = (aabb_np, state.geometry.step_size, state.near_far)
+    rays = torch.as_tensor(state.test_ds.all_rays[0][::156][:256], device=state.device)
+    kw = dict(chunk=256, step_size=handle.step_size, white_bg=state.white_bg,
+              shade_top_k=handle.shade_top_k, fused=True, use_coarse_gate=handle.use_coarse_gate)
+    rgb, depth, _, _ = render_chunked(state.field, state.alpha_mask, rays, handle.aabb,
+                                      n_samples=n, **kw)
+    counts, chords = count_ray_candidates_and_chord(rays, state.alpha_mask, *count_args,
+                                                    n_samples=n)
+    strata, budgets = stratify_rays(counts)
+    worst = [0.0, 0.0]
+    for s, (sel, b) in enumerate(zip(strata, budgets)):
+        lattice = min(n, _budget_hint(int(chords[sel].max())))
+        budget = b if b < n else None
+        idx = torch.as_tensor(sel, device=state.device)
+        got_rgb, got_depth, _, overflow = render_chunked(
+            state.field, state.alpha_mask, rays[idx], handle.aabb, n_samples=lattice,
+            sample_budget=budget, budget_mode="cand", **kw)
+        e_rgb, ok_rgb = close(torch, got_rgb, rgb[idx], 1e-5, 1e-5)
+        e_depth, ok_depth = close(torch, got_depth, depth[idx], 1e-4, 1e-4)
+        print(f"exactness: stratum {s}: {sel.size} rays, counts <= {int(counts[sel].max())}, "
+              f"budget {budget}, lattice {lattice} of {n}, overflow {overflow}, max |d rgb| "
+              f"{e_rgb:.3g}, max |d depth| {e_depth:.3g}", flush=True)
+        check(overflow == 0.0 and ok_rgb and ok_depth,
+              f"stratum {s} at budget {budget}, lattice {lattice} differs from the unbudgeted render")
+        worst = [max(worst[0], e_rgb), max(worst[1], e_depth)]
+    K = handle.sample_budget
+    check(K is not None, "the final eval renders with no sample budget")
+    cand, alive, _ = count_ray_candidates_and_alive(rays, state.alpha_mask, *count_args,
+                                                    n_samples=n)
+    covered = np.nonzero((cand <= min(n, K + 224)) & (alive <= K))[0]
+    idx = torch.as_tensor(covered, device=state.device)
+    got_rgb, got_depth, _, overflow = render_chunked(
+        state.field, state.alpha_mask, rays[idx], handle.aabb, n_samples=n, sample_budget=K,
+        budget_mode="alive", **kw)
+    e_rgb, ok_rgb = close(torch, got_rgb, rgb[idx], 1e-5, 1e-5)
+    e_depth, ok_depth = close(torch, got_depth, depth[idx], 1e-4, 1e-4)
+    print(f"exactness: {len(strata)} strata of 256 rays (budgets {budgets}) max |d rgb| "
+          f"{worst[0]:.3g}, max |d depth| {worst[1]:.3g}; alive mode at budget {K}: "
+          f"{covered.size} of 256 rays covered (alive <= {K}, candidates <= {min(n, K + 224)}), "
+          f"overflow {overflow}, max |d rgb| {e_rgb:.3g}, max |d depth| {e_depth:.3g} "
+          f"(tol rgb 1e-5, depth 1e-4)", flush=True)
+    check(covered.size > 0 and overflow == 0.0 and ok_rgb and ok_depth,
+          f"the alive-mode render at budget {K} differs from the unbudgeted render")
+
+
+def reference_phase(torch, np, cfg, scene, result):
+    """The masked render at the eval budget against the CPU path; the
+    final checkpoint re-rendered through the render-only entry."""
     import copy
     import dataclasses
 
-    from tensorf_tpu_torch.config import load_config
-    from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
-    from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES
     from tensorf_tpu_torch.render.chunked import render_chunked
     from tensorf_tpu_torch.train.loop import make_handle, render_test
 
+    state = result.state
+    handle = make_handle(state)
+    rays = torch.as_tensor(state.test_ds.all_rays[0][::156][:256])
+    kw = dict(chunk=256, step_size=handle.step_size, n_samples=handle.n_samples,
+              white_bg=True, shade_top_k=handle.shade_top_k, fused=True,
+              sample_budget=handle.sample_budget, use_coarse_gate=handle.use_coarse_gate)
+    on_card = render_chunked(state.field, state.alpha_mask, rays, handle.aabb, **kw)[0].cpu()
+    on_cpu = render_chunked(copy.deepcopy(state.field).cpu(), state.alpha_mask.to("cpu"), rays,
+                            handle.aabb.cpu(), **kw)[0]
+    diff = (on_card - on_cpu).abs()
+    err = float(diff.max())
+    # float32 rounds differently on the two devices; a sample whose weight
+    # sits at the shading threshold or at the K-th place of the top-K can
+    # switch sides and move its pixel by about that weight, hence 1e-3
+    print(f"reference: {rays.shape[0]} test rays, masked, budget {handle.sample_budget}, grid "
+          f"{state.geometry.grid_size}, |card - cpu| max {err:.3g} mean {float(diff.mean()):.3g} "
+          f"(tol 1e-3)", flush=True)
+    check(err <= 1e-3, f"card render differs from the CPU reference by {err}")
+    psnr_final = float(np.mean(result.final_psnrs))
+    reloaded = render_test(dataclasses.replace(cfg, ckpt=result.final_path, render_test=1),
+                           scene, "cuda", save_images=False, log=lambda m: None)
+    delta = abs(float(np.mean(reloaded)) - psnr_final)
+    print(f"render_only: {result.final_path.rsplit('/', 1)[-1]} at budget {cfg.sample_budget}: "
+          f"test psnr {float(np.mean(reloaded)):.6f} dB, |delta| {delta:.3g} (tol 1e-4)",
+          flush=True)
+    check(delta <= 1e-4, f"the final checkpoint renders {np.mean(reloaded)}, not {psnr_final}")
+
+
+def run_paths(torch, np, kernels, workdir) -> None:
+    """Phases 2-8; prints the kernels line."""
+    from tensorf_tpu_torch.config import load_config
+    from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
+    from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES, UNSTRATIFIED
+    from tensorf_tpu_torch.train.loop import build_statics
+    from tensorf_tpu_torch.train.step import render_widths
+
     dev = torch.device("cuda")
-    cfg = load_config("configs/synth_full.txt", dict(OVERRIDES, **CUT_SCHEDULE, basedir=workdir,
-                                                     progress_refresh_rate=100))
+    cfg = load_config("configs/synth_full.txt", dict(OVERRIDES, **CUT_SCHEDULE, basedir=workdir))
     print(f"cuts: {SCENE['n_train']}/{SCENE['n_test']} train/test views (config scene 40/8), "
           f"{SCENE['wh'][0]}x{SCENE['wh'][1]} px (800x800), {cfg.n_iters} of 30000 steps with "
           f"upsamples at {cfg.upsamp_list} and alpha masks at {cfg.update_AlphaMask_list} "
-          f"(config: [2000..7000], [2000, 4000]), LR decay over {cfg.lr_decay_iters}; stratify, stratify_render, sample_budget, "
-          f"prefilter_budget 0 (not ported); widths as configured", flush=True)
+          f"(config: [2000..7000], [2000, 4000]), LR decay over {cfg.lr_decay_iters}, progress "
+          f"every {cfg.progress_refresh_rate} (500); stratify {cfg.stratify}, sample_budget "
+          f"{cfg.sample_budget}, prefilter_budget {cfg.prefilter_budget}, shade_top_k "
+          f"{cfg.shade_top_k} as written; stratify_render 0 (serving, not ported); widths as "
+          f"configured", flush=True)
     scene = make_synthetic_scene_arrays(**SCENE)
 
     t0 = time.perf_counter()
@@ -475,66 +645,49 @@ def run_paths(torch, np, kernels, workdir) -> None:
     torch.cuda.empty_cache()
     phase_done("step_parity", t0)
 
-    # ---- the main path: counts to 0 just before, read just after ----
-    streams = {}
+    # ---- the main path, as written: counts to 0 just before, read just after ----
+    result, main_launches = full_path(torch, np, "main_path", cfg, scene, kernels)
+    check(all(seg["strata"] > 0 for seg in result.segments),
+          "main_path: a segment ran unstratified")
+    last = result.progress[-1]
+    print(f"main_path: {main_launches['scatter_add']} scatter-add launches, the per-stratum sum over "
+          f"{cfg.n_iters} steps; last progress read (iteration {last['iteration']}) overflow per "
+          f"stratum {last['overflow']} (max {MAX_FINAL_OVERFLOW})", flush=True)
+    check(max(last["overflow"]) <= MAX_FINAL_OVERFLOW,
+          f"main_path: a stratum overflows {max(last['overflow'])} at the last read")
 
+    t0 = time.perf_counter()
+    exactness_phase(torch, np, result.state)
+    reference_phase(torch, np, cfg, scene, result)
+    state = result.state
+    widths = render_widths(build_statics(state))
+    rows = [q * w for q, w in zip(state.quotas, widths)]
+    streams = {}
+    for tag, s in (("largest", int(np.argmax(rows))), ("smallest", int(np.argmin(rows)))):
+        print(f"streams: {tag} stratum {s}: quota {state.quotas[s]}, width {widths[s]}, "
+              f"budget {state.strata_budgets[s]}, lattice {state.strata_n_samples[s]}", flush=True)
+        streams.update(capture_streams(torch, state, f"{cfg.n_iters - 1}_{tag}", s))
+    del result, state
+    torch.cuda.empty_cache()
+    phase_done("exactness", t0)
+
+    # ---- the unstratified drive, counts to 0 again ----
     def at_step(it, state):
         if it == FIRST_SEGMENT:  # the 128^3 field, before the events at 200
-            streams.update(capture_streams(torch, state, "128"))
+            streams.update(capture_streams(torch, state, "128_real"))
 
-    t0 = time.perf_counter()
-    result, launches = drive(torch, "main_path", cfg, scene, kernels, cfg.n_iters, at_step)
-    check(launches["scatter_add"] == MAIN_LAUNCHES_PER_STEP * cfg.n_iters,
-          f"main_path: scatter_add launched {launches['scatter_add']} times, want "
-          f"{MAIN_LAUNCHES_PER_STEP} x {cfg.n_iters}")
-    losses = np.asarray(result.total_loss)
-    first, last = float(losses[:5].mean()), float(losses[FIRST_SEGMENT - 5:FIRST_SEGMENT].mean())
-    print(f"loss: first-5 mean {first:.6f} -> mean of steps {FIRST_SEGMENT - 5}..{FIRST_SEGMENT - 1} "
-          f"{last:.6f}; last step {losses[-1]:.6f}", flush=True)
-    check(last < 0.5 * first, "the training loss did not fall to half its start in 200 steps")
-    for e in result.events:
-        print("event " + json.dumps(e), flush=True)
-    for seg in result.segments:
-        print("segment " + json.dumps(seg), flush=True)
-    check_schedule(result, cfg)
-    psnr_200 = result.test_psnrs[FIRST_SEGMENT]
-    psnr_final = float(np.mean(result.final_psnrs))
-    print(f"test_psnr: iteration {FIRST_SEGMENT} {psnr_200:.4f} dB, iteration 400 "
-          f"{result.test_psnrs.get(400, float('nan')):.4f} dB, final (iteration "
-          f"{cfg.n_iters - 1}) {psnr_final:.4f} dB", flush=True)
-    check(psnr_final > psnr_200, f"final test PSNR {psnr_final} does not beat {psnr_200} at 200")
-    phase_done("main_path", t0)
-
-    # ---- the masked render against the CPU path; the checkpoint re-rendered ----
-    t0 = time.perf_counter()
-    state = result.state
-    handle = make_handle(state)
-    rays = torch.as_tensor(state.test_ds.all_rays[0][::156][:256])
-    kw = dict(chunk=256, step_size=handle.step_size, n_samples=handle.n_samples,
-              white_bg=True, shade_top_k=handle.shade_top_k, fused=True)
-    on_card = render_chunked(state.field, state.alpha_mask, rays, handle.aabb, **kw)[0].cpu()
-    on_cpu = render_chunked(copy.deepcopy(state.field).cpu(), state.alpha_mask.to("cpu"), rays,
-                            handle.aabb.cpu(), **kw)[0]
-    diff = (on_card - on_cpu).abs()
-    err = float(diff.max())
-    # float32 rounds differently on the two devices; a sample whose weight
-    # sits at the shading threshold or at the K-th place of the top-K can
-    # switch sides and move its pixel by about that weight, hence 1e-3
-    print(f"reference: {rays.shape[0]} test rays, masked, grid {state.geometry.grid_size}, "
-          f"|card - cpu| max {err:.3g} mean {float(diff.mean()):.3g} (tol 1e-3)", flush=True)
-    check(err <= 1e-3, f"card render differs from the CPU reference by {err}")
-    reloaded = render_test(dataclasses.replace(cfg, ckpt=result.final_path, render_test=1),
-                           scene, "cuda", save_images=False, log=lambda m: None)
-    delta = abs(float(np.mean(reloaded)) - psnr_final)
-    print(f"render_only: {result.final_path.rsplit('/', 1)[-1]} test psnr "
-          f"{float(np.mean(reloaded)):.6f} dB, |delta| {delta:.3g} (tol 1e-4)", flush=True)
-    check(delta <= 1e-4, f"the final checkpoint renders {np.mean(reloaded)}, not {psnr_final}")
-    phase_done("reference", t0)
-
-    t0 = time.perf_counter()
-    streams.update(capture_streams(torch, state, "300"))
-    del result, state, handle
+    flat_cfg = load_config("configs/synth_full.txt",
+                           {**OVERRIDES, **CUT_SCHEDULE, **UNSTRATIFIED, "basedir": workdir})
+    result, launches = full_path(torch, np, "unstratified", flat_cfg, scene, kernels, at_step)
+    check(launches["scatter_add"] == UNSTRATIFIED_LAUNCHES_PER_STEP * flat_cfg.n_iters,
+          f"unstratified: scatter_add launched {launches['scatter_add']} times, want "
+          f"{UNSTRATIFIED_LAUNCHES_PER_STEP} x {flat_cfg.n_iters}")
+    streams.update(capture_streams(torch, result.state, "300_real"))
+    del result
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    main_shapes = SYNTHETIC_MAIN_SHAPES + tuple(streams)
     cases += [kernel_case(torch, name, *stream) for name, stream in streams.items()]
     del streams
     torch.cuda.empty_cache()
@@ -542,40 +695,44 @@ def run_paths(torch, np, kernels, workdir) -> None:
 
     # ---- the second path: synth_sphere as written, counts to 0 again ----
     t0 = time.perf_counter()
-    sphere_cfg = load_config("configs/synth_sphere.txt", dict(
-        stratify=0, stratify_render=0, basedir=workdir))
+    sphere_cfg = load_config("configs/synth_sphere.txt", dict(stratify_render=0, basedir=workdir))
     sphere, _ = drive(torch, "sphere_path", sphere_cfg, make_synthetic_scene_arrays(**SPHERE),
                       kernels, sphere_cfg.n_iters)
+    for plan in sphere.plans:
+        print("sphere_path: plan " + json.dumps(plan), flush=True)
+    check(all(seg["strata"] > 0 for seg in sphere.segments), "sphere_path: a segment ran "
+          "unstratified")
     sphere_psnr = float(np.mean(sphere.final_psnrs))
     print(f"sphere_path: final grid {sphere.state.geometry.grid_size}, test psnr "
-          f"{sphere_psnr:.4f} dB (min {SPHERE_MIN_PSNR})", flush=True)
+          f"{sphere_psnr:.4f} dB (min {SPHERE_MIN_PSNR}; the JAX drive {SPHERE_JAX_PSNR} on the "
+          f"CPU)", flush=True)
     check(sphere_psnr >= SPHERE_MIN_PSNR, f"synth_sphere test psnr {sphere_psnr} < {SPHERE_MIN_PSNR}")
     del sphere
     phase_done("sphere_path", t0)
 
-    # the headline numbers are density_128's, the main path's widest
-    # scatter in its first segment; "shapes" carries the other main-path
-    # shapes beside it.  "launches" counts calls of the kernel's entry
-    # point on the main path, each of which enqueues the grids in "grids";
-    # every time covers both.
-    main_cases = [c for c in cases if c["case"] in MAIN_SHAPES]
-    check(len(main_cases) == len(MAIN_SHAPES), "a main-path kernel case is missing")
+    # the headline numbers are density_128's, the widest scatter of the
+    # unstratified first segment; "shapes" carries every main-path shape
+    # beside it, the real streams of both synth_full drives among them.
+    # "launches" counts calls of the kernel's entry point on the main path,
+    # each of which enqueues the grids in "grids"; every time covers both.
+    main_cases = [c for c in cases if c["case"] in main_shapes]
     head = main_cases[0]
+    check(head["case"] == "density_128", "the headline kernel case is missing")
     line = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": src,
         "replaces": replaces,
         "grids": grids,
-        "launches": launches[name],
+        "launches": main_launches[name],
         "max_abs_err": max(c["max_abs_err"] for c in main_cases),
         "ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "shapes": [{k: c[k] for k in ("case", "kernel_ms", "plain_ms", "bound_ms", "library_ms")}
-                   for c in main_cases],
+        "shapes": [{k: c[k] for k in ("case", "M", "kernel_ms", "plain_ms", "bound_ms",
+                                      "library_ms")} for c in main_cases],
     } for name, (_, src, replaces, grids) in kernels.items()]}
     print(json.dumps(line), flush=True)
 

@@ -2,7 +2,7 @@
 or render a checkpoint's test views.
 
     python -m tensorf_tpu_torch --config configs/synth_sphere.txt \\
-        --stratify 0 --stratify_render 0 --synthetic --synthetic_scene sphere \\
+        --stratify_render 0 --synthetic --synthetic_scene sphere \\
         --synthetic_wh 800 --synthetic_views 10,2 [--device cpu] [--flag value ...]
     python -m tensorf_tpu_torch --config ... --n_steps 30 ...      # first segment only
     python -m tensorf_tpu_torch --config ... --render_only 1 --render_test 1 --ckpt PATH
@@ -10,8 +10,8 @@ or render a checkpoint's test views.
 Any TrainConfig field is a ``--flag``.  Runs on the GPU unless ``--device
 cpu`` is given, and fails when no GPU is present.  ``--synthetic`` builds
 a procedural scene in memory (no files, no PIL) in place of reading
-``datadir``.  Stratification and sample budgets are not ported yet: a
-config that sets them must be run with them set to 0.
+``datadir``.  Serving-side stratification is not ported yet: run a config
+with ``--stratify_render 0``.
 """
 
 from __future__ import annotations

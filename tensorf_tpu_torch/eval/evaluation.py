@@ -4,8 +4,9 @@
 ``evaluation`` renders each (stacked) view in chunks and computes its PSNR,
 SSIM and LPIPS (None -> NaN).  Only when ``savePath`` is given does it
 write the prediction, ground-truth and rgb+depth PNGs, the two videos and
-mean.txt; imageio is imported there and nowhere else.  Trajectory
-rendering (``evaluation_path``) and stratified serving are not ported yet.
+mean.txt; imageio is imported there and nowhere else.  A render whose
+sample budget dropped candidates prints a warning.  Trajectory rendering
+(``evaluation_path``) and stratified serving are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,14 +36,23 @@ class RendererHandle:
     white_bg: bool
     shade_top_k: Optional[int] = None
     fused: bool = True
+    # the uniform render's budget ("alive" mode); None = every sample
+    sample_budget: Optional[int] = None
+    use_coarse_gate: bool = True
 
     def render(self, rays, chunk: int = 8192):
         """(M, 6) rays -> (rgb (M, 3), depth (M,)) numpy, shaded samples."""
-        rgb, depth, n_valid = render_chunked(
+        rgb, depth, n_valid, overflow = render_chunked(
             self.field, self.alpha_mask, rays, self.aabb, chunk=chunk,
             step_size=float(self.step_size), n_samples=int(self.n_samples),
             white_bg=self.white_bg, shade_top_k=self.shade_top_k, fused=self.fused,
+            sample_budget=self.sample_budget, use_coarse_gate=self.use_coarse_gate,
         )
+        if overflow > 0.0:
+            # a too-small budget would silently under-integrate the images
+            print(f"[eval] WARNING: sample-budget overflow on up to {overflow:.1%} of rays "
+                  f"in a chunk — rendered images may under-integrate; raise sample_budget",
+                  flush=True)
         return rgb.cpu().numpy(), depth.cpu().numpy(), n_valid
 
 

@@ -35,11 +35,12 @@ def freq_reg_mask(
         return (idx < int(length * max_visible)).to(f32)
 
     dv = 4
-    step_t = torch.tensor(float(step), dtype=f32, device=device)
+    # fills, not host-to-device copies: a copy would wait for the device
+    step_t = torch.full((), float(step), dtype=f32, device=device)
     eff_len = length * float(ratio)
     ptr = torch.minimum(
         eff_len / dv * step_t / total_reg_steps + 1.0,
-        torch.tensor(eff_len / dv, dtype=f32, device=device),
+        torch.full((), eff_len / dv, dtype=f32, device=device),
     )
     int_ptr = torch.floor(ptr)
     frac = ptr - int_ptr

@@ -1,21 +1,27 @@
 """Where a train step's device time goes: torch.profiler over a few steps.
 
-    python -m tensorf_tpu_torch.profile_step [--last_segment]
+    python -m tensorf_tpu_torch.profile_step [--last_segment] [--unstratified]
 
-Trains configs/synth_full.txt's model (with stratification and budgets off,
-as the port runs it) on the in-memory composite scene (8 views, 200x200 px).
-By default it takes WARMUP steps of the first (128^3) segment unprofiled,
-past the initial loss plateau, then profiles STEPS steps.  With
-``--last_segment`` it runs the cut schedule chip_smoke.py drives
+Trains configs/synth_full.txt's model as the config is written (ray
+stratification, sample budgets and top-K shading on; serving
+stratification, which training does not use, off) on the in-memory
+composite scene (8 views, 200x200 px); ``--unstratified`` runs it with
+stratification and budgets off instead, as the port ran before it had
+them.  By default it takes WARMUP steps of the first (128^3) segment
+unprofiled, past the initial loss plateau, then profiles STEPS steps.
+With ``--last_segment`` it runs the cut schedule chip_smoke.py drives
 (CUT_SCHEDULE: 450 steps, both alpha-mask events, five upsamples to
-n_to_reso(300^3) on the shrunk bbox) and profiles its last STEPS steps:
-the masked top-32 step at the final grid.  It prints, per CUDA kernel, its
-device time per step and share, then the same time by the torch op (and
-input shapes) that launched it, the step's wall time, and the device's
-busy and idle share of that wall time (the profiler's own overhead
-included).  Busy time is the union of the kernel, memcpy and memset
-intervals; user-annotation rows, which span kernels already counted, are
-left out.  Needs a GPU.
+n_to_reso(300^3) on the shrunk bbox), profiles the last STEPS steps of
+every segment and prints each window's busy and idle share; the tables
+are the last segment's (masked, top-32, at the final grid).  It prints,
+per CUDA kernel, its device time per step and share, then the same time
+by the torch op (and input shapes) that launched it, the step's wall time,
+the device activities a step enqueues, and the device's busy and idle
+share.  Busy time is the union of the kernel, memcpy and memset intervals;
+user-annotation rows, which span kernels already counted, are left out.
+The profiler slows the host, so the idle share is taken against the wall
+time of the STEPS unprofiled steps just before each profiled window (the
+profiled window's own wall time is printed beside it).  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -32,27 +38,35 @@ from .data.synthetic import make_synthetic_scene_arrays
 from .train.loop import reconstruction, train_steps
 
 CONFIG = "configs/synth_full.txt"
-# the knobs not ported yet, off
-OVERRIDES = dict(stratify=0, stratify_render=0, sample_budget=0, prefilter_budget=0,
-                 progress_refresh_rate=10**9)
+# serving stratification is not ported; training never uses it
+OVERRIDES = dict(stratify_render=0, progress_refresh_rate=10**9)
+# the port's drive before it had stratification and budgets
+UNSTRATIFIED = dict(stratify=0, sample_budget=0, prefilter_budget=0)
 # synth_full's 30000-step schedule cut to 450 steps: the same events, 50
 # steps apart.  The LR still decays over the config's 30000 steps: decayed
 # over 450, it slows the field's escape from its initial plateau past the
-# first alpha mask at 200, which then finds nothing occupied.
+# first alpha mask at 200, which then finds nothing occupied.  Progress
+# (and the budget overflow read that may raise a budget) every 25 steps,
+# twice a segment, where the config's 500 would read once in the run.
 CUT_SCHEDULE = dict(n_iters=450, lr_decay_iters=30000, upsamp_list=[200, 250, 300, 350, 400],
-                    update_AlphaMask_list=[200, 300], vis_every=200, save_ckpt_every=[])
+                    update_AlphaMask_list=[200, 300], vis_every=200, save_ckpt_every=[],
+                    progress_refresh_rate=25)
 WARMUP = 160
 STEPS = 5
 TOP = 25
 
 
-def _busy_ms(events) -> float:
-    """Length of the union of the device activity intervals, in ms."""
-    spans = sorted(
+def _device_spans(events):
+    return sorted(
         (e.time_range.start, e.time_range.end)
         for e in events
         if e.device_type.name == "CUDA" and not e.is_user_annotation
     )
+
+
+def _busy_ms(events) -> float:
+    """Length of the union of the device activity intervals, in ms."""
+    spans = _device_spans(events)
     busy, cur_start, cur_end = 0.0, None, None
     for start, end in spans:
         if cur_end is None or start > cur_end:
@@ -69,39 +83,65 @@ def _busy_ms(events) -> float:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--last_segment", action="store_true",
-                        help="profile the last steps of the cut schedule, not the first segment")
+                        help="profile the end of every segment of the cut schedule, "
+                             "not the first segment")
+    parser.add_argument("--unstratified", action="store_true",
+                        help="stratification and sample budgets off")
     args = parser.parse_args(argv)
+    overrides = dict(OVERRIDES, **(UNSTRATIFIED if args.unstratified else {}))
     scene = make_synthetic_scene_arrays(n_train=8, n_test=2, wh=(200, 200), scene="composite")
-    state = {}
-    first = CUT_SCHEDULE["n_iters"] - STEPS if args.last_segment else WARMUP
+    # (first step, profiler, profiled wall s, wall s of the unprofiled steps before)
+    windows = []
+    if args.last_segment:
+        ends = sorted(CUT_SCHEDULE["upsamp_list"]) + [CUT_SCHEDULE["n_iters"] - 1]
+    else:
+        ends = [WARMUP + STEPS - 1]
+    plain_t0 = {}
 
     def on_step(it: int, *_) -> None:  # runs after step ``it`` is enqueued
-        if it == first - 1:
+        if it + 2 * STEPS in ends:
             torch.cuda.synchronize()
-            state["prof"] = profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True
-            )
-            state["prof"].__enter__()
-            state["t0"] = time.perf_counter()
-        if it == first + STEPS - 1:
+            plain_t0[it + 2 * STEPS] = time.perf_counter()
+        if it + STEPS in ends:
             torch.cuda.synchronize()
-            state["wall"] = time.perf_counter() - state["t0"]
-            state["prof"].__exit__(None, None, None)
+            now = time.perf_counter()
+            windows.append([it + 1, profile(activities=[ProfilerActivity.CPU,
+                                                        ProfilerActivity.CUDA],
+                                            record_shapes=True), now,
+                            now - plain_t0[it + STEPS]])
+            windows[-1][1].__enter__()
+        if it in ends:
+            torch.cuda.synchronize()
+            windows[-1][2] = time.perf_counter() - windows[-1][2]
+            windows[-1][1].__exit__(None, None, None)
+
+    def summary(prof, wall, plain) -> str:
+        busy = _busy_ms(prof.events()) / STEPS
+        plain_ms = plain * 1e3 / STEPS
+        return (f"wall {plain_ms:.3f} ms/step (profiled {wall * 1e3 / STEPS:.3f}), device busy "
+                f"{busy:.3f} ms/step, idle {100 * (1 - busy / plain_ms):.1f}%, "
+                f"{len(_device_spans(prof.events())) // STEPS} device activities/step")
 
     if args.last_segment:
         with tempfile.TemporaryDirectory() as tmp:
-            cfg = load_config(CONFIG, dict(OVERRIDES, **CUT_SCHEDULE, basedir=tmp, render_test=0))
+            cfg = load_config(CONFIG, dict(overrides, **CUT_SCHEDULE, basedir=tmp, render_test=0))
             result = reconstruction(cfg, scene, "cuda", save_images=False, on_step=on_step,
                                     log=lambda s: None)
-        geometry = result.state.geometry
-        where = (f"the last {STEPS} steps of the cut schedule: grid {geometry.grid_size}, "
-                 f"{result.state.n_samples} samples, alpha mask, top-{cfg.shade_top_k}")
+        last = result.segments[-1]
+        where = (f"the last {STEPS} steps of the cut schedule: grid {last['grid']}, "
+                 f"{last['n_samples']} samples, alpha mask, top-{cfg.shade_top_k}, "
+                 f"{last['strata']} strata, budgets {last['budgets']}, "
+                 f"lattices {last['lattices']}")
+        for seg, (first, prof, wall, plain) in zip(result.segments, windows):
+            print(f"segment {seg['start']}..{seg['end']} steps {first}..{first + STEPS - 1}: "
+                  f"grid {seg['grid']} strata {seg['strata']} density samples/step "
+                  f"{seg['samples_per_step']}: {summary(prof, wall, plain)}")
     else:
-        cfg = load_config(CONFIG, OVERRIDES)
+        cfg = load_config(CONFIG, overrides)
         train_steps(cfg, WARMUP + STEPS, device="cuda", scene=scene, on_step=on_step,
                     log=lambda s: None)
         where = f"{STEPS} profiled steps after {WARMUP}"
-    prof, wall_ms = state["prof"], state["wall"] * 1e3 / STEPS
+    _, prof, wall, plain = windows[-1]
     annotations = {e.key for e in prof.events() if e.is_user_annotation}
     rows = [
         (e.key, e.device_time_total / 1e3 / STEPS, e.count // STEPS)
@@ -110,10 +150,10 @@ def main(argv=None) -> int:
         and e.key not in annotations
     ]
     busy_ms = _busy_ms(prof.events()) / STEPS
-    print(f"{torch.cuda.get_device_name(0)}; {where}")
-    print(f"wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
-          f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%; "
-          f"kernel rows sum to {sum(ms for _, ms, _ in rows):.3f} ms/step")
+    print(f"{torch.cuda.get_device_name(0)}; {'unstratified' if args.unstratified else 'as written'}; "
+          f"{where}")
+    print(f"{summary(prof, wall, plain)}; kernel rows sum to "
+          f"{sum(ms for _, ms, _ in rows):.3f} ms/step")
     print(f"{'ms/step':>9} {'share':>6} {'calls':>6}  kernel")
     for key, ms, calls in sorted(rows, key=lambda r: -r[1])[:TOP]:
         print(f"{ms:9.3f} {100 * ms / busy_ms:5.1f}% {calls:6d}  {key[:110]}")

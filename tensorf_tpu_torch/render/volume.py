@@ -1,12 +1,21 @@
 """Fixed-shape masked volume renderer (counterpart of
-tensorf_tpu/render/volume.py), for the unbudgeted non-NDC path.
+tensorf_tpu/render/volume.py), for non-NDC rays.
 
 Dead samples contribute exactly zero density / radiance through ``where``
-gates over the full (B, n_samples) lattice.  Shading runs where the weight
-passes ``ray_march_weight_thres`` — over every sample, or (``shade_top_k``)
-over the top-K weights per ray only.  With an alpha mask, a sample lives
-only where the mask's nearest-neighbour gate is set.  Sample budgets, NDC
-rays and serving window bits are not ported yet and raise.
+gates.  With an alpha mask, a sample lives only where the mask's
+nearest-neighbour gate is set.  A ``sample_budget`` K below the lattice
+compacts each ray to its K nearest candidate samples before the field is
+queried (the reference's boolean compaction, with a fixed K): exact
+whenever K covers every candidate, and ``budget_overflow_frac`` reports
+the rays where it does not.  Shading runs where the weight passes
+``ray_march_weight_thres`` — over every kept sample, or (``shade_top_k``)
+over the top-K weights per ray only.  NDC rays and serving window bits are
+not ported yet and raise.
+
+Every top-k selection here ranks with distinct scores: kept entries
+nearest first, then dead entries by ascending index.  That is the order
+jax.lax.top_k gives the JAX package's tied scores, so the selected
+indices equal the JAX renderer's index for index.
 """
 
 from __future__ import annotations
@@ -14,13 +23,24 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
-from ..models.alpha_mask import AlphaGridMask, sample_alpha_gate
+from ..models.alpha_mask import (
+    COARSE_STRIDE,
+    AlphaGridMask,
+    sample_alpha_gate,
+    sample_alpha_gate_coarse,
+)
 from ..models.config import ModelConfig
 from ..models.shading import apply_shading
 from ..ops.freq_mask import FreeMasks
-from ..ops.rays import sample_along_rays
+from ..ops.rays import lattice_z, sample_along_rays, sample_lattice
 from ..ops.render_math import raw2alpha
+
+# Re-derive z/xyz/dists from the selected lattice indices instead of
+# gathering them from the full lattice (bit-identical on the affine
+# lattice).  Module-level so a test can pin derived == gathered.
+_DERIVED_COMPACTION = True
 
 
 def normalize_coord(xyz: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
@@ -46,7 +66,107 @@ class RenderOutput(NamedTuple):
     sigma: torch.Tensor  # (B, N)
     z_vals: torch.Tensor  # (B, N)
     num_valid_samples: torch.Tensor  # scalar
-    mean_alive_samples: torch.Tensor  # scalar: mean in-bbox samples per ray
+    # fraction of rays whose candidates a sample budget could not all keep
+    # (0 without a budget): nonzero means the render may under-integrate
+    budget_overflow_frac: torch.Tensor  # scalar
+    mean_alive_samples: torch.Tensor  # scalar: mean live samples per ray
+
+
+def _ranked_topk(keep: torch.Tensor, k: int):
+    """Top-k of (B, n) keep flags: kept entries nearest first, then dead
+    ones by ascending index, as jax.lax.top_k ranks the JAX package's
+    keep * (2n - index) scores.  Returns (alive (B, k) bool, idx (B, k)),
+    in rank order."""
+    n = keep.shape[1]
+    order = torch.arange(n, dtype=torch.int32, device=keep.device)
+    score = torch.where(keep, 2 * n - order, -order)
+    vals, idx = torch.topk(score, k, dim=-1)
+    return vals > 0, idx
+
+
+def _compact(xyz, z_vals, dists, keep, K: int):
+    """Keep the nearest K ``keep`` samples per ray, in depth order."""
+    _, sel = _ranked_topk(keep, K)
+    sel = torch.sort(sel, dim=-1).values
+    return (
+        torch.take_along_dim(xyz, sel[..., None], dim=1),
+        torch.take_along_dim(z_vals, sel, dim=1),
+        torch.take_along_dim(dists, sel, dim=1),
+        torch.take_along_dim(keep, sel, dim=1),
+    )
+
+
+def _window_keep(keep: torch.Tensor) -> torch.Tensor:
+    """(B, n) per-sample flags -> (B, G) per COARSE_STRIDE window (any),
+    windows starting at index 0 (models/alpha_mask.py::group_padded_count)."""
+    B, n = keep.shape
+    S = COARSE_STRIDE
+    G = -(-n // S)
+    return F.pad(keep, (0, G * S - n)).reshape(B, G, S).any(dim=-1)
+
+
+def _select_windows_g(gkeep: torch.Tensor, K: int):
+    """Window-granular top-k from a window keep mask (B, G): the K // S
+    nearest kept windows.  Returns (sel (B, K) lattice indices in depth
+    order, win_alive (B, K) bool, padded_count (B,)); K is a
+    COARSE_STRIDE multiple."""
+    B = gkeep.shape[0]
+    S = COARSE_STRIDE
+    padded_count = S * torch.sum(gkeep.to(torch.int32), dim=-1, dtype=torch.int32)
+    alive, gsel = _ranked_topk(gkeep, K // S)
+    code = torch.sort(gsel * 2 + alive.to(gsel.dtype), dim=-1).values  # depth order
+    gsel, galive = code >> 1, (code & 1) > 0
+    offs = torch.arange(S, dtype=gsel.dtype, device=gsel.device)
+    sel = (gsel[..., None] * S + offs).reshape(B, K)
+    win_alive = galive[..., None].expand(B, K // S, S).reshape(B, K)
+    return sel, win_alive, padded_count
+
+
+def _select_windows(keep: torch.Tensor, K: int):
+    """Window selection over per-sample keep flags (B, n): see
+    _select_windows_g."""
+    return _select_windows_g(_window_keep(keep), K)
+
+
+def _compact_grouped(xyz, z_vals, dists, keep, K: int):
+    """_compact at window granularity, by gathering from the full lattice:
+    (xyz, z_vals, dists, kept, padded_count).  Lattice-tail padding rows
+    carry keep = 0, so a selected straddling window adds no live sample."""
+    B, n = keep.shape
+    S = COARSE_STRIDE
+    tail = -(-n // S) * S - n
+    sel, _, padded_count = _select_windows(keep, K)
+    xyz, z_vals, dists = (F.pad(a, (0, 0, 0, tail)) if a.dim() == 3 else F.pad(a, (0, tail))
+                          for a in (xyz, z_vals, dists))
+    keep = F.pad(keep, (0, tail))
+    return (
+        torch.take_along_dim(xyz, sel[..., None], dim=1),
+        torch.take_along_dim(z_vals, sel, dim=1),
+        torch.take_along_dim(dists, sel, dim=1),
+        torch.take_along_dim(keep, sel, dim=1),
+        padded_count,
+    )
+
+
+def _derive_at(rays_o, viewdirs, aabb, near, far, u, step_size, n_samples, sel, win_alive):
+    """(xyz, z_vals, dists, kept) at selected lattice indices, computed by
+    the same expressions as sample_along_rays, so bit-identical to
+    gathering them.  Indices at or past ``n_samples`` (the straddling last
+    window's tail) stay masked."""
+    t_min = sample_lattice(rays_o, viewdirs, aabb, near, far)
+    idxf = sel.to(rays_o.dtype)
+    z_sel = lattice_z(t_min, u, idxf, step_size)
+    z_next = lattice_z(t_min, u, idxf + 1.0, step_size)
+    d_sel = torch.where(sel < n_samples - 1, z_next - z_sel, torch.zeros_like(z_sel))
+    xyz_sel = rays_o[:, None, :] + viewdirs[:, None, :] * z_sel[..., None]
+    inb = ~torch.any((xyz_sel < aabb[0]) | (xyz_sel > aabb[1]), dim=-1)
+    kept = win_alive & inb & (sel < n_samples)
+    return xyz_sel, z_sel, d_sel, kept
+
+
+def _over(keep: torch.Tensor, K: int) -> torch.Tensor:
+    """(B,) bool: rays with more than K set flags."""
+    return torch.sum(keep.to(torch.int32), dim=-1) > K
 
 
 def render_rays(
@@ -63,6 +183,9 @@ def render_rays(
     shade_top_k: Optional[int] = None,
     fused: bool = True,
     sample_budget: Optional[int] = None,
+    budget_mode: str = "alive",
+    use_coarse_gate: bool = True,
+    alive_budget: Optional[int] = None,
     alpha_mask: Optional[AlphaGridMask] = None,
     cand_window_bits=None,
     u: Optional[torch.Tensor] = None,
@@ -76,9 +199,18 @@ def render_rays(
     (B, 1) is the per-ray lattice jitter and ``flip`` (scalar 0/1) the
     train-time random white-background flip for datasets whose background
     is not white.  Both None give the deterministic eval render.
+
+    A ``sample_budget`` K < ``n_samples`` compacts each ray before the
+    field runs, by the first rule that applies:
+    - a mask whose coarse gate is invalid (``use_coarse_gate`` False): the
+      K nearest exact-alive samples;
+    - ``budget_mode="cand"`` with a mask: the K nearest coarse candidates
+      (whole stride windows when K is a COARSE_STRIDE multiple), exact-gated
+      after; ``alive_budget`` below K compacts those once more;
+    - ``"alive"`` with a mask: K1 = min(n_samples, K + 224) coarse
+      candidates, exact-gated, then the K nearest alive ones;
+    - no mask (the prefilter budget): the K nearest in-bbox samples.
     """
-    if sample_budget is not None and sample_budget < n_samples:
-        raise NotImplementedError("sample budgets are not ported yet")
     if ndc_ray:
         raise NotImplementedError("NDC rays are not ported yet")
     if cand_window_bits is not None:
@@ -88,6 +220,7 @@ def render_rays(
     B = rays.shape[0]
     rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
     near, far = cfg.near_far
+    zero = torch.zeros((), device=rays.device)
 
     xyz, z_vals, ray_valid = sample_along_rays(
         rays_o, viewdirs, aabb, near, far, step_size, n_samples, u
@@ -95,17 +228,69 @@ def render_rays(
     dists = torch.cat(
         [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
     )
-    if alpha_mask is not None:
+
+    def compact_windows(keep, K):
+        if _DERIVED_COMPACTION:
+            sel, win_alive, pc = _select_windows(keep, K)
+            return (*_derive_at(rays_o, viewdirs, aabb, near, far, u, step_size,
+                                n_samples, sel, win_alive), pc)
+        return _compact_grouped(xyz, z_vals, dists, keep, K)
+
+    n_eff = n_samples
+    overflow = zero
+    exact_gated = False
+    if sample_budget is not None and sample_budget < n_samples:
+        K = sample_budget
+        if alpha_mask is not None and not use_coarse_gate:
+            alive = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)
+            overflow = torch.mean(_over(alive, K).to(torch.float32))
+            xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, alive, K)
+            exact_gated = True
+        elif alpha_mask is not None and budget_mode == "cand":
+            cand = ray_valid & sample_alpha_gate_coarse(alpha_mask, xyz)
+            if K % COARSE_STRIDE == 0:
+                xyz, z_vals, dists, kept, pc = compact_windows(cand, K)
+                over1 = pc > K
+            else:
+                over1 = _over(cand, K)
+                xyz, z_vals, dists, kept = _compact(xyz, z_vals, dists, cand, K)
+            ray_valid = kept & (sample_alpha_gate(alpha_mask, xyz) > 0)
+            if alive_budget is not None and alive_budget < K:
+                over1 = over1 | _over(ray_valid, alive_budget)
+                xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, ray_valid,
+                                                         alive_budget)
+                K = alive_budget
+            overflow = torch.mean(over1.to(torch.float32))
+            exact_gated = True
+        elif alpha_mask is not None:
+            # candidates exceed the alive set by about the dilated shell's
+            # thickness per surface crossing: an additive margin
+            K1 = min(n_samples, K + 224)
+            cand = ray_valid & sample_alpha_gate_coarse(alpha_mask, xyz)
+            over1 = _over(cand, K1)
+            xyz, z_vals, dists, cand1 = _compact(xyz, z_vals, dists, cand, K1)
+            alive = cand1 & (sample_alpha_gate(alpha_mask, xyz) > 0)
+            overflow = torch.mean((over1 | _over(alive, K)).to(torch.float32))
+            xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, alive, K)
+            exact_gated = True
+        elif K % COARSE_STRIDE == 0:
+            # mask-free: the candidates are the contiguous in-bbox run
+            xyz, z_vals, dists, ray_valid, pc = compact_windows(ray_valid, K)
+            overflow = torch.mean((pc > K).to(torch.float32))
+        else:
+            overflow = torch.mean(_over(ray_valid, K).to(torch.float32))
+            xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, ray_valid, K)
+        n_eff = K
+
+    if alpha_mask is not None and not exact_gated:
         # occupancy gate (reference tensorBase.py:349-354)
         ray_valid = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)
     mean_alive = torch.mean(torch.sum(ray_valid.to(torch.float32), dim=-1))
-    xyz_n = normalize_coord(xyz, aabb)  # (B, N, 3)
-    N = n_samples
+    xyz_n = normalize_coord(xyz, aabb)  # (B, n_eff, 3)
+    N = n_eff
 
     def sigma_of(den_feat):
-        return torch.where(
-            ray_valid, feature2density(cfg, den_feat.reshape(B, N)), torch.zeros((), device=rays.device)
-        )
+        return torch.where(ray_valid, feature2density(cfg, den_feat.reshape(B, N)), zero)
 
     def shade(pts, app_feat, K):
         view = viewdirs[:, None, :].expand(B, K, 3).reshape(-1, 3)
@@ -137,24 +322,25 @@ def render_rays(
         else:
             app_feat_sel = field.app_feature(xyz_sel, masks.app)
         rgb_s = shade(xyz_sel, app_feat_sel.reshape(B * K, -1), K)
-        rgb_s = torch.where(gate_sel[..., None], rgb_s, torch.zeros((), device=rays.device))
+        rgb_s = torch.where(gate_sel[..., None], rgb_s, zero)
         rgb_map = torch.sum(w_sel[..., None] * rgb_s, dim=-2)
     else:
         if not fused:
             app_feat = field.app_feature(xyz_n.reshape(-1, 3), masks.app)
         rgb_s = shade(xyz_n.reshape(-1, 3), app_feat, N)
-        rgb_s = torch.where(app_gate[..., None], rgb_s, torch.zeros((), device=rays.device))
+        rgb_s = torch.where(app_gate[..., None], rgb_s, zero)
         rgb_map = torch.sum(weight[..., None] * rgb_s, dim=-2)
 
     return _composite(
         rgb_map, weight, sigma, z_vals, rays, flip, num_valid,
-        is_train=is_train, white_bg=white_bg, mean_alive_samples=mean_alive,
+        is_train=is_train, white_bg=white_bg, budget_overflow_frac=overflow,
+        mean_alive_samples=mean_alive,
     )
 
 
 def _composite(
     rgb_map, weight, sigma, z_vals, rays, flip, num_valid, *,
-    is_train: bool, white_bg: bool, mean_alive_samples,
+    is_train: bool, white_bg: bool, budget_overflow_frac, mean_alive_samples,
 ) -> RenderOutput:
     acc = torch.sum(weight, dim=-1)
     # White background; at train time a random 50% flip when the dataset
@@ -174,5 +360,6 @@ def _composite(
         sigma=sigma,
         z_vals=z_vals,
         num_valid_samples=num_valid,
+        budget_overflow_frac=budget_overflow_frac,
         mean_alive_samples=mean_alive_samples,
     )

@@ -9,10 +9,14 @@ render-only entry on a checkpoint; ``train_steps`` takes a few steps of
 the first segment and renders one view (profile_step.py uses it).
 
 Each event is a function of a ``TrainState`` (``alpha_mask_event``,
-``upsample_event``), so the tests can hold it against the JAX loop's own
-event code.  Ray stratification, sample budgets, resume, NDC rays, the
-progress figures and trajectory rendering are not ported yet: a config
-that asks for them raises NotImplementedError.
+``upsample_event``, ``restratify``, ``raise_budgets``), so the tests can
+hold it against the JAX loop's own event code.  After every event the ray
+store is re-partitioned by per-ray candidate count (``stratify``): each
+stratum is drawn at a fixed quota and rendered at its own sample budget
+and lattice, and a budget that keeps overflowing is raised.  Serving-side
+stratification (``stratify_render``), resume, NDC rays, the progress
+figures and trajectory rendering are not ported yet: a config that asks
+for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,22 +33,35 @@ import torch
 from ..config.schema import TrainConfig, model_config_from
 from ..data import dataset_dict
 from ..eval.evaluation import RendererHandle, evaluation, psnrs_calculate
+from ..models.alpha_mask import coarse_gate_valid
 from ..models.config import GridGeometry, cal_n_samples, n_to_reso, n_voxel_schedule
 from ..models.tensorf import FIELD_MODELS
 from ..ops.freq_mask import free_masks
-from ..render.culling import filter_rays_alpha, filter_rays_bbox, update_alpha_mask
+from ..render.culling import (
+    _budget_hint,
+    count_ray_candidates,
+    count_ray_candidates_and_alive,
+    count_ray_candidates_and_chord,
+    count_ray_inbbox,
+    filter_rays_alpha,
+    filter_rays_bbox,
+    stratify_rays,
+    stratify_rays_joint,
+    update_alpha_mask,
+)
 from ..utils.ckpt import load_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from .losses import LossWeights
 from .optim import make_optimizer
-from .sampler import SimpleSampler
-from .step import TrainStatics, make_train_step
+from .sampler import SimpleSampler, StratifiedSampler, allocate_quotas
+from .step import TrainStatics, make_train_step, render_widths
 
 # knobs of the JAX trainer that the port does not honour yet: a run that
 # sets them would compute something else than its config states
-_UNPORTED_TRAIN = ("stratify", "sample_budget", "prefilter_budget")
-_UNPORTED_SCHEDULE = ("stratify", "stratify_render", "sample_budget", "prefilter_budget",
-                      "resume", "render_train", "render_path", "ndc_ray")
+_UNPORTED_SCHEDULE = ("stratify_render", "resume", "render_train", "render_path", "ndc_ray")
+# per-stratum quotas are multiples of this (the JAX loop's rounding on one
+# device: the smallest multiple of the device count that is >= 8)
+QUOTA_ROUND = 8
 
 
 def _refuse_unported(cfg: TrainConfig, keys) -> None:
@@ -125,10 +142,44 @@ class TrainState:
             self.train_ds.all_rays, self.train_ds.all_rgbs, aabb, device
         )
         self.sampler = SimpleSampler(self.rays.shape[0], cfg.batch_size, cfg.seed)
+        # the budgets in effect, each auto-raised when it keeps overflowing:
+        # the unstratified mask-era and prefilter budgets, and with strata
+        # (None = unstratified) one candidate budget, alive budget, lattice
+        # cap, store-share loss weight and quota per stratum
+        self.run_budget = max(int(cfg.sample_budget), 0)
+        self.prefilter_run = max(int(cfg.prefilter_budget), 0)
+        self.strata_budgets: Optional[list] = None
+        self.strata_alive_budgets: Optional[list] = None
+        self.strata_n_samples: Optional[tuple] = None
+        self.strata_loss_w: Optional[list] = None
+        self.quotas: Optional[list] = None
+        self.overflow_strikes = [0]
 
     @property
     def aabb(self) -> torch.Tensor:
         return torch.as_tensor(self.geometry.aabb_np, device=self.device)
+
+    def coarse_ok(self) -> bool:
+        return coarse_gate_valid(self.alpha_mask, self.geometry.step_size, False)
+
+    def active_budget(self) -> Optional[int]:
+        """The unstratified budget of the current phase: sample_budget once
+        the mask exists, prefilter_budget before; None where it would not
+        cut the lattice."""
+        b = self.run_budget if self.alpha_mask is not None else self.prefilter_run
+        return b if 0 < b < self.n_samples else None
+
+    def next_ids(self):
+        """The next batch's store ids on the device: one tensor, or with
+        strata one per stratum (one upload, split on the device)."""
+        ids = self.sampler.nextids()
+        flat = torch.cat(ids) if isinstance(ids, tuple) else ids
+        if self.device.type == "cuda":
+            # from pinned memory the upload does not wait for the device
+            flat = flat.pin_memory().to(self.device, non_blocking=True)
+        if isinstance(ids, tuple):
+            return torch.split(flat, [len(i) for i in ids])
+        return flat
 
     def drop_optimizer(self) -> None:
         """Free the Adam state and the gradients before the factors change
@@ -146,8 +197,8 @@ class TrainState:
 
 
 def build_statics(state: TrainState) -> TrainStatics:
-    """The step's statics for the current segment (tensorf_tpu loop.py
-    build_statics, unbudgeted and unstratified)."""
+    """The step's statics for the current segment (tensorf_tpu
+    loop.py:526-609)."""
     cfg = state.cfg
     if state.alpha_mask is not None:
         # top-K shading once the mask concentrates the weights on surfaces
@@ -177,6 +228,14 @@ def build_statics(state: TrainState) -> TrainStatics:
         max_visible=cfg.max_vis_freq_ratio if cfg.max_vis_freq_ratio > 0 else None,
         shade_top_k=top_k,
         fused=bool(cfg.fused_gathers),
+        sample_budget=state.active_budget(),
+        use_coarse_gate=state.coarse_ok(),
+        strata_budgets=None if state.strata_budgets is None else tuple(state.strata_budgets),
+        strata_alive_budgets=(None if state.strata_alive_budgets is None
+                              else tuple(state.strata_alive_budgets)),
+        strata_n_samples=state.strata_n_samples,
+        strata_loss_weights=None if state.strata_loss_w is None else tuple(state.strata_loss_w),
+        strata_noise_match=bool(cfg.stratify_noise_match),
     )
 
 
@@ -191,7 +250,146 @@ def make_handle(state: TrainState) -> RendererHandle:
         white_bg=state.white_bg,
         shade_top_k=cfg.shade_top_k if cfg.shade_top_k > 0 else None,
         fused=bool(cfg.fused_gathers),
+        # the uniform eval path renders at the mask era's budget
+        sample_budget=state.active_budget() if state.alpha_mask is not None else None,
+        use_coarse_gate=state.coarse_ok(),
     )
+
+
+def restratify(state: TrainState, iteration: int, log: Callable[[str], None] = print
+               ) -> Optional[dict]:
+    """(Re)partition the ray store by per-ray candidate count and swap in
+    the stratified sampler and the per-stratum budgets, lattices and loss
+    weights (tensorf_tpu loop.py:611-812).  Returns the plan, or None when
+    the run goes unstratified (the plain sampler then draws)."""
+    cfg = state.cfg
+    n_samples = state.n_samples
+    count_args = (state.geometry.aabb_np, state.geometry.step_size, state.near_far)
+
+    def deactivate():
+        # a stale stratified sampler must never outlive its plan
+        if state.strata_budgets is not None:
+            state.strata_budgets = state.strata_alive_budgets = None
+            state.strata_n_samples = state.strata_loss_w = state.quotas = None
+            state.overflow_strikes = [0]
+            state.sampler = SimpleSampler(state.rays.shape[0], cfg.batch_size,
+                                          cfg.seed + iteration)
+        return None
+
+    if not cfg.stratify:
+        return deactivate()
+    alive_counts = None
+    if state.alpha_mask is None:
+        # before the first mask every in-bbox sample is alive: the chord is
+        # the candidate count, and the capped lattice alone does the
+        # compaction
+        if not cfg.stratify_prefilter:
+            return deactivate()
+        counts = count_ray_inbbox(state.rays, *count_args, n_samples=n_samples)
+        chord_counts = counts
+    elif state.coarse_ok():
+        if cfg.stratify_alive:
+            counts, alive_counts, chord_counts = count_ray_candidates_and_alive(
+                state.rays, state.alpha_mask, *count_args, n_samples=n_samples)
+        else:
+            # the probe-only pass: no (B, N, 3) lattice
+            counts, chord_counts = count_ray_candidates_and_chord(
+                state.rays, state.alpha_mask, *count_args, n_samples=n_samples)
+    else:
+        # the step selects with the exact gate: one stage, no lattice caps
+        counts = count_ray_candidates(state.rays, state.alpha_mask, *count_args,
+                                      n_samples=n_samples, use_coarse=False)
+        chord_counts = None
+    quantiles = tuple(cfg.strata_quantiles) if cfg.strata_quantiles else None
+    if alive_counts is not None:
+        strata, budgets, alive_hints = stratify_rays_joint(counts, alive_counts,
+                                                           quantiles=quantiles)
+    else:
+        strata, budgets = stratify_rays(counts, quantiles=quantiles)
+        alive_hints = None
+    sizes = [int(sel.size) for sel in strata]
+    if len(strata) * QUOTA_ROUND > cfg.batch_size:
+        log(f"[{iteration}] stratify skipped (batch too small)")
+        return deactivate()
+    quotas = allocate_quotas(sizes, cfg.batch_size, QUOTA_ROUND)
+    state.strata_budgets = [b if b < n_samples else None for b in budgets]
+    state.strata_n_samples = None if chord_counts is None else tuple(
+        min(n_samples, _budget_hint(int(chord_counts[sel].max()))) for sel in strata)
+    state.strata_alive_budgets = None
+    if alive_hints is not None:
+        alive = [a if (a is not None and b is not None and a < b) else None
+                 for a, b in zip(alive_hints, state.strata_budgets)]
+        state.strata_alive_budgets = alive if any(a is not None for a in alive) else None
+    state.overflow_strikes = [0] * len(strata)
+    state.strata_loss_w = [n / float(sum(sizes)) for n in sizes]
+    state.quotas = quotas
+    state.sampler = StratifiedSampler(strata, quotas, cfg.seed + iteration)
+    plan = dict(event="stratify", iteration=iteration, sizes=sizes, quotas=quotas,
+                budgets=list(state.strata_budgets), alive_budgets=state.strata_alive_budgets,
+                lattices=None if state.strata_n_samples is None else list(state.strata_n_samples),
+                lattice=n_samples, mean_count=float(np.mean(counts)),
+                p999_count=float(np.quantile(counts, 0.999)),
+                mean_alive=None if alive_counts is None else float(np.mean(alive_counts)))
+    log(f"[{iteration}] stratified ray store: sizes {sizes}, quotas {quotas}, budgets "
+        f"{plan['budgets']}, alive budgets {plan['alive_budgets']}, lattices {plan['lattices']} "
+        f"(lattice {n_samples}, mean cand {plan['mean_count']:.1f}, "
+        f"p99.9 {plan['p999_count']:.0f})")
+    return plan
+
+
+def _ceil32(b: int) -> int:
+    return int(np.ceil(b * 1.5 / 32) * 32)
+
+
+def raise_budgets(state: TrainState, per_budget, iteration: int,
+                  log: Callable[[str], None] = print) -> List[str]:
+    """Overflow bookkeeping at a progress read (tensorf_tpu
+    loop.py:1046-1136): a budget whose overflow exceeds 1% of the rays at
+    two reads in a row is raised to ceil32(1.5 b) — per stratum with
+    strata (dropped to unbudgeted once it reaches the lattice), else the
+    phase's own budget (capped at the lattice).  Returns what was raised;
+    the caller rebuilds the step when it is not empty."""
+    per_budget = [float(o) for o in per_budget]
+    if len(state.overflow_strikes) != len(per_budget):
+        state.overflow_strikes = [0] * len(per_budget)
+    strikes = state.overflow_strikes
+    raised = []
+    for s, o in enumerate(per_budget):
+        if not o > 0.01:
+            strikes[s] = 0
+            continue
+        strikes[s] += 1
+        where = (f"stratum {s}, budget {state.strata_budgets[s]}"
+                 if state.strata_budgets is not None
+                 else f"budget {state.run_budget if state.alpha_mask is not None else state.prefilter_run}")
+        log(f"[budget] overflow on {o:.1%} of rays at iteration {iteration} ({where})")
+        if strikes[s] < 2:
+            continue
+        strikes[s] = 0
+        if state.strata_budgets is not None:
+            b = state.strata_budgets[s]
+            if b:
+                nb = _ceil32(b)
+                state.strata_budgets[s] = nb if nb < state.n_samples else None
+                raised.append(f"stratum {s} -> {state.strata_budgets[s]}")
+            # the stratum's overflow counts both stages: raise the alive cap
+            # alongside (dropped once it no longer undercuts the budget)
+            alive = state.strata_alive_budgets
+            if alive is not None and alive[s]:
+                na, cb = _ceil32(alive[s]), state.strata_budgets[s]
+                alive[s] = na if (cb is not None and na < cb) else None
+                if not any(a is not None for a in alive):
+                    state.strata_alive_budgets = None
+                raised.append(f"stratum {s} alive -> {alive[s]}")
+        elif state.alpha_mask is not None and 0 < state.run_budget < state.n_samples:
+            state.run_budget = min(state.n_samples, _ceil32(state.run_budget))
+            raised.append(f"sample_budget -> {state.run_budget}")
+        elif state.alpha_mask is None and 0 < state.prefilter_run < state.n_samples:
+            state.prefilter_run = min(state.n_samples, _ceil32(state.prefilter_run))
+            raised.append(f"prefilter_budget -> {state.prefilter_run}")
+    if raised:
+        log(f"[budget] auto-raised {', '.join(raised)} at iteration {iteration}")
+    return raised
 
 
 def alpha_mask_event(state: TrainState, iteration: int) -> dict:
@@ -305,9 +503,11 @@ class ReconstructionResult(NamedTuple):
     total_loss: List[float]  # per step
     test_psnrs: Dict[int, float]  # mean test-set PSNR at each vis_every iteration
     final_psnrs: List[float]  # per test view after training (render_test=1)
-    segments: List[dict]  # steps, grid, n_samples, ms/step, peak GiB per segment
+    segments: List[dict]  # steps, grid, n_samples, strata, ms/step, peak GiB per segment
     events: List[dict]  # each schedule event's outcome
     state: TrainState
+    plans: List[dict]  # each stratification plan and budget raise, in order
+    progress: List[dict]  # each progress read: iteration, psnr, mse, overflow per budget
 
 
 def reconstruction(
@@ -319,8 +519,8 @@ def reconstruction(
     log: Callable[[str], None] = print,
     on_step: Optional[Callable[[int, TrainState], None]] = None,
 ) -> ReconstructionResult:
-    """Run ``cfg``'s schedule (tensorf_tpu loop.py:195-1420 with stratify=0
-    and no budgets).
+    """Run ``cfg``'s schedule (tensorf_tpu loop.py:195-1420, single host,
+    no resume, serving stratification off).
 
     ``scene`` is an in-memory dataset (data/synthetic.py); None reads
     ``cfg.datadir``.  ``save_images`` writes the final evaluation's PNGs,
@@ -339,9 +539,17 @@ def reconstruction(
 
     event_iters = set(cfg.update_AlphaMask_list) | set(cfg.upsamp_list)
     noise = torch.Generator(device=device).manual_seed(cfg.seed)
+    totals, segments, events, test_psnrs, plans, progress = [], [], [], {}, [], []
+
+    def stratify(iteration: int) -> None:
+        plan = restratify(state, iteration, log)
+        if plan is not None:
+            plans.append(plan)
+
+    # partition the store up front (by in-bbox chord before the first mask)
+    stratify(0)
     step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
     aabb = state.aabb
-    totals, segments, events, test_psnrs = [], [], [], {}
     seg = None
     run_tic = time.perf_counter()
 
@@ -351,7 +559,8 @@ def reconstruction(
             torch.cuda.reset_peak_memory_stats(device)
         return dict(start=start, grid=tuple(state.geometry.grid_size),
                     n_samples=state.n_samples, store=int(state.rays.shape[0]),
-                    masked=state.alpha_mask is not None, t0=time.perf_counter(), paused=0.0)
+                    masked=state.alpha_mask is not None, **_sampling_summary(state),
+                    t0=time.perf_counter(), paused=0.0)
 
     def close_segment(seg: dict, end: int) -> None:
         _sync(device)
@@ -365,18 +574,29 @@ def reconstruction(
             f"{seg['n_samples']} {seg['ms_per_step']:.3f} ms/step peak {seg['peak_gib']:.2f} GiB")
 
     for iteration in range(cfg.n_iters):
-        ids = state.sampler.nextids().to(device)
-        metrics = step_fn(aabb, state.rays[ids], state.rgbs[ids], iteration, noise,
-                          state.alpha_mask)
+        metrics = step_fn(aabb, state.rays, state.rgbs, iteration, noise, state.alpha_mask,
+                          ids=state.next_ids())
         totals.append(metrics["total_loss"])
         if seg is None and iteration == 0:
             seg = open_segment(1)
         if on_step is not None:
             on_step(iteration, state)
         if iteration % max(int(cfg.progress_refresh_rate), 1) == 0:
-            log(f"Iteration {iteration:05d}: train_psnr = {float(metrics['psnr']):.2f} "
-                f"mse = {float(metrics['mse']):.6f} "
+            # the only host read of the metrics: at the progress rate
+            if state.strata_budgets is not None:
+                per_budget = metrics["stratum_overflow"].tolist()
+            else:
+                per_budget = [float(metrics["budget_overflow_frac"])]
+            progress.append(dict(iteration=iteration, psnr=float(metrics["psnr"]),
+                                 mse=float(metrics["mse"]), overflow=per_budget))
+            log(f"Iteration {iteration:05d}: train_psnr = {progress[-1]['psnr']:.2f} "
+                f"mse = {progress[-1]['mse']:.6f} overflow "
+                f"{[round(o, 4) for o in per_budget]} "
                 f"elapsed = {time.perf_counter() - run_tic:.1f}s")
+            raised = raise_budgets(state, per_budget, iteration, log)
+            if raised:
+                plans.append(dict(event="budget_raise", iteration=iteration, raised=raised))
+                step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
         boundary = iteration in event_iters or iteration == cfg.n_iters - 1
         if boundary and seg is not None and iteration >= seg["start"]:
             close_segment(seg, iteration)
@@ -400,6 +620,8 @@ def reconstruction(
             if iteration in cfg.upsamp_list:
                 events.append(upsample_event(state, iteration))
                 log(f"[{iteration}] {events[-1]}")
+            # every event moves the per-ray counts: re-partition the store
+            stratify(iteration)
             step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
             aabb = state.aabb
             if iteration < cfg.n_iters - 1:
@@ -421,7 +643,22 @@ def reconstruction(
         if final_psnrs:
             log(f"======> {cfg.expname} test all psnr: {np.mean(final_psnrs)} <========")
     totals = torch.stack(totals).tolist() if totals else []
-    return ReconstructionResult(final_path, totals, test_psnrs, final_psnrs, segments, events, state)
+    return ReconstructionResult(final_path, totals, test_psnrs, final_psnrs, segments, events,
+                                state, plans, progress)
+
+
+def _sampling_summary(state: TrainState) -> dict:
+    """How the current segment samples: strata (0 = unstratified), their
+    budgets, lattices and quotas, and the density samples a step queries."""
+    statics = build_statics(state)
+    quotas = state.quotas or [state.cfg.batch_size]
+    return dict(
+        strata=0 if state.strata_budgets is None else len(state.strata_budgets),
+        budgets=list(statics.strata_budgets or [statics.sample_budget]),
+        lattices=list(statics.strata_n_samples or [state.n_samples] * len(quotas)),
+        quotas=list(quotas),
+        samples_per_step=int(sum(q * n for q, n in zip(quotas, render_widths(statics)))),
+    )
 
 
 def render_test(
@@ -454,6 +691,9 @@ def render_test(
         white_bg=test_ds.white_bg,
         shade_top_k=cfg.shade_top_k if cfg.shade_top_k > 0 else None,
         fused=bool(cfg.fused_gathers),
+        # the configured budget, as the JAX render-only entry takes it
+        sample_budget=cfg.sample_budget if alpha_mask is not None and cfg.sample_budget > 0 else None,
+        use_coarse_gate=coarse_gate_valid(alpha_mask, geometry.step_size, False),
     )
     psnrs = []
     if cfg.render_test:
@@ -488,8 +728,10 @@ def train_steps(
     ``scene`` is an in-memory dataset ({split: transforms dict with inline
     images}, see data/synthetic.py::make_synthetic_scene_arrays); None reads
     ``cfg.datadir`` from disk.  With ``cfg.ckpt_path`` set the steps start
-    from that checkpoint's field, grid and mask.  ``on_step(it)`` runs
-    after each step is enqueued (profile_step.py brackets steps with it).
+    from that checkpoint's field, grid and mask.  The store is stratified
+    once, before the first step; budgets are not auto-raised here.
+    ``on_step(it)`` runs after each step is enqueued (profile_step.py
+    brackets steps with it).
     """
     device = resolve_device(device)
     if cfg.ndc_ray:
@@ -500,20 +742,20 @@ def train_steps(
             f"train_steps runs the first schedule segment only: n_steps={n_steps} "
             f"passes the first schedule event at iteration {end}; use reconstruction"
         )
-    _refuse_unported(cfg, _UNPORTED_TRAIN)
     state = TrainState(cfg, device, scene)
     log(
         f"[port] {cfg.model_name} grid {state.geometry.grid_size} n_samples {state.n_samples} "
         f"batch {cfg.batch_size} store {state.rays.shape[0]} rays on {device}"
     )
+    restratify(state, 0, log)
     step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
     noise = torch.Generator(device=device).manual_seed(cfg.seed)
     aabb = state.aabb
     totals = []
     t_first = None
     for it in range(n_steps):
-        ids = state.sampler.nextids().to(device)
-        metrics = step_fn(aabb, state.rays[ids], state.rgbs[ids], it, noise, state.alpha_mask)
+        metrics = step_fn(aabb, state.rays, state.rgbs, it, noise, state.alpha_mask,
+                          ids=state.next_ids())
         totals.append(metrics["total_loss"])
         if it == 0:
             _sync(device)

@@ -1,9 +1,18 @@
-"""Epoch-free random ray-batch sampler (counterpart of
-tensorf_tpu/train/sampler.py::SimpleSampler, driven by a torch.Generator).
-The stratified sampler is not ported yet."""
+"""Epoch-free random ray-batch samplers (counterpart of
+tensorf_tpu/train/sampler.py, driven by torch.Generators).
+
+``StratifiedSampler`` draws a fixed per-stratum quota each step from a
+count-partitioned ray store (render/culling.py::stratify_rays); with
+quotas proportional to stratum sizes every ray keeps about the per-step
+inclusion probability of uniform sampling, while each sub-batch renders at
+its own sample budget.  Multi-host id pools are not ported.
+"""
 
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
+import numpy as np
 import torch
 
 
@@ -38,3 +47,75 @@ class SimpleSampler:
             self.ids = torch.randperm(self.total, generator=self._gen)
             self.curr = 0
         return self.ids[self.curr : self.curr + self.batch]
+
+
+def allocate_quotas(
+    sizes: Sequence[int], batch: int, round_to: int = 8
+) -> List[int]:
+    """Per-stratum batch quotas: proportional to stratum size, each a
+    positive multiple of ``round_to`` (device-mesh shard alignment), summing
+    to ``batch`` (largest-remainder rounding).  Each quota is additionally
+    capped at its stratum's size (a quota beyond the stratum would make
+    SimpleSampler return a short id array and change the compiled sub-batch
+    shape); the residual is redistributed to strata with headroom."""
+    assert batch % round_to == 0, (batch, round_to)
+    assert len(sizes) * round_to <= batch, (sizes, batch, round_to)
+    total = float(sum(sizes))
+
+    def cap(i: int) -> int:
+        # max quota stratum i can absorb: its size rounded down to round_to
+        # (but at least round_to — a stratum smaller than round_to keeps a
+        # round_to quota and oversamples; SimpleSampler tiles permutations
+        # so the output shape stays fixed).
+        return max(round_to, sizes[i] // round_to * round_to)
+
+    raw = [batch * s / total for s in sizes]
+    quotas = [
+        min(cap(i), max(round_to, int(round(r / round_to)) * round_to))
+        for i, r in enumerate(raw)
+    ]
+    # force the sum to `batch`: distribute the residual over strata in
+    # descending size order, respecting each stratum's cap / floor
+    diff = batch - sum(quotas)
+    order = sorted(range(len(sizes)), key=lambda i: -sizes[i])
+    for i in order:
+        if diff == 0:
+            break
+        if diff > 0:
+            take = min(diff, cap(i) - quotas[i])
+        else:
+            take = max(diff, round_to - quotas[i])
+        quotas[i] += take
+        diff -= take
+    if diff > 0:
+        # batch exceeds the total clamped capacity (tiny store): the
+        # largest stratum absorbs the rest and oversamples — SimpleSampler
+        # tiles permutations, so the sub-batch shape stays fixed
+        quotas[order[0]] += diff
+        diff = 0
+    assert diff == 0 and all(q >= round_to for q in quotas), (
+        quotas, sizes, batch
+    )
+    return quotas
+
+
+class StratifiedSampler:
+    """Fixed per-stratum quota sampler over a partitioned ray store.
+
+    ``strata``: per-stratum arrays of store ids; ``quotas``: rays drawn per
+    stratum each step (see allocate_quotas).  Stratum i draws from its own
+    SimpleSampler seeded ``seed + 7919 * i``.
+    """
+
+    def __init__(self, strata: Sequence, quotas: Sequence[int], seed: int = 20211202):
+        assert len(strata) == len(quotas)
+        self.strata = [torch.as_tensor(np.asarray(s, np.int64)) for s in strata]
+        self.quotas = [int(q) for q in quotas]
+        self.samplers = [
+            SimpleSampler(len(s), q, seed + 7919 * i)
+            for i, (s, q) in enumerate(zip(self.strata, self.quotas))
+        ]
+
+    def nextids(self) -> Tuple[torch.Tensor, ...]:
+        """One (quota,) int64 CPU tensor of store ids per stratum."""
+        return tuple(s[smp.nextids()] for s, smp in zip(self.strata, self.samplers))

@@ -1,19 +1,26 @@
-"""The train step: render + losses + backward + Adam (counterpart of the
-non-stratified branch of tensorf_tpu/train/step.py).
+"""The train step: render + losses + backward + Adam (counterpart of
+tensorf_tpu/train/step.py).
 
 PyTorch runs it eagerly; there is no jit counterpart.  Where the JAX step
-splits a key, this step draws the same two pieces of noise from a
-torch.Generator on the device: the per-ray lattice jitter ``u`` (B, 1) and
-the background flip.  ``loss_fn`` takes them explicitly so tests can feed
-JAX's own draw.  The alpha mask rides along as an argument, as in the JAX
-step; the per-segment statics (lattice, top-K, L1 weight) come from the
-training loop.  The stratified sub-batches and sample budgets are not
-ported yet.
+splits a key, this step draws the same noise from a torch.Generator on the
+device: the per-ray lattice jitter ``u`` (B, 1) and the background flip,
+and with strata one of each per stratum and the noise-matched stratum
+shares.  ``loss_fn`` takes them explicitly so tests can feed JAX's own
+draws.  The alpha mask rides along as an argument, as in the JAX step;
+the per-segment statics (lattice, budgets, strata, top-K, L1 weight) come
+from the training loop.
+
+With ``strata_budgets`` set, the batch is one sub-batch per stratum of the
+count-partitioned ray store, each rendered at its own candidate budget and
+lattice; the per-stratum losses combine by the strata's shares of the
+store (or, noise-matched, by a multinomial draw around them), so the
+estimator stays the store-uniform one while each ray pays about its own
+candidate count.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +47,78 @@ class TrainStatics(NamedTuple):
     max_visible: Optional[float] = None
     shade_top_k: Optional[int] = None
     fused: bool = True
+    # unstratified sample budget ("alive" mode); None = every sample
+    sample_budget: Optional[int] = None
+    # False when the coarse pre-gate is not a superset of the exact gate
+    # (coarse_gate_valid): budgets then select with the exact gate
+    use_coarse_gate: bool = True
+    # per-stratum candidate budgets ("cand" mode; None entry = unbudgeted);
+    # set, the step takes one id array per stratum
+    strata_budgets: Optional[Tuple[Optional[int], ...]] = None
+    # per-stratum exact-alive budgets of a second compaction (None entry =
+    # one stage); same length as strata_budgets when set
+    strata_alive_budgets: Optional[Tuple[Optional[int], ...]] = None
+    # per-stratum lattice caps: samples start at the bbox entry, so a
+    # stratum whose longest chord is C renders exactly on a C-sample lattice
+    strata_n_samples: Optional[Tuple[int, ...]] = None
+    # per-stratum loss weights, each stratum's share of the store (None =
+    # its share of the drawn batch)
+    strata_loss_weights: Optional[Tuple[float, ...]] = None
+    # draw the per-step loss weights as m/B, m ~ Multinomial(B, weights):
+    # the between-strata composition noise a uniform batch carries
+    strata_noise_match: bool = False
+
+
+def strata_loss_shares(statics: TrainStatics, sizes: Sequence[int]) -> List[float]:
+    """The fixed per-stratum loss weights: the store shares, normalized, or
+    without them each stratum's share of the batch."""
+    if statics.strata_loss_weights is not None:
+        assert len(statics.strata_loss_weights) == len(sizes)
+        wsum = float(sum(statics.strata_loss_weights))
+        return [float(x) / wsum for x in statics.strata_loss_weights]
+    total = float(sum(sizes))
+    return [s / total for s in sizes]
+
+
+def _multinomial_shares(generator: torch.Generator, n: float, probs: Sequence[float],
+                        device) -> torch.Tensor:
+    """(S,) m/n with m ~ Multinomial(n, probs), as sequential binomials
+    drawn on ``device`` (no host round trip: the constants are fills)."""
+    remaining = torch.full((), float(n), dtype=torch.float32, device=device)
+    rest = 1.0
+    shares = []
+    for p in probs[:-1]:
+        cond = torch.full((), min(max(p / max(rest, 1e-12), 0.0), 1.0), dtype=torch.float32,
+                          device=device)
+        m = torch.binomial(remaining, cond, generator=generator)
+        m = torch.minimum(torch.clamp(m, min=0.0), remaining)
+        shares.append(m / n)
+        remaining = remaining - m
+        rest -= p
+    shares.append(remaining / n)
+    return torch.stack(shares)
+
+
+def render_widths(statics: TrainStatics) -> List[int]:
+    """Samples per ray at which each render of a step queries the field
+    (render_rays' n_eff): one entry, or one per stratum.  A budget below
+    its lattice compacts to the budget (to the alive budget where a second
+    stage undercuts it); otherwise the lattice is the width."""
+    if statics.strata_budgets is None:
+        b = statics.sample_budget
+        return [b if b is not None and b < statics.n_samples else statics.n_samples]
+    S = len(statics.strata_budgets)
+    lattices = statics.strata_n_samples or (statics.n_samples,) * S
+    alive = statics.strata_alive_budgets or (None,) * S
+    widths = []
+    for b, a, n in zip(statics.strata_budgets, alive, lattices):
+        if b is None or b >= n:
+            widths.append(n)
+        elif a is not None and a < b and statics.use_coarse_gate:
+            widths.append(a)
+        else:
+            widths.append(b)
+    return widths
 
 
 def _build_masks(cfg: ModelConfig, statics: TrainStatics, step: int, device) -> FreeMasks:
@@ -64,42 +143,90 @@ def loss_fn(
     field,
     statics: TrainStatics,
     aabb: torch.Tensor,
-    rays: torch.Tensor,
-    rgbs: torch.Tensor,
+    rays,
+    rgbs,
     step: int,
-    u: Optional[torch.Tensor],
-    flip: Optional[torch.Tensor],
+    u,
+    flip,
     alpha_mask: Optional[AlphaGridMask] = None,
+    shares: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss and its parts for one batch at iteration ``step``."""
+    """Total loss and its parts for one batch at iteration ``step``.
+
+    With ``statics.strata_budgets`` set, ``rays``, ``rgbs``, ``u`` and
+    ``flip`` are sequences with one entry per stratum, and ``shares`` (S,)
+    are the per-step loss weights of a noise-matched step (None: the fixed
+    ones of strata_loss_shares)."""
     cfg = field.cfg
     lw = statics.weights
-    masks = _build_masks(cfg, statics, step, rays.device)
-    out = render_rays(
-        field, rays, masks,
-        aabb=aabb,
-        step_size=statics.step_size,
-        n_samples=statics.n_samples,
-        is_train=True,
-        white_bg=statics.white_bg,
-        ndc_ray=statics.ndc_ray,
-        shade_top_k=statics.shade_top_k,
-        fused=statics.fused,
-        alpha_mask=alpha_mask,
-        u=u,
-        flip=flip,
-    )
-    mse = mse_loss(out.rgb, rgbs)
+    occ_on = lw.occ > 0 and lw.occ_range > 0
+
+    def render(rays_b, u_b, flip_b, **budget):
+        return render_rays(
+            field, rays_b, masks,
+            aabb=aabb,
+            step_size=statics.step_size,
+            is_train=True,
+            white_bg=statics.white_bg,
+            ndc_ray=statics.ndc_ray,
+            shade_top_k=statics.shade_top_k,
+            fused=statics.fused,
+            use_coarse_gate=statics.use_coarse_gate,
+            alpha_mask=alpha_mask,
+            u=u_b,
+            flip=flip_b,
+            **budget,
+        )
+
+    if statics.strata_budgets is not None:
+        masks = _build_masks(cfg, statics, step, aabb.device)
+        S = len(statics.strata_budgets)
+        assert len(rays) == len(rgbs) == len(u) == len(flip) == S
+        alive_budgets = statics.strata_alive_budgets or (None,) * S
+        lattices = statics.strata_n_samples or (statics.n_samples,) * S
+        assert len(alive_budgets) == len(lattices) == S
+        sizes = [int(r.shape[0]) for r in rays]
+        loss_w = shares if shares is not None else strata_loss_shares(statics, sizes)
+        mse = occ = mean_alive = 0.0
+        num_valid = 0
+        overflow_each = []
+        for s in range(S):
+            out = render(rays[s], u[s], flip[s], n_samples=lattices[s],
+                         sample_budget=statics.strata_budgets[s], budget_mode="cand",
+                         alive_budget=alive_budgets[s])
+            w = loss_w[s]
+            mse = mse + w * mse_loss(out.rgb, rgbs[s])
+            mean_alive = mean_alive + w * out.mean_alive_samples
+            num_valid = num_valid + out.num_valid_samples
+            overflow_each.append(out.budget_overflow_frac)
+            if occ_on:
+                occ = occ + w * occlusion_loss(out.sigma, rgbs[s], lw.occ_range,
+                                               lw.occ_wb_range, lw.occ_wb_prior)
+        batch = float(sum(sizes))
+        metrics = {
+            "mse": mse,
+            "stratum_overflow": torch.stack(overflow_each),
+            "budget_overflow_frac": sum(o * (n / batch) for o, n in zip(overflow_each, sizes)),
+            "mean_alive_samples": mean_alive,
+            "num_valid_samples": num_valid,
+        }
+    else:
+        masks = _build_masks(cfg, statics, step, rays.device)
+        out = render(rays, u, flip, n_samples=statics.n_samples,
+                     sample_budget=statics.sample_budget, budget_mode="alive")
+        mse = mse_loss(out.rgb, rgbs)
+        metrics = {
+            "mse": mse,
+            "num_valid_samples": out.num_valid_samples,
+            "budget_overflow_frac": out.budget_overflow_frac,
+            "mean_alive_samples": out.mean_alive_samples,
+        }
+        if occ_on:
+            occ = occlusion_loss(out.sigma, rgbs, lw.occ_range, lw.occ_wb_range, lw.occ_wb_prior)
     total = mse
-    metrics = {
-        "mse": mse,
-        "num_valid_samples": out.num_valid_samples,
-        "mean_alive_samples": out.mean_alive_samples,
-    }
-    if lw.occ > 0 and lw.occ_range > 0:
-        reg = occlusion_loss(out.sigma, rgbs, lw.occ_range, lw.occ_wb_range, lw.occ_wb_prior)
-        total = total + lw.occ * reg
-        metrics["reg_occ"] = reg
+    if occ_on:
+        total = total + lw.occ * occ
+        metrics["reg_occ"] = occ
 
     # TV weights decay by lr_factor each step; step t uses w0 * factor^(t+1).
     tv_decay = float(torch.pow(torch.tensor(statics.lr_factor, dtype=torch.float32),
@@ -132,18 +259,48 @@ def draw_noise(
     return u, flip
 
 
-def make_train_step(field, statics: TrainStatics, optimizer):
-    """Returns ``step_fn(aabb, rays, rgbs, step, generator, alpha_mask=None)
-    -> metrics``, which updates ``field`` in place through ``optimizer``."""
+def draw_strata_noise(
+    generator: torch.Generator, statics: TrainStatics, sizes: Sequence[int], device
+):
+    """(u per stratum, flip per stratum, shares or None) for one stratified
+    step: the shares are drawn when the step is noise-matched and has more
+    than one stratum, as in the JAX step."""
+    shares = None
+    if statics.strata_noise_match and len(sizes) > 1:
+        shares = _multinomial_shares(generator, float(sum(sizes)),
+                                     strata_loss_shares(statics, sizes), device)
+    u = torch.rand((sum(sizes), 1), generator=generator, device=device)
+    flip = (torch.rand((len(sizes),), generator=generator, device=device) < 0.5).to(torch.float32)
+    return torch.split(u, list(sizes)), tuple(flip), shares
 
-    def step_fn(aabb, rays, rgbs, step: int, generator: torch.Generator, alpha_mask=None):
-        u, flip = draw_noise(generator, rays.shape[0], rays.device)
+
+def make_train_step(field, statics: TrainStatics, optimizer):
+    """Returns ``step_fn(aabb, rays, rgbs, step, generator, alpha_mask=None,
+    ids=None) -> metrics``, which updates ``field`` in place through
+    ``optimizer``.  With ``ids`` given, ``rays`` and ``rgbs`` are the
+    device-resident store and the batch is gathered from it on the device:
+    ``ids`` is one id tensor, or with strata a sequence of one per
+    stratum."""
+
+    def step_fn(aabb, rays, rgbs, step: int, generator: torch.Generator, alpha_mask=None,
+                ids=None):
+        shares = None
+        if statics.strata_budgets is not None:
+            sizes = [int(i.shape[0]) for i in ids]
+            idx = torch.cat(list(ids))
+            rays, rgbs = torch.split(rays[idx], sizes), torch.split(rgbs[idx], sizes)
+            u, flip, shares = draw_strata_noise(generator, statics, sizes, aabb.device)
+        else:
+            if ids is not None:
+                rays, rgbs = rays[ids], rgbs[ids]
+            u, flip = draw_noise(generator, rays.shape[0], rays.device)
         optimizer.zero_grad()
-        total, metrics = loss_fn(field, statics, aabb, rays, rgbs, step, u, flip, alpha_mask)
+        total, metrics = loss_fn(field, statics, aabb, rays, rgbs, step, u, flip, alpha_mask,
+                                 shares)
         total.backward()
         optimizer.step()
         # detached, so a kept metric holds no graph (nor the parameters)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
         metrics["psnr"] = -10.0 * torch.log10(metrics["mse"])
         return metrics

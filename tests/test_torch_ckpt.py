@@ -67,7 +67,7 @@ def _jax_render(cfg, params, mask, aabb, rays, **kw):
 
 
 def _port_render(field, mask, aabb, rays, **kw):
-    rgb, depth, _ = render_chunked(field, mask, rays, torch.as_tensor(aabb), chunk=16, **kw)
+    rgb, depth, _, _ = render_chunked(field, mask, rays, torch.as_tensor(aabb), chunk=16, **kw)
     return rgb.numpy(), depth.numpy()
 
 
@@ -198,6 +198,6 @@ def test_tiny_reconstruction_end_to_end(tmp_path):
 def test_schedule_refuses_what_is_not_ported(tmp_path):
     cfg = load_config("configs/synth_sphere.txt", dict(TINY, basedir=str(tmp_path)))
     scene = make_synthetic_scene_arrays(n_train=2, n_test=1, wh=(16, 16), scene="sphere")
-    for knob in ("stratify", "stratify_render", "sample_budget", "resume"):
+    for knob in ("ndc_ray", "stratify_render", "render_path", "resume"):
         with pytest.raises(NotImplementedError, match=knob):
             reconstruction(dataclasses.replace(cfg, **{knob: 1}), scene, "cpu")

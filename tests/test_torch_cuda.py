@@ -244,3 +244,50 @@ def test_update_alpha_mask_on_the_card_matches_the_cpu():
     if not differ.any():
         assert occ_card == occ_cpu
         np.testing.assert_array_equal(aabb_card, aabb_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [dict(sample_budget=48, budget_mode="cand"),
+                                    dict(sample_budget=96, budget_mode="cand", alive_budget=32),
+                                    dict(sample_budget=32, budget_mode="alive"),
+                                    dict(sample_budget=40, use_coarse_gate=False)],
+                         ids=["cand", "cand_alive", "alive", "exact_gate"])
+def test_budgeted_render_and_counts_on_the_card_match_the_cpu(budget):
+    """Every masked budget mode, card against CPU: the same samples kept
+    (depths equal), the same overflow, outputs and gradients within TOL;
+    and the count passes equal."""
+    import copy
+
+    from tensorf_tpu_torch.models.alpha_mask import AlphaGridMask, with_dilation
+    from tensorf_tpu_torch.ops.freq_mask import FreeMasks
+    from tensorf_tpu_torch.render import culling, render_rays
+
+    _need_gpu()
+    rng = np.random.default_rng(5)
+    field = _small_field(1)
+    vol = torch.from_numpy((rng.uniform(size=(12, 11, 10)) < 0.3).astype(np.float32))
+    mask = with_dilation(AlphaGridMask(torch.tensor([[-1.2, -1.3, -1.1], [1.3, 1.2, 1.25]]), vol))
+    rays = _rays(rng, 512)
+    u = torch.from_numpy(rng.uniform(size=(512, 1)).astype(np.float32))
+    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3])
+    kw = dict(step_size=0.04, n_samples=130, is_train=True, white_bg=True, shade_top_k=16,
+              fused=True, **budget)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        f = copy.deepcopy(field).to(dev)
+        out = render_rays(f, rays.to(dev), FreeMasks(), aabb=aabb.to(dev), alpha_mask=mask.to(dev),
+                          u=u.to(dev), **kw)
+        out.rgb.sum().backward()
+        counts = culling.count_ray_candidates_and_alive(rays.to(dev), mask.to(dev), aabb.numpy(),
+                                                        0.04, n_samples=130, chunk=200)
+        outs[dev] = (out, {n: p.grad.cpu() for n, p in f.named_parameters()}, counts)
+    (cpu, g_cpu, c_cpu), (card, g_card, c_card) = outs["cpu"], outs["cuda"]
+    assert float(card.budget_overflow_frac) == float(cpu.budget_overflow_frac)
+    np.testing.assert_allclose(card.z_vals.cpu().numpy(), cpu.z_vals.numpy(), rtol=1e-6, atol=1e-6)
+    for name in ("rgb", "depth", "weights"):
+        np.testing.assert_allclose(getattr(card, name).detach().cpu().numpy(),
+                                   getattr(cpu, name).detach().numpy(), **TOL)
+    for name, g in g_cpu.items():
+        np.testing.assert_allclose(g_card[name].numpy(), g.numpy(), err_msg=name, **TOL)
+    for a, b in zip(c_card, c_cpu):
+        np.testing.assert_array_equal(a, b)

@@ -160,6 +160,10 @@ def test_render_rays_raises_on_what_is_not_ported():
     _, field = jax_and_port(4)
     rays = t(_rays(np.random.default_rng(0), 4))
     kw = dict(aabb=t(AABB), step_size=0.06, n_samples=40, is_train=False, white_bg=True)
-    for extra in (dict(sample_budget=16), dict(ndc_ray=True), dict(cand_window_bits=object())):
+    # sample budgets are ported: the mask-free budget compacts to its width
+    out = t_render(field, rays, TMasks(), sample_budget=16, **kw)
+    assert out.z_vals.shape == (4, 16)
+    for extra in (dict(sample_budget=16, ndc_ray=True), dict(ndc_ray=True),
+                  dict(cand_window_bits=object())):
         with pytest.raises(NotImplementedError):
             t_render(field, rays, TMasks(), **kw, **extra)

@@ -238,7 +238,10 @@ def test_train_steps_runs_end_to_end_on_cpu():
     assert res.test_rgb.shape == (16, 16, 3) and np.isfinite(res.test_psnr)
     with pytest.raises(ValueError, match="first schedule segment"):
         train_steps(cfg, 2001, device="cpu", scene=scene, log=logs.append)
-    # synth_full as written sets stratification and budgets, not ported yet
+    # synth_full as written: stratified by in-bbox chord, budgets set
     as_written = t_load_config("configs/synth_full.txt", small)
-    with pytest.raises(NotImplementedError, match="stratify, sample_budget, prefilter_budget"):
-        train_steps(as_written, 3, device="cpu", scene=scene, log=logs.append)
+    assert as_written.stratify and as_written.sample_budget and as_written.prefilter_budget
+    logs.clear()
+    res = train_steps(as_written, 3, device="cpu", scene=scene, log=logs.append)
+    assert len(res.total_loss) == 3 and np.all(np.isfinite(res.total_loss))
+    assert any("stratified ray store" in line for line in logs), logs
