@@ -13,8 +13,8 @@ each prints its seconds):
   3. step parity: one synth_full train step with the kernels and one with
      the plain versions, same params, batch and jitter; gradients must agree;
   4. main path: ``reconstruction`` of configs/synth_full.txt as written
-     (ray stratification, sample budgets 160/384, top-32 shading; serving
-     stratification off) at full width (ranks 16/48, app_dim 27, MLP_Fea
+     (ray stratification, sample budgets 160/384, top-32 shading,
+     stratified serving in every evaluation) at full width (ranks 16/48, app_dim 27, MLP_Fea
      128, batch 4096) on an in-memory composite scene, through a cut
      coarse-to-fine schedule: 128^3 until iteration 200, the two alpha-mask
      events (shrink at the first, ray re-filtering at the second), five
@@ -24,25 +24,37 @@ each prints its seconds):
      every progress read are printed.  The loss must halve over the first
      200 steps, the kernel must launch as often as each step's strata call
      for, every segment must be stratified, no stratum may overflow more
-     than 1% at the last read, the grids must follow the voxel schedule
-     and the final PSNR must beat the one at 200;
+     than 1% at the last read, the grids must follow the voxel schedule,
+     the final PSNR must beat the one at 200 and no evaluation may
+     overflow a sample budget (each one's largest overflow is printed);
   5. exactness: on 256 test rays of the final state, each stratum of their
      own plan rendered at its candidate budget and chord lattice, and the
      rays the eval budget covers rendered in "alive" mode at it, against
-     the unbudgeted masked render (rgb 1e-5, depth 1e-4); the masked render
-     against the CPU path; the final checkpoint re-rendered through the
-     render-only entry;
-  6. the unstratified drive: the same schedule with stratification and
+     the unbudgeted masked render (depth 1e-4, rgb 1e-5 but for shading
+     flips: see same_render); the masked render against the CPU path; the
+     final checkpoint re-rendered through the render-only entry;
+  6. serving at full width: one 800x800 view of the final state (test pose
+     0 with the focal scaled x4: the synth_full/Blender test resolution,
+     640,000 rays built on the card by rays_from_pose) served by
+     render_chunked_stratified (window bits, device-resident) against the
+     unbudgeted uniform render_chunked (the same tolerances, overflow
+     exactly 0.0), both through the eval's RendererHandle; the same frame
+     from host rays must be identical; the legacy path (no coarse gate,
+     and with the exact-alive stage) against the uniform render on the
+     200x200 test view.  Prints the bucket table (tier, budget K, lattice,
+     rays, chunks), the zero-skipped rays, the shading flips and ms per
+     frame of both renders (CUDA events, after a warm frame);
+  7. the unstratified drive: the same schedule with stratification and
      budgets off, as the port ran before it had them, with the same checks;
-  7. the kernel against its plain version on the real index streams: the
+  8. the kernel against its plain version on the real index streams: the
      (idx, g) that one more train step hands to the first density and the
      first appearance scatter-add — of the unstratified drive's 128^3 field
      at iteration 200 and of its final field, and of the largest and the
      smallest stratum (by samples a step) of the main path's final plan;
-  8. a second path: configs/synth_sphere.txt's schedule as written but
-     serving stratification (300 steps, events at 150/200/260) on the
-     in-memory sphere scene at 800x800 with downsample 8; its test PSNR
-     must reach 30 dB.
+  9. a second path: configs/synth_sphere.txt's schedule as written (300
+     steps, events at 150/200/260, stratified serving) on the in-memory
+     sphere scene at 800x800 with downsample 8; its test PSNR must reach
+     30 dB and no evaluation may overflow.
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
@@ -89,6 +101,18 @@ SPHERE_JAX_PSNR = 32.496
 MAX_FINAL_OVERFLOW = 0.01
 # scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
 STREAM_KINDS = {64: "density", 192: "appearance", 256: "fused"}
+# the eval's chunk (tensorf_tpu evaluation's default), and the uniform
+# render's: the unbudgeted ~1048-sample lattice of 4096 rays is the
+# unstratified train step's width
+SERVE_CHUNK = 8192
+UNIFORM_CHUNK = 4096
+# A render that keeps the same samples as the unbudgeted one sums their
+# weights in another float32 order, so a weight within ~1 ulp of the shading
+# threshold or of its neighbour at the top-K cut can be shaded in one render
+# and not the other, moving its pixel by up to that weight (about 1e-4 at
+# the threshold).  Such a decision is a flip when its relative distance to
+# the other side is within this margin.
+FLIP_MARGIN = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -428,6 +452,10 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     check(losses.shape == (steps,) and np.all(np.isfinite(losses)), f"{name}: non-finite loss")
     check(len(result.final_psnrs) == len(result.state.test_ds.all_rays)
           and np.all(np.isfinite(result.final_psnrs)), f"{name}: non-finite test render")
+    print(f"{name}: largest eval overflow by iteration {result.eval_overflow} (stratify_render "
+          f"{cfg.stratify_render}; must be 0.0)", flush=True)
+    check(all(v == 0.0 for v in result.eval_overflow.values()),
+          f"{name}: an evaluation overflowed its sample budget: {result.eval_overflow}")
     return result, launches
 
 
@@ -510,10 +538,69 @@ def full_path(torch, np, name, cfg, scene, kernels, on_step=None):
     return result, launches
 
 
-def close(torch, got, want, rtol, atol):
-    """max |got - want| and whether it is within atol + rtol |want|."""
-    diff = (got - want).abs()
-    return float(diff.max()), bool(torch.all(diff <= atol + rtol * want.abs()))
+def shading_decisions(torch, np, handle, rays):
+    """Per ray (a device tensor (B, 6)) of the unbudgeted render under
+    ``handle``'s settings: the largest weight that one of its shading
+    decisions moves when that decision lies within FLIP_MARGIN of flipping,
+    else 0.  The decisions: each top-K weight against the weight threshold,
+    and the K-th weight against the (K+1)-th where that one is shaded too."""
+    from tensorf_tpu_torch.ops.freq_mask import FreeMasks
+    from tensorf_tpu_torch.render.volume import render_rays
+
+    thr, d = handle.field.cfg.ray_march_weight_thres, FLIP_MARGIN
+    moved = []
+    for s in range(0, rays.shape[0], UNIFORM_CHUNK):
+        with torch.no_grad():
+            w = render_rays(handle.field, rays[s : s + UNIFORM_CHUNK], FreeMasks(),
+                            aabb=handle.aabb, step_size=handle.step_size,
+                            n_samples=handle.n_samples, is_train=False, white_bg=handle.white_bg,
+                            shade_top_k=handle.shade_top_k, fused=handle.fused,
+                            use_coarse_gate=handle.use_coarse_gate, alpha_mask=handle.alpha_mask,
+                            u=None).weights
+        K = min(handle.shade_top_k or w.shape[1], w.shape[1])
+        ws = torch.sort(w, dim=-1, descending=True).values
+        top = ws[:, :K]
+        near_thr = torch.where((top - thr).abs() <= d * thr, top, torch.zeros_like(top))
+        best = near_thr.amax(dim=-1)
+        if K < ws.shape[1]:
+            wk, wk1 = ws[:, K - 1], ws[:, K]
+            at_cut = (wk - wk1 <= d * wk) & (wk1 > (1.0 - d) * thr)
+            best = torch.maximum(best, torch.where(at_cut, wk, torch.zeros_like(wk)))
+        moved.append(best)
+    return torch.cat(moved).cpu().numpy()
+
+
+def same_render(torch, np, handle, rays, got, want):
+    """Hold a render (rgb, depth) of device rays against the unbudgeted one
+    under ``handle``'s settings: depth within 1e-4 (+1e-4 relative) on
+    every ray; rgb within 1e-5 (+1e-5 relative) on every ray but those
+    where a shading decision lies within FLIP_MARGIN of flipping, which may
+    differ by up to the weight it moves.  Both renders integrate the same
+    samples; their float32 sums associate differently, so a weight on a
+    shading decision's edge can fall either way.  Returns (max |d rgb|,
+    max |d depth|, rays outside 1e-5 rgb, a failure message or None)."""
+    g_rgb, g_depth, w_rgb, w_depth = (
+        x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in (*got, *want))
+    d_rgb = np.abs(g_rgb - w_rgb)
+    d_depth = np.abs(g_depth - w_depth)
+    e_rgb = d_rgb.max(axis=-1)
+    out = np.nonzero(np.any(d_rgb > 1e-5 + 1e-5 * np.abs(w_rgb), axis=-1))[0]
+    bad_depth = np.nonzero(d_depth > 1e-4 + 1e-4 * np.abs(w_depth))[0]
+    msg = None
+    if bad_depth.size:
+        i = bad_depth[np.argmax(d_depth[bad_depth])]
+        msg = (f"{bad_depth.size} rays differ in depth beyond 1e-4, the largest by "
+               f"{float(d_depth[i]):.3g} (ray {int(i)})")
+    elif out.size:
+        moved = shading_decisions(torch, np, handle, rays[torch.as_tensor(out, device=rays.device)])
+        unexplained = e_rgb[out] > moved * (1.0 + FLIP_MARGIN) + 1e-5
+        if unexplained.any():
+            j = np.argmax(np.where(unexplained, e_rgb[out], -1.0))
+            msg = (f"{int(unexplained.sum())} of the {out.size} rays outside 1e-5 rgb are no "
+                   f"shading flip: ray {int(out[j])} differs by {float(e_rgb[out[j]]):.3g}, its "
+                   f"decision within {FLIP_MARGIN} of flipping moves a weight of "
+                   f"{float(moved[j]):.3g}")
+    return float(e_rgb.max()), float(d_depth.max()), int(out.size), msg
 
 
 def exactness_phase(torch, np, state):
@@ -549,13 +636,13 @@ def exactness_phase(torch, np, state):
         got_rgb, got_depth, _, overflow = render_chunked(
             state.field, state.alpha_mask, rays[idx], handle.aabb, n_samples=lattice,
             sample_budget=budget, budget_mode="cand", **kw)
-        e_rgb, ok_rgb = close(torch, got_rgb, rgb[idx], 1e-5, 1e-5)
-        e_depth, ok_depth = close(torch, got_depth, depth[idx], 1e-4, 1e-4)
+        e_rgb, e_depth, flips, msg = same_render(torch, np, handle, rays[idx],
+                                                 (got_rgb, got_depth), (rgb[idx], depth[idx]))
         print(f"exactness: stratum {s}: {sel.size} rays, counts <= {int(counts[sel].max())}, "
               f"budget {budget}, lattice {lattice} of {n}, overflow {overflow}, max |d rgb| "
-              f"{e_rgb:.3g}, max |d depth| {e_depth:.3g}", flush=True)
-        check(overflow == 0.0 and ok_rgb and ok_depth,
-              f"stratum {s} at budget {budget}, lattice {lattice} differs from the unbudgeted render")
+              f"{e_rgb:.3g}, max |d depth| {e_depth:.3g}, shading flips {flips}", flush=True)
+        check(overflow == 0.0 and msg is None, f"stratum {s} at budget {budget}, lattice "
+              f"{lattice} differs from the unbudgeted render (overflow {overflow}; {msg})")
         worst = [max(worst[0], e_rgb), max(worst[1], e_depth)]
     K = handle.sample_budget
     check(K is not None, "the final eval renders with no sample budget")
@@ -566,15 +653,16 @@ def exactness_phase(torch, np, state):
     got_rgb, got_depth, _, overflow = render_chunked(
         state.field, state.alpha_mask, rays[idx], handle.aabb, n_samples=n, sample_budget=K,
         budget_mode="alive", **kw)
-    e_rgb, ok_rgb = close(torch, got_rgb, rgb[idx], 1e-5, 1e-5)
-    e_depth, ok_depth = close(torch, got_depth, depth[idx], 1e-4, 1e-4)
+    e_rgb, e_depth, flips, msg = same_render(torch, np, handle, rays[idx], (got_rgb, got_depth),
+                                             (rgb[idx], depth[idx]))
     print(f"exactness: {len(strata)} strata of 256 rays (budgets {budgets}) max |d rgb| "
           f"{worst[0]:.3g}, max |d depth| {worst[1]:.3g}; alive mode at budget {K}: "
           f"{covered.size} of 256 rays covered (alive <= {K}, candidates <= {min(n, K + 224)}), "
-          f"overflow {overflow}, max |d rgb| {e_rgb:.3g}, max |d depth| {e_depth:.3g} "
-          f"(tol rgb 1e-5, depth 1e-4)", flush=True)
-    check(covered.size > 0 and overflow == 0.0 and ok_rgb and ok_depth,
-          f"the alive-mode render at budget {K} differs from the unbudgeted render")
+          f"overflow {overflow}, max |d rgb| {e_rgb:.3g}, max |d depth| {e_depth:.3g}, shading "
+          f"flips {flips} (tol rgb 1e-5 but for shading flips, depth 1e-4)", flush=True)
+    check(covered.size > 0 and overflow == 0.0 and msg is None,
+          f"the alive-mode render at budget {K} differs from the unbudgeted render "
+          f"(overflow {overflow}; {msg})")
 
 
 def reference_phase(torch, np, cfg, scene, result):
@@ -614,8 +702,85 @@ def reference_phase(torch, np, cfg, scene, result):
     check(delta <= 1e-4, f"the final checkpoint renders {np.mean(reloaded)}, not {psnr_final}")
 
 
+def serving_phase(torch, np, state):
+    """One 800x800 view of the final state served through the eval's
+    handle, stratified against uniform (same_render, overflow exactly 0.0),
+    from device and from host rays; the legacy path, without the coarse
+    gate and with the exact-alive stage, on the 200x200 test view; the
+    bucket table and ms per frame of both renders."""
+    import dataclasses
+
+    from tensorf_tpu_torch.profile_step import SERVE_SCALE, serving_view
+    from tensorf_tpu_torch.render.chunked import rays_from_pose, render_chunked_stratified
+    from tensorf_tpu_torch.train.loop import make_handle
+
+    handle = make_handle(state)
+    check(handle.stratified and handle.use_coarse_gate,
+          "the eval handle does not serve stratified from the window bits")
+    directions, c2w = serving_view(state.test_ds, SERVE_SCALE, state.device)
+    rays = rays_from_pose(directions, c2w)
+    M = rays.shape[0]
+    lines = []
+    rgb, depth, n_valid = handle.render(rays, chunk=SERVE_CHUNK, log=lines.append)
+    overflow = handle.max_overflow
+    # the unbudgeted uniform render, through the same handle's other path
+    flat = dataclasses.replace(handle, stratified=False, sample_budget=None)
+    u_rgb, u_depth, u_valid = flat.render(rays, chunk=UNIFORM_CHUNK)
+    e_rgb, e_depth, flips, msg = same_render(torch, np, flat, rays, (rgb, depth), (u_rgb, u_depth))
+    buckets = {}
+    for line in lines[1:]:
+        f = dict(kv.split("=") for kv in line.split() if "=" in kv)
+        key = (f["tier"], f["K"], int(f["lattice"]))
+        rows, chunks = buckets.get(key, (0, []))
+        buckets[key] = (rows + int(f["rays"]), chunks + [int(f["chunk"])])
+    print(f"serving: {M} rays ({int(np.sqrt(M))}x{int(np.sqrt(M))}, test pose 0, focal x"
+          f"{SERVE_SCALE}) of the final state: grid {state.geometry.grid_size}, lattice "
+          f"{handle.n_samples}, chunk {SERVE_CHUNK}; {lines[0]}", flush=True)
+    for (tier, K, lattice), (rows, chunks) in buckets.items():
+        print(f"serving: bucket tier {tier} K {K} lattice {lattice}: {rows} rays in "
+              f"{len(chunks)} chunks {sorted(set(chunks))}", flush=True)
+    print(f"serving: stratified vs uniform (chunk {UNIFORM_CHUNK}): overflow {overflow}, shaded "
+          f"samples {n_valid} vs {u_valid}, max |d rgb| {e_rgb:.3g} (tol 1e-5 but for shading "
+          f"flips), max |d depth| {e_depth:.3g} (tol 1e-4), shading flips {flips} (rays outside "
+          f"1e-5 rgb, each with a decision within {FLIP_MARGIN} of flipping that moves at least "
+          f"its difference)", flush=True)
+    check(overflow == 0.0 and flat.max_overflow == 0.0 and msg is None,
+          f"the stratified 800x800 frame differs from the uniform render (overflow {overflow}, "
+          f"{flat.max_overflow}; {msg})")
+    host = handle.render(rays.cpu().numpy(), chunk=SERVE_CHUNK)
+    same = (all(np.array_equal(a, b) for a, b in zip(host, (rgb, depth, n_valid)))
+            and handle.max_overflow == 0.0)
+    print(f"serving: host rays render identically to device rays: {same}", flush=True)
+    check(same, "the frame from host rays differs from the frame from device rays")
+
+    view = torch.as_tensor(state.test_ds.all_rays[0].reshape(-1, 6), device=state.device)
+    v_rgb, v_depth, _ = flat.render(view, chunk=UNIFORM_CHUNK)
+    no_gate = dataclasses.replace(handle, use_coarse_gate=False)
+    legacy = {"no coarse gate": (*no_gate.render(view, chunk=SERVE_CHUNK)[:2],
+                                 no_gate.max_overflow)}
+    kw = dict(step_size=handle.step_size, n_samples=handle.n_samples, white_bg=handle.white_bg,
+              shade_top_k=handle.shade_top_k, fused=handle.fused, chunk=SERVE_CHUNK)
+    a_rgb, a_depth, _, a_over = render_chunked_stratified(
+        handle.field, handle.alpha_mask, view, handle.aabb, alive_stage=True, **kw)
+    legacy["exact-alive stage"] = (a_rgb, a_depth, a_over)
+    for name, (l_rgb, l_depth, over) in legacy.items():
+        e_rgb, e_depth, flips, msg = same_render(torch, np, flat, view, (l_rgb, l_depth),
+                                                 (v_rgb, v_depth))
+        print(f"serving: legacy path ({name}) on the {view.shape[0]}-ray test view: overflow "
+              f"{over}, max |d rgb| {e_rgb:.3g}, max |d depth| {e_depth:.3g}, shading flips "
+              f"{flips}", flush=True)
+        check(over == 0.0 and msg is None,
+              f"the legacy path ({name}) differs from the uniform render (overflow {over}; {msg})")
+
+    strat_ms = time_ms(torch, lambda: handle.render(rays_from_pose(directions, c2w),
+                                                    chunk=SERVE_CHUNK), 3)
+    uniform_ms = time_ms(torch, lambda: flat.render(rays, chunk=UNIFORM_CHUNK), 1)
+    print(f"serving: ms per {M}-ray frame (CUDA events, after a warm frame): stratified "
+          f"{strat_ms:.3f}, uniform {uniform_ms:.3f}", flush=True)
+
+
 def run_paths(torch, np, kernels, workdir) -> None:
-    """Phases 2-8; prints the kernels line."""
+    """Phases 2-9; prints the kernels line."""
     from tensorf_tpu_torch.config import load_config
     from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
     from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES, UNSTRATIFIED
@@ -630,7 +795,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
           f"(config: [2000..7000], [2000, 4000]), LR decay over {cfg.lr_decay_iters}, progress "
           f"every {cfg.progress_refresh_rate} (500); stratify {cfg.stratify}, sample_budget "
           f"{cfg.sample_budget}, prefilter_budget {cfg.prefilter_budget}, shade_top_k "
-          f"{cfg.shade_top_k} as written; stratify_render 0 (serving, not ported); widths as "
+          f"{cfg.shade_top_k}, stratify_render {cfg.stratify_render} as written; widths as "
           f"configured", flush=True)
     scene = make_synthetic_scene_arrays(**SCENE)
 
@@ -659,6 +824,11 @@ def run_paths(torch, np, kernels, workdir) -> None:
     t0 = time.perf_counter()
     exactness_phase(torch, np, result.state)
     reference_phase(torch, np, cfg, scene, result)
+    phase_done("exactness", t0)
+    t0 = time.perf_counter()
+    serving_phase(torch, np, result.state)
+    phase_done("serving", t0)
+    t0 = time.perf_counter()
     state = result.state
     widths = render_widths(build_statics(state))
     rows = [q * w for q, w in zip(state.quotas, widths)]
@@ -669,7 +839,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
         streams.update(capture_streams(torch, state, f"{cfg.n_iters - 1}_{tag}", s))
     del result, state
     torch.cuda.empty_cache()
-    phase_done("exactness", t0)
+    phase_done("stratum_streams", t0)
 
     # ---- the unstratified drive, counts to 0 again ----
     def at_step(it, state):
@@ -695,7 +865,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
 
     # ---- the second path: synth_sphere as written, counts to 0 again ----
     t0 = time.perf_counter()
-    sphere_cfg = load_config("configs/synth_sphere.txt", dict(stratify_render=0, basedir=workdir))
+    sphere_cfg = load_config("configs/synth_sphere.txt", dict(basedir=workdir))
     sphere, _ = drive(torch, "sphere_path", sphere_cfg, make_synthetic_scene_arrays(**SPHERE),
                       kernels, sphere_cfg.n_iters)
     for plan in sphere.plans:

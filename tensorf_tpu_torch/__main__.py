@@ -2,16 +2,16 @@
 or render a checkpoint's test views.
 
     python -m tensorf_tpu_torch --config configs/synth_sphere.txt \\
-        --stratify_render 0 --synthetic --synthetic_scene sphere \\
-        --synthetic_wh 800 --synthetic_views 10,2 [--device cpu] [--flag value ...]
+        --synthetic --synthetic_scene sphere --synthetic_wh 800 \\
+        --synthetic_views 10,2 [--device cpu] [--flag value ...]
     python -m tensorf_tpu_torch --config ... --n_steps 30 ...      # first segment only
     python -m tensorf_tpu_torch --config ... --render_only 1 --render_test 1 --ckpt PATH
 
 Any TrainConfig field is a ``--flag``.  Runs on the GPU unless ``--device
 cpu`` is given, and fails when no GPU is present.  ``--synthetic`` builds
 a procedural scene in memory (no files, no PIL) in place of reading
-``datadir``.  Serving-side stratification is not ported yet: run a config
-with ``--stratify_render 0``.
+``datadir``.  A config runs as written; only ``resume`` and ``ndc_ray``
+are refused (not ported yet).
 """
 
 from __future__ import annotations

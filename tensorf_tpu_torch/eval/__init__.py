@@ -1,2 +1,2 @@
-from .evaluation import RendererHandle, evaluation, psnrs_calculate
+from .evaluation import RendererHandle, evaluation, evaluation_path, psnrs_calculate
 from .metrics import psnr, rgb_lpips, rgb_ssim

@@ -1,25 +1,28 @@
-"""Evaluation entry points: test-set metrics and the mid-training PSNR sweep
-(counterpart of the uniform path of tensorf_tpu/eval/evaluation.py).
+"""Evaluation entry points: test-set metrics, trajectory rendering and the
+mid-training PSNR sweep (counterpart of tensorf_tpu/eval/evaluation.py).
 
-``evaluation`` renders each (stacked) view in chunks and computes its PSNR,
-SSIM and LPIPS (None -> NaN).  Only when ``savePath`` is given does it
-write the prediction, ground-truth and rgb+depth PNGs, the two videos and
-mean.txt; imageio is imported there and nowhere else.  A render whose
-sample budget dropped candidates prints a warning.  Trajectory rendering
-(``evaluation_path``) and stratified serving are not ported yet.
+``evaluation`` renders each (stacked) view and computes its PSNR, SSIM and
+LPIPS (None -> NaN); ``evaluation_path`` renders a camera trajectory.  Only
+when ``savePath`` is given do they write PNGs, the two videos and (for
+``evaluation``) mean.txt; imageio is imported there and nowhere else.  A
+stratified handle with a mask serves each view through
+render_chunked_stratified, exact by construction; otherwise the view is
+rendered in uniform chunks at the handle's budget.  A render whose sample
+budget dropped candidates prints a warning.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from ..models.alpha_mask import AlphaGridMask
-from ..render.chunked import render_chunked
+from ..ops.rays import get_rays
+from ..render.chunked import render_chunked, render_chunked_stratified
 from .metrics import psnr as psnr_fn
 from .metrics import rgb_lpips, rgb_ssim
 
@@ -39,21 +42,35 @@ class RendererHandle:
     # the uniform render's budget ("alive" mode); None = every sample
     sample_budget: Optional[int] = None
     use_coarse_gate: bool = True
+    # candidate-count-stratified serving with per-bucket budgets whenever
+    # there is a mask (the uniform path without one)
+    stratified: bool = False
+    # the largest budget overflow fraction of a chunk over this handle's
+    # renders so far (0.0: nothing under-integrated)
+    max_overflow: float = 0.0
 
-    def render(self, rays, chunk: int = 8192):
-        """(M, 6) rays -> (rgb (M, 3), depth (M,)) numpy, shaded samples."""
-        rgb, depth, n_valid, overflow = render_chunked(
-            self.field, self.alpha_mask, rays, self.aabb, chunk=chunk,
-            step_size=float(self.step_size), n_samples=int(self.n_samples),
-            white_bg=self.white_bg, shade_top_k=self.shade_top_k, fused=self.fused,
-            sample_budget=self.sample_budget, use_coarse_gate=self.use_coarse_gate,
-        )
+    def render(self, rays, chunk: int = 8192, log: Optional[Callable[[str], None]] = None):
+        """(M, 6) rays (numpy or a tensor) -> (rgb (M, 3), depth (M,))
+        numpy, shaded samples.  ``log`` receives the stratified path's count
+        and bucket lines (render_chunked_stratified)."""
+        kw = dict(step_size=float(self.step_size), n_samples=int(self.n_samples),
+                  white_bg=self.white_bg, shade_top_k=self.shade_top_k, fused=self.fused,
+                  use_coarse_gate=self.use_coarse_gate)
+        if self.stratified and self.alpha_mask is not None:
+            rgb, depth, n_valid, overflow = render_chunked_stratified(
+                self.field, self.alpha_mask, rays, self.aabb, chunk=chunk, log=log, **kw)
+        else:
+            rgb, depth, n_valid, overflow = render_chunked(
+                self.field, self.alpha_mask, rays, self.aabb, chunk=chunk,
+                sample_budget=self.sample_budget, **kw)
+            rgb, depth = rgb.cpu().numpy(), depth.cpu().numpy()
+        self.max_overflow = max(self.max_overflow, overflow)
         if overflow > 0.0:
             # a too-small budget would silently under-integrate the images
             print(f"[eval] WARNING: sample-budget overflow on up to {overflow:.1%} of rays "
                   f"in a chunk — rendered images may under-integrate; raise sample_budget",
                   flush=True)
-        return rgb.cpu().numpy(), depth.cpu().numpy(), n_valid
+        return rgb, depth, n_valid
 
 
 def _depth_jet(depth: np.ndarray, near_far) -> np.ndarray:
@@ -128,6 +145,39 @@ def evaluation(
             lines = [np.mean(PSNRs), np.mean(ssims), np.mean(l_alex), np.mean(l_vgg)]
             np.savetxt(f"{savePath}/mean.txt", np.asarray(lines, np.float64))
     return PSNRs
+
+
+def evaluation_path(
+    test_dataset,
+    handle: RendererHandle,
+    c2ws,
+    savePath: Optional[str] = None,
+    chunk: int = 8192,
+) -> List[float]:
+    """Render a camera trajectory (reference renderer.py:227-282): the rays
+    of each pose from the dataset's directions; with ``savePath`` each
+    frame's prediction PNG and the rgb and depth videos.  Returns []."""
+    W, H = test_dataset.img_wh
+    imageio = None
+    if savePath is not None:
+        import imageio.v2 as imageio
+
+        os.makedirs(f"{savePath}/prediction", exist_ok=True)
+        os.makedirs(f"{savePath}/rgbd", exist_ok=True)
+    rgb_frames, depth_frames = [], []
+    for idx, c2w in enumerate(np.asarray(c2ws)):
+        rays_o, rays_d = get_rays(test_dataset.directions, c2w[:3, :4])
+        rays = np.concatenate([rays_o, rays_d], axis=1).astype(np.float32)
+        rgb_map, depth_map, _ = handle.render(rays, chunk=chunk)
+        rgb8 = (np.clip(rgb_map, 0, 1).reshape(H, W, 3) * 255).astype(np.uint8)
+        rgb_frames.append(rgb8)
+        depth_frames.append(_depth_jet(depth_map.reshape(H, W), test_dataset.near_far))
+        if imageio is not None:
+            imageio.imwrite(f"{savePath}/prediction/{idx:03d}.png", rgb8)
+    if imageio is not None:
+        _write_video(imageio, f"{savePath}/video.mp4", rgb_frames)
+        _write_video(imageio, f"{savePath}/depthvideo.mp4", depth_frames)
+    return []
 
 
 def psnrs_calculate(handle: RendererHandle, dataset, chunk: int = 4096) -> List[float]:

@@ -91,6 +91,29 @@ def sample_lattice(
     return torch.clamp(t_min, near, far)
 
 
+def inbbox_chord(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    aabb: torch.Tensor,
+    near: float,
+    far: float,
+    step_size: float,
+    n_samples: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Closed-form in-bbox sample run of each ray: (t0 (B,), hit (B,) bool,
+    chord (B,) int32).  Samples march from the clamped bbox entry t0
+    through a convex box, so the valid lattice indices are [0, chord).
+    The chord carries +1 sample of float32 slack over the per-sample
+    inside-aabb test; a miss (including one with t_min past ``far``) gets 0.
+    """
+    t_min, t_max = aabb_entry_exit(rays_o, rays_d, aabb)
+    t0 = torch.clamp(t_min, near, far)
+    hit = (t_max >= t_min) & (t_max >= t0)
+    n_in = torch.floor((t_max - t0) / step_size) + 2.0
+    chord = torch.clamp(torch.where(hit, n_in, torch.zeros_like(n_in)), 0, n_samples)
+    return t0, hit, chord.to(torch.int32)
+
+
 def lattice_z(
     t_min: torch.Tensor,
     u: Optional[torch.Tensor],

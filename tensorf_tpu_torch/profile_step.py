@@ -1,10 +1,10 @@
-"""Where a train step's device time goes: torch.profiler over a few steps.
+"""Where a train step's or a served frame's device time goes: torch.profiler
+over a few steps, or over one frame.
 
-    python -m tensorf_tpu_torch.profile_step [--last_segment] [--unstratified]
+    python -m tensorf_tpu_torch.profile_step [--last_segment | --serve] [--unstratified]
 
 Trains configs/synth_full.txt's model as the config is written (ray
-stratification, sample budgets and top-K shading on; serving
-stratification, which training does not use, off) on the in-memory
+stratification, sample budgets and top-K shading on) on the in-memory
 composite scene (8 views, 200x200 px); ``--unstratified`` runs it with
 stratification and budgets off instead, as the port ran before it had
 them.  By default it takes WARMUP steps of the first (128^3) segment
@@ -21,7 +21,12 @@ share.  Busy time is the union of the kernel, memcpy and memset intervals;
 user-annotation rows, which span kernels already counted, are left out.
 The profiler slows the host, so the idle share is taken against the wall
 time of the STEPS unprofiled steps just before each profiled window (the
-profiled window's own wall time is printed beside it).  Needs a GPU.
+profiled window's own wall time is printed beside it).  With ``--serve``
+it trains the cut schedule, then serves one 800x800 view of its final
+state (test pose 0, the focal scaled x4, rays built on the device by
+rays_from_pose) through the eval's handle (stratified serving): one
+warm frame, one timed frame, one profiled frame, and the same busy, idle
+and table rows per frame.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -30,16 +35,18 @@ import argparse
 import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .config import load_config
 from .data.synthetic import make_synthetic_scene_arrays
-from .train.loop import reconstruction, train_steps
+from .ops.rays import get_ray_directions
+from .render.chunked import rays_from_pose
+from .train.loop import make_handle, reconstruction, train_steps
 
 CONFIG = "configs/synth_full.txt"
-# serving stratification is not ported; training never uses it
-OVERRIDES = dict(stratify_render=0, progress_refresh_rate=10**9)
+OVERRIDES = dict(progress_refresh_rate=10**9)
 # the port's drive before it had stratification and budgets
 UNSTRATIFIED = dict(stratify=0, sample_budget=0, prefilter_budget=0)
 # synth_full's 30000-step schedule cut to 450 steps: the same events, 50
@@ -54,6 +61,22 @@ CUT_SCHEDULE = dict(n_iters=450, lr_decay_iters=30000, upsamp_list=[200, 250, 30
 WARMUP = 160
 STEPS = 5
 TOP = 25
+# the served view: the scene's 200x200 test camera at 4x the resolution,
+# synth_full's (and Blender's) 800x800 test views
+SERVE_SCALE = 4
+
+
+def serving_view(test_ds, scale: int, device):
+    """(directions (H*W, 3), pose (3|4, 4)) float32 on ``device``: test view
+    0 at ``scale`` times the dataset's resolution, its focal scaled alike,
+    directions normalized as the dataset's are.  rays_from_pose turns them
+    into the frame's rays."""
+    W, H = test_ds.img_wh
+    focal = test_ds.focal * scale
+    dirs = get_ray_directions(H * scale, W * scale, [focal, focal])
+    dirs = (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).reshape(-1, 3)
+    return (torch.as_tensor(dirs.astype(np.float32), device=device),
+            torch.as_tensor(np.asarray(test_ds.poses[0], np.float32), device=device))
 
 
 def _device_spans(events):
@@ -82,9 +105,13 @@ def _busy_ms(events) -> float:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--last_segment", action="store_true",
-                        help="profile the end of every segment of the cut schedule, "
-                             "not the first segment")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--last_segment", action="store_true",
+                      help="profile the end of every segment of the cut schedule, "
+                           "not the first segment")
+    mode.add_argument("--serve", action="store_true",
+                      help="profile one 800x800 stratified frame of the cut schedule's "
+                           "final state")
     parser.add_argument("--unstratified", action="store_true",
                         help="stratification and sample budgets off")
     args = parser.parse_args(argv)
@@ -94,9 +121,16 @@ def main(argv=None) -> int:
     windows = []
     if args.last_segment:
         ends = sorted(CUT_SCHEDULE["upsamp_list"]) + [CUT_SCHEDULE["n_iters"] - 1]
+    elif args.serve:
+        ends = []
     else:
         ends = [WARMUP + STEPS - 1]
     plain_t0 = {}
+    per, unit = (1, "frame") if args.serve else (STEPS, "step")
+
+    def tracer():
+        return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=True)
 
     def on_step(it: int, *_) -> None:  # runs after step ``it`` is enqueued
         if it + 2 * STEPS in ends:
@@ -105,10 +139,7 @@ def main(argv=None) -> int:
         if it + STEPS in ends:
             torch.cuda.synchronize()
             now = time.perf_counter()
-            windows.append([it + 1, profile(activities=[ProfilerActivity.CPU,
-                                                        ProfilerActivity.CUDA],
-                                            record_shapes=True), now,
-                            now - plain_t0[it + STEPS]])
+            windows.append([it + 1, tracer(), now, now - plain_t0[it + STEPS]])
             windows[-1][1].__enter__()
         if it in ends:
             torch.cuda.synchronize()
@@ -116,13 +147,13 @@ def main(argv=None) -> int:
             windows[-1][1].__exit__(None, None, None)
 
     def summary(prof, wall, plain) -> str:
-        busy = _busy_ms(prof.events()) / STEPS
-        plain_ms = plain * 1e3 / STEPS
-        return (f"wall {plain_ms:.3f} ms/step (profiled {wall * 1e3 / STEPS:.3f}), device busy "
-                f"{busy:.3f} ms/step, idle {100 * (1 - busy / plain_ms):.1f}%, "
-                f"{len(_device_spans(prof.events())) // STEPS} device activities/step")
+        busy = _busy_ms(prof.events()) / per
+        plain_ms = plain * 1e3 / per
+        return (f"wall {plain_ms:.3f} ms/{unit} (profiled {wall * 1e3 / per:.3f}), device busy "
+                f"{busy:.3f} ms/{unit}, idle {100 * (1 - busy / plain_ms):.1f}%, "
+                f"{len(_device_spans(prof.events())) // per} device activities/{unit}")
 
-    if args.last_segment:
+    if args.last_segment or args.serve:
         with tempfile.TemporaryDirectory() as tmp:
             cfg = load_config(CONFIG, dict(overrides, **CUT_SCHEDULE, basedir=tmp, render_test=0))
             result = reconstruction(cfg, scene, "cuda", save_images=False, on_step=on_step,
@@ -141,30 +172,53 @@ def main(argv=None) -> int:
         train_steps(cfg, WARMUP + STEPS, device="cuda", scene=scene, on_step=on_step,
                     log=lambda s: None)
         where = f"{STEPS} profiled steps after {WARMUP}"
+    if args.serve:
+        state = result.state
+        handle = make_handle(state)
+        directions, c2w = serving_view(state.test_ds, SERVE_SCALE, "cuda")
+
+        def frame():  # the eval's render; returns host arrays
+            return handle.render(rays_from_pose(directions, c2w))
+
+        frame()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, n_valid = frame()
+        plain = time.perf_counter() - t0
+        prof = tracer()
+        with prof:
+            t0 = time.perf_counter()
+            frame()
+            wall = time.perf_counter() - t0
+        windows.append([0, prof, wall, plain])
+        where = (f"one {directions.shape[0]}-ray {'stratified' if handle.stratified else 'uniform'} "
+                 f"frame of the final state: grid {state.geometry.grid_size}, {state.n_samples} "
+                 f"samples, top-{cfg.shade_top_k}, {n_valid} shaded samples, overflow "
+                 f"{handle.max_overflow}")
     _, prof, wall, plain = windows[-1]
     annotations = {e.key for e in prof.events() if e.is_user_annotation}
     rows = [
-        (e.key, e.device_time_total / 1e3 / STEPS, e.count // STEPS)
+        (e.key, e.device_time_total / 1e3 / per, e.count // per)
         for e in prof.key_averages()
         if e.device_time_total > 0 and e.device_type.name == "CUDA"
         and e.key not in annotations
     ]
-    busy_ms = _busy_ms(prof.events()) / STEPS
+    busy_ms = _busy_ms(prof.events()) / per
     print(f"{torch.cuda.get_device_name(0)}; {'unstratified' if args.unstratified else 'as written'}; "
           f"{where}")
     print(f"{summary(prof, wall, plain)}; kernel rows sum to "
-          f"{sum(ms for _, ms, _ in rows):.3f} ms/step")
-    print(f"{'ms/step':>9} {'share':>6} {'calls':>6}  kernel")
+          f"{sum(ms for _, ms, _ in rows):.3f} ms/{unit}")
+    print(f"{'ms/' + unit:>9} {'share':>6} {'calls':>6}  kernel")
     for key, ms, calls in sorted(rows, key=lambda r: -r[1])[:TOP]:
         print(f"{ms:9.3f} {100 * ms / busy_ms:5.1f}% {calls:6d}  {key[:110]}")
     # the same device time attributed to the torch ops that launched it
     ops = [
-        (e.key, str(e.input_shapes)[:70], e.self_device_time_total / 1e3 / STEPS,
-         e.count // STEPS)
+        (e.key, str(e.input_shapes)[:70], e.self_device_time_total / 1e3 / per,
+         e.count // per)
         for e in prof.key_averages(group_by_input_shape=True)
         if e.self_device_time_total > 0 and e.device_type.name == "CPU"
     ]
-    print(f"{'ms/step':>9} {'share':>6} {'calls':>6}  op [input shapes]")
+    print(f"{'ms/' + unit:>9} {'share':>6} {'calls':>6}  op [input shapes]")
     for key, shapes, ms, calls in sorted(ops, key=lambda r: -r[2])[:TOP]:
         print(f"{ms:9.3f} {100 * ms / busy_ms:5.1f}% {calls:6d}  {key} {shapes}")
     return 0

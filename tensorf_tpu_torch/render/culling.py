@@ -1,6 +1,6 @@
-"""Dense-alpha extraction, alpha-mask updates, ray-set filtering and the
-per-ray sample counts that stratify the ray store (counterpart of
-tensorf_tpu/render/culling.py, without the serving window-bits pass).
+"""Dense-alpha extraction, alpha-mask updates, ray-set filtering, the
+per-ray sample counts that stratify the ray store and the serving
+window-bits count pass (counterpart of tensorf_tpu/render/culling.py).
 
 The dense sweeps and the count passes run chunk by chunk on the device
 under no_grad; the shape-changing decisions (the new aabb, which rays
@@ -27,8 +27,8 @@ from ..models.alpha_mask import (
     sample_alpha_gate_coarse,
     with_dilation,
 )
-from ..ops.rays import aabb_entry_exit, sample_along_rays
-from .volume import feature2density, normalize_coord
+from ..ops.rays import aabb_entry_exit, inbbox_chord, sample_along_rays
+from .volume import feature2density, normalize_coord, pack_window_bits
 
 
 def _bbox_hit(rays: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
@@ -231,22 +231,16 @@ def _candidate_counts_both(rays, alpha_mask, aabb, *, n_samples, step_size, near
 
 
 @torch.no_grad()
-def _candidate_and_chord_counts(rays, alpha_mask, aabb, *, n_samples, step_size, near, far):
-    """(group-padded coarse candidate count, in-bbox chord) per ray, from
-    the probes alone: one mask lookup per COARSE_STRIDE samples and no
-    (B, N, 3) lattice.  Valid samples run contiguously from index 0, so
-    the chord is closed-form from the slab test.  Both are reported
+def _probe_counts(rays, alpha_mask, aabb, *, n_samples, step_size, near, far):
+    """(group-padded coarse candidate count, in-bbox chord, raw window
+    hits (B, G)) per ray, from the probes alone: one mask lookup per
+    COARSE_STRIDE samples at the positions sample_along_rays gives those
+    indices, and no (B, N, 3) lattice.  Both counts are reported
     conservatively (+1 chord sample, +1 candidate window on hitting rays),
     so a render sized from them never pays more than promised; rays that
     miss the box report exact zeros."""
     o, d = rays[:, :3], rays[:, 3:6]
-    t_min, t_max = aabb_entry_exit(o, d, aabb)
-    t0 = torch.clamp(t_min, near, far)
-    # a miss with t_min > far would otherwise alias to a chord
-    hit = (t_max >= t_min) & (t_max >= t0)
-    n_in = torch.floor((t_max - t0) / step_size) + 2.0  # +1 FP slack
-    chord = torch.clamp(torch.where(hit, n_in, torch.zeros_like(n_in)), 0, n_samples)
-    chord = chord.to(torch.int32)
+    t0, hit, chord = inbbox_chord(o, d, aabb, near, far, step_size, n_samples)
     pidx = coarse_probe_indices(n_samples, o.device).to(o.dtype)
     z = t0[:, None] + pidx[None, :] * step_size
     probe = o[:, None, :] + d[:, None, :] * z[..., None]
@@ -256,7 +250,7 @@ def _candidate_and_chord_counts(rays, alpha_mask, aabb, *, n_samples, step_size,
     cand = COARSE_STRIDE * _count(hits & wvalid)
     # +1-window slack on nonzero counts only
     cand = torch.where(cand > 0, torch.clamp(cand + COARSE_STRIDE, max=n_samples), cand)
-    return cand, chord
+    return cand, chord, hits
 
 
 @torch.no_grad()
@@ -298,8 +292,43 @@ def count_ray_candidates_and_chord(
     dev = alpha_mask.volume.device
     kw = _count_kw(aabb, dev, step_size, near_far, n_samples)
     return _chunked_counts(
-        lambda r: _candidate_and_chord_counts(r, alpha_mask, **kw), all_rays, dev, chunk
+        lambda r: _probe_counts(r, alpha_mask, **kw)[:2], all_rays, dev, chunk
     )
+
+
+@torch.no_grad()
+def count_ray_candidates_chord_bits(
+    all_rays, alpha_mask: AlphaGridMask, aabb, step_size: float, near_far=(2.0, 6.0),
+    n_samples: int = 256, tile: int = 32768,
+) -> Tuple[np.ndarray, np.ndarray, torch.Tensor, torch.Tensor]:
+    """The serving count pass over a frame's rays, on the mask's device.
+
+    Returns (counts (M,) int32 numpy, chords (M,) int32 numpy, window-hit
+    bits (M_pad, Gb) uint8 and rays (M_pad, 6) float32, both left on the
+    device): the bucket renders gather their rows from these two stores
+    (render/chunked.py).  The bits are the raw probe hits, packed
+    little-endian; the consumer re-applies the chord.  ``all_rays`` may
+    already be a device tensor (rays_from_pose).  The rays are padded to a
+    multiple of ``tile`` by repeating the last one and counted tile by tile;
+    counts and chords reach the host in one copy."""
+    dev = alpha_mask.volume.device
+    if isinstance(all_rays, torch.Tensor):
+        rays = all_rays.to(dev, torch.float32)
+    else:
+        rays = torch.as_tensor(np.asarray(all_rays, np.float32), device=dev)
+    M = rays.shape[0]
+    pad = (-M) % tile
+    if pad:
+        rays = torch.cat([rays, rays[-1:].expand(pad, 6)])
+    kw = _count_kw(aabb, dev, step_size, near_far, n_samples)
+    tile = min(tile, rays.shape[0])
+    counts, bits = [], []
+    for s in range(0, rays.shape[0], tile):
+        cand, chord, hits = _probe_counts(rays[s : s + tile], alpha_mask, **kw)
+        counts.append(torch.stack([cand, chord]))
+        bits.append(pack_window_bits(hits))
+    host = torch.cat(counts, dim=1)[:, :M].cpu().numpy()
+    return host[0], host[1], torch.cat(bits), rays
 
 
 def count_ray_inbbox(

@@ -9,8 +9,9 @@ queried (the reference's boolean compaction, with a fixed K): exact
 whenever K covers every candidate, and ``budget_overflow_frac`` reports
 the rays where it does not.  Shading runs where the weight passes
 ``ray_march_weight_thres`` — over every kept sample, or (``shade_top_k``)
-over the top-K weights per ray only.  NDC rays and serving window bits are
-not ported yet and raise.
+over the top-K weights per ray only.  Serving renders take their candidate
+windows from the count pass's packed window bits (``cand_window_bits``)
+and build no sample lattice.  NDC rays are not ported yet and raise.
 
 Every top-k selection here ranks with distinct scores: kept entries
 nearest first, then dead entries by ascending index.  That is the order
@@ -34,7 +35,7 @@ from ..models.alpha_mask import (
 from ..models.config import ModelConfig
 from ..models.shading import apply_shading
 from ..ops.freq_mask import FreeMasks
-from ..ops.rays import lattice_z, sample_along_rays, sample_lattice
+from ..ops.rays import inbbox_chord, lattice_z, sample_along_rays, sample_lattice
 from ..ops.render_math import raw2alpha
 
 # Re-derive z/xyz/dists from the selected lattice indices instead of
@@ -120,6 +121,24 @@ def _select_windows_g(gkeep: torch.Tensor, K: int):
     sel = (gsel[..., None] * S + offs).reshape(B, K)
     win_alive = galive[..., None].expand(B, K // S, S).reshape(B, K)
     return sel, win_alive, padded_count
+
+
+def pack_window_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., G) bool -> (..., ceil(G/8)) uint8, little-endian bit order
+    (jnp.packbits(..., bitorder="little")): window g is bit g % 8 of
+    byte g // 8, the tail byte zero-padded."""
+    G = bits.shape[-1]
+    b = F.pad(bits.to(torch.int32), (0, (-G) % 8)).reshape(*bits.shape[:-1], -1, 8)
+    shifts = torch.arange(8, dtype=torch.int32, device=bits.device)
+    return torch.sum(b << shifts, dim=-1).to(torch.uint8)
+
+
+def unpack_window_bits(packed: torch.Tensor) -> torch.Tensor:
+    """(..., Gb) uint8 -> (..., Gb * 8) bool, the inverse of
+    pack_window_bits (jnp.unpackbits(..., bitorder="little") > 0)."""
+    shifts = torch.arange(8, dtype=torch.int32, device=packed.device)
+    bits = (packed.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1) > 0
 
 
 def _select_windows(keep: torch.Tensor, K: int):
@@ -210,11 +229,22 @@ def render_rays(
     - ``"alive"`` with a mask: K1 = min(n_samples, K + 224) coarse
       candidates, exact-gated, then the K nearest alive ones;
     - no mask (the prefilter budget): the K nearest in-bbox samples.
+    ``cand_window_bits`` (B, Gb) uint8, the packed per-window probe hits of
+    render/culling.py::count_ray_candidates_chord_bits, replaces the
+    lattice and its coarse gate: the K // COARSE_STRIDE nearest hit windows
+    within each ray's chord, exact-gated after.  It needs a mask, the
+    "cand" mode and a COARSE_STRIDE-multiple budget K <= ``n_samples``.
     """
+    if cand_window_bits is not None and (
+        ndc_ray or alpha_mask is None or sample_budget is None or sample_budget > n_samples
+        or sample_budget % COARSE_STRIDE != 0 or budget_mode != "cand"
+    ):
+        raise ValueError(
+            "cand_window_bits requires non-NDC cand-mode budget rendering with an alpha "
+            "mask and a COARSE_STRIDE-multiple budget <= n_samples"
+        )
     if ndc_ray:
         raise NotImplementedError("NDC rays are not ported yet")
-    if cand_window_bits is not None:
-        raise NotImplementedError("serving window bits are not ported yet")
 
     cfg = field.cfg
     B = rays.shape[0]
@@ -222,12 +252,37 @@ def render_rays(
     near, far = cfg.near_far
     zero = torch.zeros((), device=rays.device)
 
-    xyz, z_vals, ray_valid = sample_along_rays(
-        rays_o, viewdirs, aabb, near, far, step_size, n_samples, u
-    )
-    dists = torch.cat(
-        [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
-    )
+    n_eff = n_samples
+    overflow = zero
+    exact_gated = False
+    if cand_window_bits is not None:
+        # Serving window bits: the count pass probed every stride window, so
+        # the candidates are the unpacked hits within the closed-form chord
+        # (a superset of the per-sample validity: extra boundary windows are
+        # exact-gated off below, and the tier covers them).  No (B, N, 3)
+        # lattice is built.
+        S = COARSE_STRIDE
+        K = sample_budget
+        _, hit, chord = inbbox_chord(rays_o, viewdirs, aabb, near, far, step_size, n_samples)
+        ghits = unpack_window_bits(cand_window_bits)  # (B, Gb * 8)
+        starts = torch.arange(ghits.shape[1], dtype=torch.int32, device=rays.device) * S
+        gkeep = ghits & hit[:, None] & (starts < chord[:, None]) & (starts < n_samples)
+        sel, win_alive, pc = _select_windows_g(gkeep, K)
+        xyz, z_vals, dists, kept = _derive_at(rays_o, viewdirs, aabb, near, far, u, step_size,
+                                              n_samples, sel, win_alive)
+        ray_valid = kept & (sample_alpha_gate(alpha_mask, xyz) > 0)
+        overflow = torch.mean((pc > K).to(torch.float32))
+        exact_gated = True
+        n_eff = K
+        use_budget = False
+    else:
+        xyz, z_vals, ray_valid = sample_along_rays(
+            rays_o, viewdirs, aabb, near, far, step_size, n_samples, u
+        )
+        dists = torch.cat(
+            [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
+        )
+        use_budget = sample_budget is not None and sample_budget < n_samples
 
     def compact_windows(keep, K):
         if _DERIVED_COMPACTION:
@@ -236,10 +291,7 @@ def render_rays(
                                 n_samples, sel, win_alive), pc)
         return _compact_grouped(xyz, z_vals, dists, keep, K)
 
-    n_eff = n_samples
-    overflow = zero
-    exact_gated = False
-    if sample_budget is not None and sample_budget < n_samples:
+    if use_budget:
         K = sample_budget
         if alpha_mask is not None and not use_coarse_gate:
             alive = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)

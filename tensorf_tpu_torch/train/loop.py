@@ -13,10 +13,13 @@ Each event is a function of a ``TrainState`` (``alpha_mask_event``,
 hold it against the JAX loop's own event code.  After every event the ray
 store is re-partitioned by per-ray candidate count (``stratify``): each
 stratum is drawn at a fixed quota and rendered at its own sample budget
-and lattice, and a budget that keeps overflowing is raised.  Serving-side
-stratification (``stratify_render``), resume, NDC rays, the progress
-figures and trajectory rendering are not ported yet: a config that asks
-for them raises NotImplementedError.
+and lattice, and a budget that keeps overflowing is raised.  The
+evaluations serve stratified (``stratify_render``): rays sorted by
+candidate count and rendered per budget tier, exact by construction.
+After training, ``render_train``, ``render_test`` and ``render_path``
+render the train split, the test split and the dataset's trajectory (if it
+has one).  Resume, NDC rays and the progress figures are not ported yet: a
+config that asks for the first two raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from ..config.schema import TrainConfig, model_config_from
 from ..data import dataset_dict
-from ..eval.evaluation import RendererHandle, evaluation, psnrs_calculate
+from ..eval.evaluation import RendererHandle, evaluation, evaluation_path, psnrs_calculate
 from ..models.alpha_mask import coarse_gate_valid
 from ..models.config import GridGeometry, cal_n_samples, n_to_reso, n_voxel_schedule
 from ..models.tensorf import FIELD_MODELS
@@ -58,7 +61,7 @@ from .step import TrainStatics, make_train_step, render_widths
 
 # knobs of the JAX trainer that the port does not honour yet: a run that
 # sets them would compute something else than its config states
-_UNPORTED_SCHEDULE = ("stratify_render", "resume", "render_train", "render_path", "ndc_ray")
+_UNPORTED_SCHEDULE = ("resume", "ndc_ray")
 # per-stratum quotas are multiples of this (the JAX loop's rounding on one
 # device: the smallest multiple of the device count that is >= 8)
 QUOTA_ROUND = 8
@@ -85,20 +88,46 @@ def first_segment_end(cfg: TrainConfig) -> int:
     return int(min(events)) if events else int(cfg.n_iters)
 
 
-def _datasets(cfg: TrainConfig, scene: Optional[Dict[str, dict]]):
+def _dataset(cfg: TrainConfig, scene: Optional[Dict[str, dict]], split: str, **kw):
     if cfg.dataset_name not in dataset_dict:
         raise NotImplementedError(f"dataset {cfg.dataset_name!r} is not ported yet")
-    cls = dataset_dict[cfg.dataset_name]
     extra = {}
     if scene is not None:
         h, w = scene["train"]["frames"][0]["image"].shape[:2]
-        extra = {"wh": (w, h)}
-    common = dict(downsample=cfg.downsample_train, **extra)
-    train = cls(cfg.datadir, split="train", num_images=cfg.resolved_train_images(),
-                meta=None if scene is None else scene["train"], **common)
-    test = cls(cfg.datadir, split="test", num_images=cfg.resolved_test_images(),
-               is_stack=True, meta=None if scene is None else scene["test"], **common)
+        extra = {"wh": (w, h), "meta": scene[split]}
+    return dataset_dict[cfg.dataset_name](cfg.datadir, split=split,
+                                          downsample=cfg.downsample_train, **extra, **kw)
+
+
+def _datasets(cfg: TrainConfig, scene: Optional[Dict[str, dict]]):
+    train = _dataset(cfg, scene, "train", num_images=cfg.resolved_train_images())
+    test = _dataset(cfg, scene, "test", num_images=cfg.resolved_test_images(), is_stack=True)
     return train, test
+
+
+def _render_after_training(cfg: TrainConfig, scene, handle: RendererHandle, test_ds,
+                           folder: str, save_images: bool, log) -> List[float]:
+    """The renders after training or from a checkpoint (tensorf_tpu
+    loop.py:1375-1408 and 1465-1487): ``render_train`` every train view
+    (all of the split, stacked) into imgs_train_all/, ``render_test`` the
+    test split into imgs_test_all/, ``render_path`` the test dataset's
+    trajectory, where it has one, into imgs_path_all/.  Images are written
+    only with ``save_images``.  Returns the test PSNRs."""
+    def save(sub):
+        return f"{folder}/{sub}/" if save_images else None
+
+    if cfg.render_train:
+        psnrs = evaluation(_dataset(cfg, scene, "train", is_stack=True), handle,
+                           save("imgs_train_all"))
+        log(f"======> {cfg.expname} train all psnr: {np.mean(psnrs)} <========")
+    psnrs = []
+    if cfg.render_test:
+        psnrs = evaluation(test_ds, handle, save("imgs_test_all"))
+        if psnrs:
+            log(f"======> {cfg.expname} test all psnr: {np.mean(psnrs)} <========")
+    if cfg.render_path and hasattr(test_ds, "render_path"):
+        evaluation_path(test_ds, handle, test_ds.render_path, save("imgs_path_all"))
+    return psnrs
 
 
 class TrainState:
@@ -250,9 +279,11 @@ def make_handle(state: TrainState) -> RendererHandle:
         white_bg=state.white_bg,
         shade_top_k=cfg.shade_top_k if cfg.shade_top_k > 0 else None,
         fused=bool(cfg.fused_gathers),
-        # the uniform eval path renders at the mask era's budget
+        # the uniform eval path renders at the mask era's budget; stratified
+        # serving has its own per-bucket budgets
         sample_budget=state.active_budget() if state.alpha_mask is not None else None,
         use_coarse_gate=state.coarse_ok(),
+        stratified=bool(cfg.stratify_render),
     )
 
 
@@ -503,6 +534,9 @@ class ReconstructionResult(NamedTuple):
     total_loss: List[float]  # per step
     test_psnrs: Dict[int, float]  # mean test-set PSNR at each vis_every iteration
     final_psnrs: List[float]  # per test view after training (render_test=1)
+    # the largest eval overflow of each test-set evaluation by iteration,
+    # the one after training under n_iters (0.0: nothing under-integrated)
+    eval_overflow: Dict[int, float]
     segments: List[dict]  # steps, grid, n_samples, strata, ms/step, peak GiB per segment
     events: List[dict]  # each schedule event's outcome
     state: TrainState
@@ -520,10 +554,10 @@ def reconstruction(
     on_step: Optional[Callable[[int, TrainState], None]] = None,
 ) -> ReconstructionResult:
     """Run ``cfg``'s schedule (tensorf_tpu loop.py:195-1420, single host,
-    no resume, serving stratification off).
+    no resume).
 
     ``scene`` is an in-memory dataset (data/synthetic.py); None reads
-    ``cfg.datadir``.  ``save_images`` writes the final evaluation's PNGs,
+    ``cfg.datadir``.  ``save_images`` writes the final evaluations' PNGs,
     videos and mean.txt (needs imageio).  ``on_step(it, state)`` runs after
     step ``it``, before that iteration's evaluation and events.  Segment
     times exclude the evaluations and events between them; the first
@@ -540,6 +574,7 @@ def reconstruction(
     event_iters = set(cfg.update_AlphaMask_list) | set(cfg.upsamp_list)
     noise = torch.Generator(device=device).manual_seed(cfg.seed)
     totals, segments, events, test_psnrs, plans, progress = [], [], [], {}, [], []
+    eval_overflow = {}
 
     def stratify(iteration: int) -> None:
         plan = restratify(state, iteration, log)
@@ -605,9 +640,11 @@ def reconstruction(
         if cfg.vis_every > 0 and iteration % cfg.vis_every == 0 and iteration > 0:
             _sync(device)
             t0 = time.perf_counter()
+            handle = make_handle(state)
             test_psnrs[iteration] = float(np.mean(
-                psnrs_calculate(make_handle(state), state.test_ds, chunk=cfg.batch_size) or [0.0]
+                psnrs_calculate(handle, state.test_ds, chunk=cfg.batch_size) or [0.0]
             ))
+            eval_overflow[iteration] = handle.max_overflow
             log(f"[{iteration}] test psnr {test_psnrs[iteration]:.4f}")
             if seg is not None:
                 seg["paused"] += time.perf_counter() - t0
@@ -634,17 +671,13 @@ def reconstruction(
     elapsed = time.perf_counter() - run_tic
     np.savetxt(f"{logfolder}/training_time.txt", np.asarray([elapsed]))
     log(f"Total time {elapsed:.2f}s.")
-    final_psnrs = []
-    if cfg.render_test:
-        final_psnrs = evaluation(
-            state.test_ds, make_handle(state),
-            f"{logfolder}/imgs_test_all/" if save_images else None,
-        )
-        if final_psnrs:
-            log(f"======> {cfg.expname} test all psnr: {np.mean(final_psnrs)} <========")
+    handle = make_handle(state)
+    final_psnrs = _render_after_training(cfg, scene, handle, state.test_ds, logfolder,
+                                         save_images, log)
+    eval_overflow[cfg.n_iters] = handle.max_overflow
     totals = torch.stack(totals).tolist() if totals else []
-    return ReconstructionResult(final_path, totals, test_psnrs, final_psnrs, segments, events,
-                                state, plans, progress)
+    return ReconstructionResult(final_path, totals, test_psnrs, final_psnrs, eval_overflow,
+                                segments, events, state, plans, progress)
 
 
 def _sampling_summary(state: TrainState) -> dict:
@@ -670,9 +703,9 @@ def render_test(
     log: Callable[[str], None] = print,
 ) -> List[float]:
     """Render-only entry (reference train.py:77-165): load ``cfg.ckpt`` (or
-    ``ckpt_path``), render the test split and return its per-view PSNRs;
-    with ``render_test`` and ``save_images`` set, the images go beside the
-    checkpoint under imgs_test_all/."""
+    ``ckpt_path``), render what ``render_train``, ``render_test`` and
+    ``render_path`` ask for and return the test split's per-view PSNRs;
+    with ``save_images`` the images go beside the checkpoint."""
     device = resolve_device(device)
     _refuse_unported(cfg, _UNPORTED_SCHEDULE)
     ckpt = cfg.ckpt or cfg.ckpt_path
@@ -694,13 +727,10 @@ def render_test(
         # the configured budget, as the JAX render-only entry takes it
         sample_budget=cfg.sample_budget if alpha_mask is not None and cfg.sample_budget > 0 else None,
         use_coarse_gate=coarse_gate_valid(alpha_mask, geometry.step_size, False),
+        stratified=bool(cfg.stratify_render),
     )
-    psnrs = []
-    if cfg.render_test:
-        save = f"{os.path.dirname(ckpt)}/imgs_test_all/" if save_images else None
-        psnrs = evaluation(test_ds, handle, save)
-        log(f"======> {cfg.expname} test all psnr: {np.mean(psnrs)} <========")
-    return psnrs
+    return _render_after_training(cfg, scene, handle, test_ds, os.path.dirname(ckpt),
+                                  save_images, log)
 
 
 class TrainResult(NamedTuple):

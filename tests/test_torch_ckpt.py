@@ -140,7 +140,7 @@ def test_metrics_match_jax(rng):
 
 
 TINY = dict(
-    stratify=0, stratify_render=0, n_iters=10, N_voxel_init=10**3, N_voxel_final=16**3,
+    stratify=0, n_iters=10, N_voxel_init=10**3, N_voxel_final=16**3,
     upsamp_list=[3, 6], update_AlphaMask_list=[4, 7], batch_size=256, downsample_train=1,
     vis_every=5, save_ckpt_every=[5], progress_refresh_rate=5, seed=3,
 )
@@ -181,7 +181,7 @@ def test_tiny_reconstruction_end_to_end(tmp_path):
                         save_images=False, log=logs.append)
     assert abs(np.mean(psnrs) - np.mean(res.final_psnrs)) <= 1e-4
     argv = ["--config", "configs/synth_sphere.txt", "--render_only", "1", "--render_test", "1",
-            "--stratify", "0", "--stratify_render", "0", "--downsample_train", "1", "--device",
+            "--stratify", "0", "--downsample_train", "1", "--device",
             "cpu", "--synthetic", "--synthetic_scene", "sphere", "--synthetic_views", "4,1",
             "--synthetic_wh", "40", "--save_images", "0", "--ckpt", res.final_path]
     assert cli.main(argv) == 0
@@ -198,6 +198,6 @@ def test_tiny_reconstruction_end_to_end(tmp_path):
 def test_schedule_refuses_what_is_not_ported(tmp_path):
     cfg = load_config("configs/synth_sphere.txt", dict(TINY, basedir=str(tmp_path)))
     scene = make_synthetic_scene_arrays(n_train=2, n_test=1, wh=(16, 16), scene="sphere")
-    for knob in ("ndc_ray", "stratify_render", "render_path", "resume"):
+    for knob in ("ndc_ray", "resume"):
         with pytest.raises(NotImplementedError, match=knob):
             reconstruction(dataclasses.replace(cfg, **{knob: 1}), scene, "cpu")

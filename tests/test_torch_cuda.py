@@ -291,3 +291,53 @@ def test_budgeted_render_and_counts_on_the_card_match_the_cpu(budget):
         np.testing.assert_allclose(g_card[name].numpy(), g.numpy(), err_msg=name, **TOL)
     for a, b in zip(c_card, c_cpu):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [dict(), dict(use_coarse_gate=False), dict(alive_stage=True)],
+                         ids=["resident", "legacy", "legacy_alive_stage"])
+def test_stratified_serving_on_the_card_matches_uniform_and_cpu(path):
+    """Stratified serving on the card (window-bits or legacy path, with or
+    without its exact-alive stage, rays
+    built on the device by rays_from_pose) equals the card's unbudgeted
+    uniform render and the CPU's stratified render of the same field and
+    rays, with no overflow; host rays render as the device rays do."""
+    import copy
+
+    from tensorf_tpu_torch.models.alpha_mask import AlphaGridMask, with_dilation
+    from tensorf_tpu_torch.render.chunked import (
+        rays_from_pose,
+        render_chunked,
+        render_chunked_stratified,
+    )
+
+    _need_gpu()
+    rng = np.random.default_rng(6)
+    field = _small_field(3)
+    vol = torch.from_numpy((rng.uniform(size=(12, 11, 10)) < 0.3).astype(np.float32))
+    mask = with_dilation(AlphaGridMask(torch.tensor([[-1.2, -1.3, -1.1], [1.3, 1.2, 1.25]]), vol))
+    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3])
+    i, j = np.meshgrid(np.arange(48) + 0.5, np.arange(48) + 0.5)
+    dirs = np.stack([(i - 24) / 40.0, (j - 24) / 40.0, np.ones_like(i)], -1).reshape(-1, 3)
+    dirs = torch.from_numpy((dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32))
+    c2w = torch.tensor([[1.0, 0, 0, 0.1], [0, 0, 1, -4.0], [0, -1, 0, 0.2]])  # looks along +y
+    kw = dict(step_size=0.04, n_samples=130, white_bg=True, shade_top_k=16, chunk=512, **path)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        f, m, a = copy.deepcopy(field).to(dev), mask.to(dev), aabb.to(dev)
+        rays = rays_from_pose(dirs.to(dev), c2w.to(dev))
+        out[dev] = render_chunked_stratified(f, m, rays, a, **kw)
+        if dev == "cuda":
+            host = render_chunked_stratified(f, m, rays.cpu().numpy(), a, **kw)
+            for x, y in zip(host, out[dev]):
+                np.testing.assert_array_equal(x, y)
+            rgb, depth, _, _ = render_chunked(f, m, rays, a, chunk=512, step_size=0.04,
+                                              n_samples=130, white_bg=True, shade_top_k=16)
+            uniform = (rgb.cpu().numpy(), depth.cpu().numpy())
+    cpu, card = out["cpu"], out["cuda"]
+    assert cpu[3] == card[3] == 0.0
+    assert 0 < card[2] and (card[0] < 1.0).any()  # something was shaded
+    np.testing.assert_allclose(card[0], uniform[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card[1], uniform[1], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card[0], cpu[0], **TOL)
+    np.testing.assert_allclose(card[1], cpu[1], **TOL)

@@ -25,6 +25,7 @@ def test_port_imports_with_jax_blocked():
         "from tensorf_tpu_torch.ops import resize\n"
         "from tensorf_tpu_torch.render import chunked, culling\n"
         "from tensorf_tpu_torch.eval import evaluation, metrics\n"
+        "from tensorf_tpu_torch import profile_step\n"
         "assert 'imageio' not in sys.modules and 'PIL' not in sys.modules\n"
         "bad = [m for m, mod in sys.modules.items()"
         " if mod is not None and m.split('.')[0] in ('jax', 'tensorf_tpu')]\n"

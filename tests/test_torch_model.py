@@ -163,7 +163,11 @@ def test_render_rays_raises_on_what_is_not_ported():
     # sample budgets are ported: the mask-free budget compacts to its width
     out = t_render(field, rays, TMasks(), sample_budget=16, **kw)
     assert out.z_vals.shape == (4, 16)
-    for extra in (dict(sample_budget=16, ndc_ray=True), dict(ndc_ray=True),
-                  dict(cand_window_bits=object())):
+    for extra in (dict(sample_budget=16, ndc_ray=True), dict(ndc_ray=True)):
         with pytest.raises(NotImplementedError):
             t_render(field, rays, TMasks(), **kw, **extra)
+    # serving window bits are ported; without an alpha mask they are refused,
+    # as the JAX renderer refuses them
+    with pytest.raises(ValueError, match="cand_window_bits"):
+        t_render(field, rays, TMasks(), sample_budget=16, budget_mode="cand",
+                 cand_window_bits=t(np.zeros((4, 2), np.uint8)), **kw)

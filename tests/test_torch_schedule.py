@@ -281,7 +281,7 @@ def test_masked_render_matches_jax(rng, keyed, top_k, fused):
 # ---- the schedule events -----------------------------------------------------
 
 EVENT_OVERRIDES = dict(
-    stratify=0, stratify_render=0, n_iters=20, N_voxel_init=16**3, N_voxel_final=22**3,
+    stratify=0, n_iters=20, N_voxel_init=16**3, N_voxel_final=22**3,
     update_AlphaMask_list=[2, 4], upsamp_list=[3], batch_size=64, downsample_train=1,
     n_lamb_sigma=[2, 3, 4], n_lamb_sh=[4, 3, 2], data_dim_color=6, featureC=16,
     density_shift=-10.0, basedir="unused",

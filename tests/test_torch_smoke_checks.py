@@ -1,0 +1,97 @@
+"""chip_smoke.py's render comparison (``same_render``), run on the CPU.
+
+A budgeted or stratified render keeps the unbudgeted render's samples but
+sums their weights in another float32 order, so a shading decision on its
+edge can fall either way.  ``same_render`` holds depth to 1e-4 on every ray
+and rgb to 1e-5 on every ray but those with a shading decision within
+FLIP_MARGIN of flipping, which may move by up to that decision's weight.
+Here a small field's unbudgeted render is compared with copies of itself
+moved on purpose; the weight threshold is set onto one ray's top-K weight
+to make a decision that sits exactly on its edge.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from tensorf_tpu_torch.eval.evaluation import RendererHandle
+from tensorf_tpu_torch.models import ModelConfig, TensorVMSplit
+from tensorf_tpu_torch.models import alpha_mask as tam
+from tensorf_tpu_torch.ops.freq_mask import FreeMasks
+from tensorf_tpu_torch.render.volume import render_rays
+
+AABB = torch.tensor([[-1.5] * 3, [1.5] * 3])
+TOP_K = 16
+# the ray whose (TOP_K // 2 + 1)-th largest weight becomes the threshold
+EDGE_RAY = 7
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """(handle whose threshold sits on a top-K weight of ray EDGE_RAY,
+    rays, unbudgeted rgb, depth)."""
+    torch.manual_seed(0)
+    cfg = ModelConfig(model_name="TensorVMSplit", density_n_comp=(4, 4, 4), app_n_comp=(6, 6, 6),
+                      app_dim=9, shading_mode="MLP_Fea", pos_pe=2, view_pe=2, fea_pe=2,
+                      feature_c=32, density_shift=-3.0)
+    field = TensorVMSplit(cfg, (12, 12, 12), device="cpu")
+    g = (np.arange(10) + 0.5) * 0.3 - 1.5
+    ball = np.linalg.norm(np.stack(np.meshgrid(g, g, g, indexing="ij")), axis=0) < 0.9
+    mask = tam.with_dilation(tam.AlphaGridMask(aabb=AABB, volume=torch.from_numpy(
+        ball.astype(np.float32))))
+    rng = np.random.default_rng(0)
+    o = rng.normal(size=(300, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True) + 0.1 * rng.normal(size=(300, 3))
+    rays = torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32))
+    with torch.no_grad():
+        w = render_rays(field, rays, FreeMasks(), aabb=AABB, step_size=0.05, n_samples=128,
+                        is_train=False, white_bg=True, shade_top_k=TOP_K, alpha_mask=mask,
+                        u=None).weights
+    field.cfg = dataclasses.replace(cfg, ray_march_weight_thres=float(
+        torch.sort(w[EDGE_RAY], descending=True).values[TOP_K // 2]))
+    handle = RendererHandle(field=field, alpha_mask=mask, aabb=AABB, step_size=0.05,
+                            n_samples=128, white_bg=True, shade_top_k=TOP_K)
+    rgb, depth, _ = handle.render(rays, chunk=64)
+    return handle, rays, rgb, depth
+
+
+def _moved(scene):
+    handle, rays, _, _ = scene
+    return chip_smoke.shading_decisions(torch, np, handle, rays)
+
+
+# (ray, rgb move as a multiple of the ray's flippable weight, absolute rgb
+# move, depth move, passes)
+CASES = {
+    "identical": (None, 0.0, 0.0, 0.0, True),
+    "rgb_within_1e-5": (3, 0.0, 5e-6, 0.0, True),
+    "rgb_no_decision_near": ("far", 0.0, 1e-3, 0.0, False),
+    "depth": (3, 0.0, 0.0, 1e-2, False),
+    "flip_within_its_weight": (EDGE_RAY, 0.9, 0.0, 0.0, True),
+    "flip_beyond_its_weight": (EDGE_RAY, 1.5, 2e-5, 0.0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_same_render_tells_shading_flips_from_differences(scene, case):
+    handle, rays, rgb, depth = scene
+    moved = _moved(scene)
+    assert moved[EDGE_RAY] >= handle.field.cfg.ray_march_weight_thres > 1e-3
+    ray, times, plus, plus_depth, passes = CASES[case]
+    if ray == "far":
+        ray = int(np.nonzero(moved == 0.0)[0][0])
+    got_rgb, got_depth = rgb.copy(), depth.copy()
+    if ray is not None:
+        got_rgb[ray] = np.clip(got_rgb[ray] - times * moved[ray] - plus, 0.0, None)
+        got_depth[ray] += plus_depth
+    e_rgb, e_depth, flips, msg = chip_smoke.same_render(
+        torch, np, handle, rays, (got_rgb, got_depth), (rgb, depth))
+    assert (msg is None) == passes, msg
+    assert e_rgb == pytest.approx(float(np.abs(got_rgb - rgb).max()))
+    assert e_depth == pytest.approx(float(np.abs(got_depth - depth).max()))
+    assert flips == int((np.abs(got_rgb - rgb) > 1e-5 + 1e-5 * np.abs(rgb)).any(-1).sum())
+    assert flips == (1 if times or plus > 1e-5 else 0)

@@ -337,7 +337,7 @@ def test_multinomial_shares_distribution():
 
 
 def _state(tmp_path, **over):
-    base = dict(stratify=1, stratify_render=0, n_iters=10, N_voxel_init=16**3,
+    base = dict(stratify=1, n_iters=10, N_voxel_init=16**3,
                 N_voxel_final=20**3, upsamp_list=[6], update_AlphaMask_list=[4],
                 batch_size=256, downsample_train=1, basedir=str(tmp_path), seed=3,
                 n_lamb_sigma=[4, 4, 4], n_lamb_sh=[6, 6, 6], data_dim_color=9, featureC=32)
@@ -574,7 +574,7 @@ def test_tiny_stratified_reconstruction(tmp_path):
     strata, the losses and the test PSNR are finite, and the final
     evaluation renders at the budget."""
     cfg = load_config("configs/synth_sphere.txt", dict(
-        stratify_render=0, n_iters=10, N_voxel_init=10**3, N_voxel_final=16**3,
+        n_iters=10, N_voxel_init=10**3, N_voxel_final=16**3,
         upsamp_list=[3, 6], update_AlphaMask_list=[4, 7], batch_size=256, downsample_train=1,
         vis_every=5, save_ckpt_every=[], progress_refresh_rate=1, seed=3, sample_budget=64,
         prefilter_budget=96, basedir=str(tmp_path)))
