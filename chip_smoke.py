@@ -54,7 +54,23 @@ each prints its seconds):
   9. a second path: configs/synth_sphere.txt's schedule as written (300
      steps, events at 150/200/260, stratified serving) on the in-memory
      sphere scene at 800x800 with downsample 8; its test PSNR must reach
-     30 dB and no evaluation may overflow.
+     30 dB and no evaluation may overflow;
+ 10. mesh: the CLI's mesh export (``--export_mesh 1 --ckpt``) of the main
+     path's final checkpoint (its n_to_reso(300^3) grid, before the
+     unstratified drive replaces that logfolder) and of synth_sphere's: each
+     writes its .ply and nothing else, launches no kernel (no train step),
+     and runs the native marching library; the sphere's mean vertex radius
+     about its centre must lie within 0.05 of 0.8.  Prints vertex and face
+     counts, the alpha grid's ms (host clock, device synchronised) and the
+     host ms of marching;
+ 11. resume: synth_sphere as written again, killed after step 251 (its
+     checkpoint at 250 written), then ``resume`` in the same logfolder: the
+     resumed run must log that it continues at 251 with the optimizer and
+     sampling state restored, what it loads must equal the checkpoint
+     exactly, its history.npz must hold the row at 250, and its final test
+     PSNR must lie within 0.5 dB of the uninterrupted run's (phase 9):
+     float atomics sum in another order on each run, so the two drift
+     apart in rounding as two clean runs do.
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
@@ -99,6 +115,13 @@ SPHERE_MIN_PSNR = 30.0
 SPHERE_JAX_PSNR = 32.496
 # a stratum whose last overflow read is above this fails the main path
 MAX_FINAL_OVERFLOW = 0.01
+# data/synthetic.py's sphere: radius 0.8 about the origin
+SPHERE_RADIUS = 0.8
+MESH_RADIUS_TOL = 0.05
+# the resumed sphere run: killed after this step, the checkpoint at 250 the
+# newest; its final test PSNR within this many dB of the uninterrupted run's
+RESUME_KILL = 251
+RESUME_MAX_DPSNR = 0.5
 # scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
 STREAM_KINDS = {64: "density", 192: "appearance", 256: "fused"}
 # the eval's chunk (tensorf_tpu evaluation's default), and the uniform
@@ -485,9 +508,11 @@ def main() -> None:
     kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, "tensorf_tpu/ops/pallas/scatter_add2.py:156",
                              ["zero_fill_kernel", "scatter_add_runs_kernel"])}
     t0 = time.perf_counter()
-    built = build(list(kernels), force=True)
-    print(f"build: {len(built)} kernel(s) with nvcc sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # the kernels (nvcc, sm_90a) and the host marching library (g++) of
+    # mesh export, all at once
+    built = build([*kernels, "marching"], force=True)
+    print(f"build: {len(kernels)} kernel(s) with nvcc sm_90a and the marching library with "
+          f"g++ in {time.perf_counter() - t0:.2f} s", flush=True)
     for res in built.values():
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -779,6 +804,126 @@ def serving_phase(torch, np, state):
           f"{strat_ms:.3f}, uniform {uniform_ms:.3f}", flush=True)
 
 
+def ply_vertices(np, path):
+    """The (V, 3) float32 vertices of a binary .ply as eval/mesh.py writes it."""
+    with open(path, "rb") as f:
+        head, body = f.read().split(b"end_header\n", 1)
+    n = int(next(line for line in head.decode().splitlines()
+                 if line.startswith("element vertex")).split()[-1])
+    return np.frombuffer(body[: n * 12], "<f4").reshape(n, 3)
+
+
+def mesh_export(torch, np, kernels, name, config, ckpt):
+    """The CLI's mesh export of ``ckpt``: it must write the .ply beside it
+    and nothing else, launch no kernel (it takes no train step) and run the
+    native marching library.  Returns the CLI's JSON line and the .ply's
+    vertices."""
+    import contextlib
+    import io
+    import os
+
+    from tensorf_tpu_torch import __main__ as cli
+
+    folder = os.path.dirname(ckpt)
+    before = set(os.listdir(folder))
+    for fn, *_ in kernels.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--config", config, "--export_mesh", "1", "--ckpt", ckpt,
+                       "--save_images", "0"])
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"{name}: {line}", flush=True)
+    check(rc == 0, f"{name}: the mesh export exited {rc}")
+    row = json.loads(text.strip().splitlines()[-1])
+    added = set(os.listdir(folder)) - before
+    check(added == {os.path.basename(row["ply"])},
+          f"{name}: the mesh export wrote {sorted(added)}, want only the .ply")
+    launched = {k: v[0].launches for k, v in kernels.items()}
+    check(not any(launched.values()), f"{name}: the mesh export launched kernels {launched}: "
+          "it took a train step")
+    check(row["native"], f"{name}: the mesh export ran the numpy marching, not the native library")
+    verts = ply_vertices(np, row["ply"])
+    check(len(verts) == row["verts"] > 0 and row["faces"] > 0 and np.all(np.isfinite(verts)),
+          f"{name}: the .ply holds {len(verts)} vertices, the CLI reported {row['verts']}")
+    print(f"{name}: {row['verts']} vertices, {row['faces']} faces, native marching "
+          f"{row['native']}; alpha grid {row['alpha_ms']:.1f} ms on the card (host clock, "
+          f"synchronised), marching and .ply {row['march_ms']:.1f} ms on the host; export "
+          f"{seconds:.2f} s in all", flush=True)
+    return row, verts
+
+
+def resume_phase(torch, np, cfg, scene, clean_psnr, workdir) -> None:
+    """synth_sphere as written, killed after step RESUME_KILL, then resumed
+    in the same logfolder."""
+    import dataclasses
+    import glob
+    import os
+
+    from tensorf_tpu_torch.convert import optimizer_to_jax, params_to_jax
+    from tensorf_tpu_torch.train.loop import TrainState, reconstruction
+    from tensorf_tpu_torch.utils.ckpt import load_opt_leaves
+
+    cfg = dataclasses.replace(cfg, basedir=f"{workdir}/resume")
+
+    class Killed(Exception):
+        pass
+
+    def kill(it, state):
+        if it == RESUME_KILL:
+            raise Killed()
+
+    try:
+        reconstruction(cfg, scene, "cuda", save_images=False, on_step=kill,
+                       log=lambda m: print(f"resume (killed run): {m}", flush=True))
+        fail(f"resume: the run was not killed at {RESUME_KILL}")
+    except Killed:
+        print(f"resume: killed after step {RESUME_KILL}", flush=True)
+    (ckpt,) = glob.glob(f"{cfg.basedir}/*/{cfg.expname}/0k_{cfg.expname}.npz")
+
+    # what a resume loads (the same calls reconstruction makes) equals the
+    # checkpoint exactly
+    state = TrainState(dataclasses.replace(cfg, resume=1, ckpt_path=ckpt), torch.device("cuda"),
+                       scene)
+    data = np.load(ckpt)
+    leaves = load_opt_leaves(ckpt)
+    check(state.start_iter == RESUME_KILL and state.restore_optimizer(leaves, lambda m: None),
+          "resume: the checkpoint at 250 does not resume at 251 with its optimizer state")
+    same_params = all(np.array_equal(v, data[f"params/{k}"])
+                      for k, v in params_to_jax(state.field).items())
+    same_opt = all(np.array_equal(a, b)
+                   for a, b in zip(optimizer_to_jax(state.optimizer, state.field), leaves))
+    print(f"resume: loaded parameters equal the checkpoint's {same_params}, Adam state "
+          f"({len(leaves)} leaves, step {int(leaves[0])}) equal {same_opt}", flush=True)
+    check(same_params and same_opt, "resume: what the resume loads differs from the checkpoint")
+    del state, data
+
+    lines = []
+
+    def log(m):
+        lines.append(m)
+        print(f"resume: {m}", flush=True)
+
+    resumed = reconstruction(dataclasses.replace(cfg, resume=1), scene, "cuda",
+                             save_images=False, log=log)
+    for want in (f"continuing at iteration {RESUME_KILL}", "optimizer state restored",
+                 "sampling state restored"):
+        check(any(want in line for line in lines), f"resume: no '{want}' in the resumed run's log")
+    hist = np.load(os.path.join(os.path.dirname(resumed.final_path), "history.npz"))
+    rows = [int(i) for i in hist["iteration"]]
+    check(250 in rows, f"resume: history.npz rows {rows} lack the row at 250")
+    psnr = float(np.mean(resumed.final_psnrs))
+    delta = psnr - clean_psnr
+    print(f"resume: {len(resumed.total_loss)} steps after the resume; final test psnr resumed "
+          f"{psnr:.4f} dB, uninterrupted {clean_psnr:.4f} dB, delta {delta:+.4f} dB (max "
+          f"{RESUME_MAX_DPSNR}); history rows {rows}", flush=True)
+    check(abs(delta) <= RESUME_MAX_DPSNR, f"resume: the resumed run's test psnr {psnr} is "
+          f"{delta:+.3f} dB from the uninterrupted run's {clean_psnr}")
+
+
 def run_paths(torch, np, kernels, workdir) -> None:
     """Phases 2-9; prints the kernels line."""
     from tensorf_tpu_torch.config import load_config
@@ -820,6 +965,15 @@ def run_paths(torch, np, kernels, workdir) -> None:
           f"stratum {last['overflow']} (max {MAX_FINAL_OVERFLOW})", flush=True)
     check(max(last["overflow"]) <= MAX_FINAL_OVERFLOW,
           f"main_path: a stratum overflows {max(last['overflow'])} at the last read")
+
+    # the main path's final checkpoint, before the unstratified drive (same
+    # expname, overwrt) replaces its logfolder
+    t0 = time.perf_counter()
+    grid = tuple(result.state.geometry.grid_size)
+    print(f"mesh_main: final checkpoint of the main path, grid {grid} "
+          f"({int(np.prod(grid))} cells)", flush=True)
+    mesh_export(torch, np, kernels, "mesh_main", "configs/synth_full.txt", result.final_path)
+    phase_done("mesh_main", t0)
 
     t0 = time.perf_counter()
     exactness_phase(torch, np, result.state)
@@ -877,8 +1031,26 @@ def run_paths(torch, np, kernels, workdir) -> None:
           f"{sphere_psnr:.4f} dB (min {SPHERE_MIN_PSNR}; the JAX drive {SPHERE_JAX_PSNR} on the "
           f"CPU)", flush=True)
     check(sphere_psnr >= SPHERE_MIN_PSNR, f"synth_sphere test psnr {sphere_psnr} < {SPHERE_MIN_PSNR}")
+    sphere_ckpt = sphere.final_path
     del sphere
     phase_done("sphere_path", t0)
+
+    t0 = time.perf_counter()
+    _, verts = mesh_export(torch, np, kernels, "mesh_sphere", "configs/synth_sphere.txt",
+                           sphere_ckpt)
+    radius = np.linalg.norm(verts.astype(np.float64), axis=-1)
+    print(f"mesh_sphere: vertex radius about the centre mean {radius.mean():.4f} (want "
+          f"{SPHERE_RADIUS} +- {MESH_RADIUS_TOL}), min {radius.min():.4f}, max "
+          f"{radius.max():.4f}", flush=True)
+    check(abs(radius.mean() - SPHERE_RADIUS) <= MESH_RADIUS_TOL,
+          f"mesh_sphere: mean vertex radius {radius.mean()} is not {SPHERE_RADIUS} +- "
+          f"{MESH_RADIUS_TOL}")
+    phase_done("mesh_sphere", t0)
+
+    t0 = time.perf_counter()
+    resume_phase(torch, np, sphere_cfg, make_synthetic_scene_arrays(**SPHERE), sphere_psnr,
+                 workdir)
+    phase_done("resume", t0)
 
     # the headline numbers are density_128's, the widest scatter of the
     # unstratified first segment; "shapes" carries every main-path shape

@@ -1,32 +1,70 @@
 """Entry point: run a config's whole schedule, a few first-segment steps,
-or render a checkpoint's test views.
+render a checkpoint's test views, or export a checkpoint's mesh.
 
     python -m tensorf_tpu_torch --config configs/synth_sphere.txt \\
         --synthetic --synthetic_scene sphere --synthetic_wh 800 \\
         --synthetic_views 10,2 [--device cpu] [--flag value ...]
     python -m tensorf_tpu_torch --config ... --n_steps 30 ...      # first segment only
     python -m tensorf_tpu_torch --config ... --render_only 1 --render_test 1 --ckpt PATH
+    python -m tensorf_tpu_torch --config ... --export_mesh 1 --ckpt PATH
+    python -m tensorf_tpu_torch --config ... --resume 1            # continue a run
+    python -m tensorf_tpu_torch --config ... --auto_resume 3       # relaunch on a wedge
 
-Any TrainConfig field is a ``--flag``.  Runs on the GPU unless ``--device
-cpu`` is given, and fails when no GPU is present.  ``--synthetic`` builds
-a procedural scene in memory (no files, no PIL) in place of reading
-``datadir``.  A config runs as written; only ``resume`` and ``ndc_ray``
-are refused (not ported yet).
+Any TrainConfig field is a ``--flag``, and the flags dispatch as
+train.py's do: ``auto_resume`` supervises a child run, ``export_mesh``
+with a checkpoint exports it and trains nothing, ``render_only`` renders
+only together with a render flag (and trains otherwise), and
+``export_mesh`` after training exports the final checkpoint.  Each result
+is one JSON line.  Runs on the GPU unless ``--device cpu`` is given, and
+fails when no GPU is present.  ``--synthetic`` builds a procedural scene in
+memory (no files, no PIL) in place of reading ``datadir``.  A config runs
+as written; only ``ndc_ray`` is refused (not ported yet).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
+import sys
 
 import numpy as np
 
 from .config import add_config_args, config_from_args
 from .data.synthetic import make_synthetic_scene_arrays
-from .train.loop import reconstruction, render_test, train_steps
+from .train.loop import export_mesh, reconstruction, render_test, train_steps
+from .utils.watchdog import EXIT_WEDGED
+
+
+def _supervise(argv, retries: int) -> int:
+    """Run the CLI in a child process; on the watchdog's wedged exit (code
+    17, utils/watchdog.py) relaunch it with ``--resume 1``, so the run
+    continues from its newest periodic checkpoint — up to ``retries``
+    relaunches (train.py:27-56)."""
+    base = [sys.executable, "-m", "tensorf_tpu_torch"]
+    # the child must not supervise again
+    child_argv = list(argv) + ["--auto_resume", "0"]
+    rc = subprocess.call(base + child_argv)
+    attempt = 0
+    while rc == EXIT_WEDGED and attempt < retries:
+        attempt += 1
+        print(f"[supervisor] wedged exit (code {rc}) — relaunch {attempt}/{retries} "
+              f"with --resume 1", flush=True)
+        rc = subprocess.call(base + child_argv + ["--resume", "1"])
+    if rc == EXIT_WEDGED:
+        print(f"[supervisor] still wedged after {retries} relaunches — giving up (resume "
+              f"later with --resume 1)", flush=True)
+    return rc
+
+
+def _print_mesh(result) -> None:
+    print(json.dumps({"ply": result.ply, "verts": len(result.mesh.verts),
+                      "faces": len(result.mesh.tris), "native": result.native,
+                      "alpha_ms": result.alpha_ms, "march_ms": result.march_ms}))
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(description="tensorf_tpu_torch trainer")
     add_config_args(parser)
     parser.add_argument("--n_steps", type=int, default=None,
@@ -43,10 +81,16 @@ def main(argv=None) -> int:
     parser.add_argument("--synthetic_wh", type=int, default=200,
                         help="width = height of the in-memory scene's images")
     parser.add_argument("--save_images", type=int, default=1,
-                        help="write the final evaluation's images, videos and mean.txt "
-                             "(needs imageio)")
+                        help="write the evaluations' images, videos and mean.txt, the progress "
+                             "figures and their GIF (needs imageio and matplotlib)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+
+    if cfg.auto_resume and argv:
+        return _supervise(argv, int(cfg.auto_resume))
+    if cfg.export_mesh and (cfg.ckpt or cfg.ckpt_path):
+        _print_mesh(export_mesh(cfg, device=args.device))
+        return 0
 
     scene = None
     if args.synthetic:
@@ -55,7 +99,7 @@ def main(argv=None) -> int:
             n_train=n_train, n_test=n_test, wh=(args.synthetic_wh, args.synthetic_wh),
             scene=args.synthetic_scene,
         )
-    if cfg.render_only:
+    if cfg.render_only and (cfg.render_test or cfg.render_path or cfg.render_train):
         psnrs = render_test(cfg, scene, args.device, save_images=bool(args.save_images))
         print(json.dumps({"test_psnr": float(np.mean(psnrs)) if psnrs else None}))
         return 0
@@ -76,6 +120,8 @@ def main(argv=None) -> int:
         "final_test_psnr": float(np.mean(result.final_psnrs)) if result.final_psnrs else None,
         "segments": result.segments,
     }))
+    if cfg.export_mesh:
+        _print_mesh(export_mesh(cfg, result.final_path, device=args.device))
     return 0
 
 

@@ -23,6 +23,7 @@ import torch
 from ..models.alpha_mask import AlphaGridMask
 from ..ops.rays import get_rays
 from ..render.chunked import render_chunked, render_chunked_stratified
+from ..utils.misc import visualize_depth_numpy
 from .metrics import psnr as psnr_fn
 from .metrics import rgb_lpips, rgb_ssim
 
@@ -73,14 +74,10 @@ class RendererHandle:
         return rgb, depth, n_valid
 
 
-def _depth_jet(depth: np.ndarray, near_far) -> np.ndarray:
-    """(H, W) depth over [near, far] -> uint8 RGB JET colormap (the numpy
-    colormap of tensorf_tpu/utils/misc.py, in RGB order)."""
-    mi, ma = float(near_far[0]), float(near_far[1])
-    x = (np.nan_to_num(depth) - mi) / (ma - mi + 1e-8)
-    t = (255 * np.clip(x, 0, 1)).astype(np.uint8).astype(np.float32) / 255.0
-    rgb = [np.clip(1.5 - np.abs(4 * t - c), 0, 1) for c in (3, 2, 1)]
-    return (np.stack(rgb, axis=-1) * 255).astype(np.uint8)
+def _depth_rgb(depth: np.ndarray, near_far) -> np.ndarray:
+    """(H, W) depth -> uint8 RGB JET image over [near, far], as the JAX
+    evaluation colours it (utils/misc.py's BGR map, flipped to RGB)."""
+    return visualize_depth_numpy(depth, near_far)[0][..., ::-1]
 
 
 def _write_video(imageio, path: str, frames: List[np.ndarray], fps: int = 30) -> None:
@@ -97,9 +94,11 @@ def evaluation(
     handle: RendererHandle,
     savePath: Optional[str] = None,
     chunk: int = 8192,
+    heartbeat: Optional[Callable[[], None]] = None,
 ) -> List[float]:
     """Render the stacked dataset's views and return their PSNRs
-    (reference renderer.py:148-225)."""
+    (reference renderer.py:148-225); ``heartbeat`` runs once per view (the
+    training run's watchdog)."""
     PSNRs, ssims, l_alex, l_vgg = [], [], [], []
     rgb_frames, depth_frames = [], []
     W, H = test_dataset.img_wh
@@ -111,6 +110,8 @@ def evaluation(
             os.makedirs(f"{savePath}/{sub}", exist_ok=True)
 
     for idx in range(test_dataset.all_rays.shape[0]):
+        if heartbeat is not None:
+            heartbeat()
         rays = np.asarray(test_dataset.all_rays[idx]).reshape(-1, 6)
         rgb_map, depth_map, _ = handle.render(rays, chunk=chunk)
         rgb_map = np.clip(rgb_map, 0, 1).reshape(H, W, 3)
@@ -127,7 +128,7 @@ def evaluation(
         if imageio is None:
             continue
         rgb8 = (rgb_map * 255).astype(np.uint8)
-        depth_vis = _depth_jet(depth_map.reshape(H, W), test_dataset.near_far)
+        depth_vis = _depth_rgb(depth_map.reshape(H, W), test_dataset.near_far)
         rgb_frames.append(rgb8)
         depth_frames.append(depth_vis)
         imageio.imwrite(f"{savePath}/prediction/{idx:03d}.png", rgb8)
@@ -153,10 +154,12 @@ def evaluation_path(
     c2ws,
     savePath: Optional[str] = None,
     chunk: int = 8192,
+    heartbeat: Optional[Callable[[], None]] = None,
 ) -> List[float]:
     """Render a camera trajectory (reference renderer.py:227-282): the rays
     of each pose from the dataset's directions; with ``savePath`` each
-    frame's prediction PNG and the rgb and depth videos.  Returns []."""
+    frame's prediction PNG and the rgb and depth videos.  ``heartbeat``
+    runs once per frame.  Returns []."""
     W, H = test_dataset.img_wh
     imageio = None
     if savePath is not None:
@@ -166,12 +169,14 @@ def evaluation_path(
         os.makedirs(f"{savePath}/rgbd", exist_ok=True)
     rgb_frames, depth_frames = [], []
     for idx, c2w in enumerate(np.asarray(c2ws)):
+        if heartbeat is not None:
+            heartbeat()
         rays_o, rays_d = get_rays(test_dataset.directions, c2w[:3, :4])
         rays = np.concatenate([rays_o, rays_d], axis=1).astype(np.float32)
         rgb_map, depth_map, _ = handle.render(rays, chunk=chunk)
         rgb8 = (np.clip(rgb_map, 0, 1).reshape(H, W, 3) * 255).astype(np.uint8)
         rgb_frames.append(rgb8)
-        depth_frames.append(_depth_jet(depth_map.reshape(H, W), test_dataset.near_far))
+        depth_frames.append(_depth_rgb(depth_map.reshape(H, W), test_dataset.near_far))
         if imageio is not None:
             imageio.imwrite(f"{savePath}/prediction/{idx:03d}.png", rgb8)
     if imageio is not None:
@@ -180,10 +185,14 @@ def evaluation_path(
     return []
 
 
-def psnrs_calculate(handle: RendererHandle, dataset, chunk: int = 4096) -> List[float]:
-    """Mid-training test-set PSNR sweep (reference loss.py:10-57)."""
+def psnrs_calculate(handle: RendererHandle, dataset, chunk: int = 4096,
+                    heartbeat: Optional[Callable[[], None]] = None) -> List[float]:
+    """Mid-training test-set PSNR sweep (reference loss.py:10-57);
+    ``heartbeat`` runs once per view."""
     PSNRs = []
     for idx in range(dataset.all_rays.shape[0]):
+        if heartbeat is not None:
+            heartbeat()
         rgb_map, _, _ = handle.render(np.asarray(dataset.all_rays[idx]).reshape(-1, 6), chunk=chunk)
         if len(dataset.all_rgbs):
             gt = np.asarray(dataset.all_rgbs[idx]).reshape(-1, 3)

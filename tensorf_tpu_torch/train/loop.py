@@ -18,24 +18,44 @@ evaluations serve stratified (``stratify_render``): rays sorted by
 candidate count and rendered per budget tier, exact by construction.
 After training, ``render_train``, ``render_test`` and ``render_path``
 render the train split, the test split and the dataset's trajectory (if it
-has one).  Resume, NDC rays and the progress figures are not ported yet: a
-config that asks for the first two raises NotImplementedError.
+has one); ``export_mesh`` turns a checkpoint's alpha grid into a ``.ply``.
+
+``resume`` continues a run in its logfolder from the newest resumable
+checkpoint: every periodic and final checkpoint carries the iteration,
+the schedule position, the budgets, the optimizer state (in the JAX
+package's ``opt/`` leaf layout, so a checkpoint resumes in either package),
+the sampler state and the history rows.  Per-step noise is stateless (a
+generator seeded from (seed, iteration), ``step_seed``), so a resumed run
+on the CPU replays the uninterrupted run bit for bit.  A ``Watchdog``
+armed before any device work exits the process resumable (code 17) when
+the run stops making progress.  The run writes ``history.npz`` (a row
+every ``train_vis_every`` steps), tensorboard scalars when tensorboardX
+imports, and with ``save_images`` the progress figures and their GIF.
+NDC rays are not ported yet: a config that asks for them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import glob
+import json
 import math
 import os
 import shutil
 import time
+from collections import defaultdict
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config.schema import TrainConfig, model_config_from
+from ..convert import optimizer_from_jax, optimizer_to_jax
 from ..data import dataset_dict
 from ..eval.evaluation import RendererHandle, evaluation, evaluation_path, psnrs_calculate
+from ..eval.mesh import PlyMesh, convert_alpha_samples_to_ply, native_available
+from ..eval.vis import create_gif, save_rendered_image_per_train
 from ..models.alpha_mask import coarse_gate_valid
 from ..models.config import GridGeometry, cal_n_samples, n_to_reso, n_voxel_schedule
 from ..models.tensorf import FIELD_MODELS
@@ -45,6 +65,7 @@ from ..render.culling import (
     count_ray_candidates,
     count_ray_candidates_and_alive,
     count_ray_candidates_and_chord,
+    compute_alpha_grid,
     count_ray_inbbox,
     filter_rays_alpha,
     filter_rays_bbox,
@@ -52,8 +73,10 @@ from ..render.culling import (
     stratify_rays_joint,
     update_alpha_mask,
 )
-from ..utils.ckpt import load_checkpoint, save_checkpoint
+from ..utils.ckpt import load_aux, load_checkpoint, load_opt_leaves, save_checkpoint
+from ..utils.cuda_build import BUILD_DIR
 from ..utils.device import resolve_device
+from ..utils.watchdog import Watchdog
 from .losses import LossWeights
 from .optim import make_optimizer
 from .sampler import SimpleSampler, StratifiedSampler, allocate_quotas
@@ -61,7 +84,7 @@ from .step import TrainStatics, make_train_step, render_widths
 
 # knobs of the JAX trainer that the port does not honour yet: a run that
 # sets them would compute something else than its config states
-_UNPORTED_SCHEDULE = ("resume", "ndc_ray")
+_UNPORTED_SCHEDULE = ("ndc_ray",)
 # per-stratum quotas are multiples of this (the JAX loop's rounding on one
 # device: the smallest multiple of the device count that is >= 8)
 QUOTA_ROUND = 8
@@ -75,6 +98,13 @@ def _refuse_unported(cfg: TrainConfig, keys) -> None:
             + ", ".join(f"{k}=0" for k in unported)
             + " to run without"
         )
+
+
+def step_seed(seed: int, iteration: int) -> int:
+    """The seed of iteration ``iteration``'s noise generator: a function of
+    (seed, iteration) alone, as the JAX loop's fold_in(base_key, iteration)
+    is, so a resumed run draws the noise an uninterrupted run draws."""
+    return int(np.random.SeedSequence([int(seed), int(iteration)]).generate_state(1, np.uint64)[0])
 
 
 def _sync(device: torch.device) -> None:
@@ -106,27 +136,29 @@ def _datasets(cfg: TrainConfig, scene: Optional[Dict[str, dict]]):
 
 
 def _render_after_training(cfg: TrainConfig, scene, handle: RendererHandle, test_ds,
-                           folder: str, save_images: bool, log) -> List[float]:
+                           folder: str, save_images: bool, log, heartbeat=None) -> List[float]:
     """The renders after training or from a checkpoint (tensorf_tpu
     loop.py:1375-1408 and 1465-1487): ``render_train`` every train view
     (all of the split, stacked) into imgs_train_all/, ``render_test`` the
     test split into imgs_test_all/, ``render_path`` the test dataset's
     trajectory, where it has one, into imgs_path_all/.  Images are written
-    only with ``save_images``.  Returns the test PSNRs."""
+    only with ``save_images``; ``heartbeat`` runs once per rendered image.
+    Returns the test PSNRs."""
     def save(sub):
         return f"{folder}/{sub}/" if save_images else None
 
     if cfg.render_train:
         psnrs = evaluation(_dataset(cfg, scene, "train", is_stack=True), handle,
-                           save("imgs_train_all"))
+                           save("imgs_train_all"), heartbeat=heartbeat)
         log(f"======> {cfg.expname} train all psnr: {np.mean(psnrs)} <========")
     psnrs = []
     if cfg.render_test:
-        psnrs = evaluation(test_ds, handle, save("imgs_test_all"))
+        psnrs = evaluation(test_ds, handle, save("imgs_test_all"), heartbeat=heartbeat)
         if psnrs:
             log(f"======> {cfg.expname} test all psnr: {np.mean(psnrs)} <========")
     if cfg.render_path and hasattr(test_ds, "render_path"):
-        evaluation_path(test_ds, handle, test_ds.render_path, save("imgs_path_all"))
+        evaluation_path(test_ds, handle, test_ds.render_path, save("imgs_path_all"),
+                        heartbeat=heartbeat)
     return psnrs
 
 
@@ -136,19 +168,32 @@ class TrainState:
     its sampler, and the loss and LR settings of the current segment."""
 
     def __init__(self, cfg: TrainConfig, device: torch.device, scene=None):
+        """With ``cfg.ckpt_path`` the state starts from that checkpoint's
+        field, grid, aabb and mask.  With ``cfg.resume`` too, and a
+        resumable checkpoint, it continues that run (``resume_extra`` then
+        holds the checkpoint's ``extra``): its lattice, LR scale, loss and
+        budget settings, the upsamples still ahead, and the ray store as the
+        run had it (filtered on the dataset's bbox, re-filtered by the mask
+        once past the second mask event).  The optimizer state and the
+        sampler are restored apart (``restore_optimizer``,
+        ``restore_sampling_state``)."""
         self.cfg = cfg
         self.device = device
         self.train_ds, self.test_ds = _datasets(cfg, scene)
         self.white_bg = self.train_ds.white_bg
         self.near_far = tuple(float(v) for v in self.train_ds.near_far)
-        aabb = np.asarray(self.train_ds.scene_bbox, np.float32).reshape(2, 3)
+        scene_aabb = np.asarray(self.train_ds.scene_bbox, np.float32).reshape(2, 3)
+        aabb = scene_aabb
         self.alpha_mask = None
+        resume_extra = None
         if cfg.ckpt_path:
             # restart from a checkpoint: its field, grid, aabb and mask
-            _, self.field, aabb, grid_size, self.alpha_mask, _ = load_checkpoint(
+            _, self.field, aabb, grid_size, self.alpha_mask, ck_extra = load_checkpoint(
                 cfg.ckpt_path, device
             )
             print(f"resumed from {cfg.ckpt_path} (grid {grid_size})")
+            if cfg.resume and ck_extra and "iteration" in ck_extra:
+                resume_extra = ck_extra
         else:
             if cfg.model_name not in FIELD_MODELS:
                 raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet")
@@ -157,26 +202,48 @@ class TrainState:
             self.field = FIELD_MODELS[cfg.model_name](
                 model_cfg, grid_size, device, torch.Generator().manual_seed(cfg.seed)
             )
+        self.resume_extra = resume_extra
+        extra = resume_extra or {}
+        self.start_iter = int(extra["iteration"]) + 1 if resume_extra is not None else 0
         self.geometry = GridGeometry.create(aabb, grid_size, cfg.step_ratio)
-        self.n_samples = min(int(cfg.nSamples), cal_n_samples(grid_size, cfg.step_ratio))
+        # n_samples is not derivable from the grid alone (a shrink changes
+        # the geometry without it): a resume restores the saved value
+        self.n_samples = int(extra.get(
+            "n_samples", min(int(cfg.nSamples), cal_n_samples(grid_size, cfg.step_ratio))))
         self.n_voxel_list = n_voxel_schedule(cfg.N_voxel_init, cfg.N_voxel_final,
                                              len(cfg.upsamp_list))
+        # the upsamples already applied
+        self.n_voxel_list = self.n_voxel_list[
+            sum(1 for i in cfg.upsamp_list if i < self.start_iter):]
         decay_iters = cfg.lr_decay_iters if cfg.lr_decay_iters > 0 else cfg.n_iters
         self.lr_factor = cfg.lr_decay_target_ratio ** (1 / decay_iters)
-        self.lr_scale = 1.0
-        self.optimizer = make_optimizer(self.field, cfg.lr_init, cfg.lr_basis, self.lr_factor)
-        self.l1_weight = cfg.L1_weight_inital
-        self.ratio = cfg.mask_ratio_list[0] if cfg.mask_ratio_list else 1.0
+        self.reset_optimizer(float(extra.get("lr_scale", 1.0)))
+        self.l1_weight = float(extra.get("l1_weight", cfg.L1_weight_inital))
+        self.ratio = float(extra.get("ratio", cfg.mask_ratio_list[0] if cfg.mask_ratio_list
+                                     else 1.0))
+        # a resume filters on the dataset's bbox, as the run did before any
+        # shrink; a ckpt_path restart filters on the checkpoint's
         self.rays, self.rgbs = filter_rays_bbox(
-            self.train_ds.all_rays, self.train_ds.all_rgbs, aabb, device
+            self.train_ds.all_rays, self.train_ds.all_rgbs,
+            scene_aabb if resume_extra is not None else aabb, device
         )
-        self.sampler = SimpleSampler(self.rays.shape[0], cfg.batch_size, cfg.seed)
+        if (resume_extra is not None and self.alpha_mask is not None
+                and len(cfg.update_AlphaMask_list) > 1
+                and self.start_iter > cfg.update_AlphaMask_list[1]):
+            # the run re-filtered its store at the second mask event
+            self.rays, self.rgbs = filter_rays_alpha(
+                self.rays, self.rgbs, self.alpha_mask, self.geometry.aabb_np,
+                self.geometry.step_size, self.near_far,
+            )
+            print(f"[resume] store re-filtered to {self.rays.shape[0]} rays")
+        self.sampler = SimpleSampler(self.rays.shape[0], cfg.batch_size,
+                                     cfg.seed + self.start_iter)
         # the budgets in effect, each auto-raised when it keeps overflowing:
         # the unstratified mask-era and prefilter budgets, and with strata
         # (None = unstratified) one candidate budget, alive budget, lattice
         # cap, store-share loss weight and quota per stratum
-        self.run_budget = max(int(cfg.sample_budget), 0)
-        self.prefilter_run = max(int(cfg.prefilter_budget), 0)
+        self.run_budget = int(extra.get("run_budget", max(int(cfg.sample_budget), 0)))
+        self.prefilter_run = int(extra.get("prefilter_run", max(int(cfg.prefilter_budget), 0)))
         self.strata_budgets: Optional[list] = None
         self.strata_alive_budgets: Optional[list] = None
         self.strata_n_samples: Optional[tuple] = None
@@ -223,6 +290,60 @@ class TrainState:
         self.optimizer = make_optimizer(
             self.field, self.cfg.lr_init * lr_scale, self.cfg.lr_basis * lr_scale, self.lr_factor
         )
+
+    def restore_optimizer(self, leaves, log: Callable[[str], None] = print) -> bool:
+        """Load a resumable checkpoint's ``opt/`` leaves (either package's)
+        into the fresh optimizer: the moments, the step count and the LR
+        decay's position.  A mismatch keeps the fresh optimizer."""
+        if leaves is None:
+            return False
+        try:
+            optimizer_from_jax(self.optimizer, self.field, leaves)
+        except ValueError as e:
+            log(f"[resume] optimizer state mismatch — reinitialized ({e})")
+            return False
+        log("[resume] optimizer state restored")
+        return True
+
+    def restore_sampling_state(self, extra: dict, aux: Dict[str, np.ndarray],
+                               log: Callable[[str], None] = print) -> bool:
+        """Restore the stratification plan and the sampler's state from a
+        resumable checkpoint of the port, so the resumed run draws the ids
+        the uninterrupted run draws.  Returns False (the caller
+        restratifies) when the checkpoint has no such state; a JAX
+        checkpoint's sampler state is numpy's and does not carry over."""
+        meta = extra.get("port_sampler")
+        if not meta:
+            if extra.get("sampler"):
+                log("[resume] sampling-state restore failed (the checkpoint holds the "
+                    "JAX package's numpy sampler state); restratifying instead")
+            return False
+        arrays = {k[len("port_sampler/"):]: v for k, v in aux.items()
+                  if k.startswith("port_sampler/")}
+        try:
+            if meta["kind"] == "stratified":
+                sampler = StratifiedSampler.from_state(meta, arrays)
+                if any(s.numel() and int(s.max()) >= self.rays.shape[0] for s in sampler.strata):
+                    raise ValueError("saved strata exceed the ray store")
+                if sum(sampler.quotas) != self.cfg.batch_size:
+                    raise ValueError("saved quotas do not sum to the batch")
+            else:
+                sampler = SimpleSampler(self.rays.shape[0], self.cfg.batch_size, self.cfg.seed)
+                sampler.set_state(meta, arrays)
+        except (KeyError, ValueError) as e:
+            log(f"[resume] sampling-state restore failed ({e}); restratifying instead")
+            return False
+        self.sampler = sampler
+        stratified = meta["kind"] == "stratified"
+        self.strata_budgets = extra.get("strata_budgets")
+        self.strata_alive_budgets = extra.get("strata_alive_budgets")
+        sns = extra.get("strata_n_samples")
+        self.strata_n_samples = tuple(sns) if sns else None
+        self.strata_loss_w = extra.get("strata_loss_w")
+        self.quotas = list(sampler.quotas) if stratified else None
+        self.overflow_strikes = list(extra.get("overflow_strikes", [0]))
+        log(f"[resume] sampling state restored ({meta['kind']})")
+        return True
 
 
 def build_statics(state: TrainState) -> TrainStatics:
@@ -508,25 +629,101 @@ def _summary(state: TrainState) -> dict:
                 lr_scale=state.lr_scale, l1_weight=state.l1_weight)
 
 
-def _make_logfolder(cfg: TrainConfig) -> str:
+def _make_logfolder(cfg: TrainConfig, log: Callable[[str], None] = print) -> str:
     """basedir/<YYYY-MM-DD>/<expname>, the date in Asia/Ho_Chi_Minh as the
-    reference writes it (train.py:193-200); emptied first on ``overwrt``."""
+    reference writes it (train.py:193-200), with the imgs_vis, imgs_rgba
+    and rgba subfolders; emptied first on ``overwrt`` unless resuming.  A
+    resume relaunched after local midnight continues in the newest prior
+    folder of the expname (tensorf_tpu loop.py:92-122)."""
     from datetime import datetime
     from zoneinfo import ZoneInfo
 
     date = datetime.now(ZoneInfo("Asia/Ho_Chi_Minh")).strftime("%Y-%m-%d")
     logfolder = f"{cfg.basedir}/{date}/{cfg.expname}"
-    if cfg.overwrt and os.path.exists(logfolder):
+    if cfg.resume and not os.path.exists(logfolder):
+        prior = sorted((p for p in glob.glob(f"{cfg.basedir}/*/{cfg.expname}")
+                        if os.path.isdir(p)), key=os.path.getmtime)
+        if prior:
+            logfolder = prior[-1]
+            log(f"[resume] continuing in prior logfolder {logfolder}")
+    if cfg.overwrt and not cfg.resume and os.path.exists(logfolder):
         shutil.rmtree(logfolder)
     os.makedirs(logfolder, exist_ok=True)
+    for sub in ("imgs_vis", "imgs_rgba", "rgba"):
+        os.makedirs(f"{logfolder}/{sub}", exist_ok=True)
     return logfolder
 
 
-def _save(state: TrainState, path: str, iteration: int) -> str:
+def _latest_ckpt(logfolder: str) -> Optional[Tuple[str, int]]:
+    """The newest (by mtime) ``.npz`` checkpoint in the logfolder that
+    carries a resume position, as (path, iteration); None without one."""
+    for path in sorted(glob.glob(f"{logfolder}/*.npz"), key=os.path.getmtime, reverse=True):
+        if os.path.basename(path) == "history.npz":
+            continue
+        try:
+            data = np.load(path, allow_pickle=False)
+            extra = json.loads(bytes(data["kwargs"]).decode()).get("extra") or {}
+        except (OSError, ValueError, KeyError):  # a partial or foreign file
+            continue
+        if "iteration" in extra:
+            return path, int(extra["iteration"])
+    return None
+
+
+class _NullWriter:
+    def add_scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+def _summary_writer(logfolder: str):
+    """A tensorboardX SummaryWriter on the logfolder, or a writer that
+    drops everything when tensorboardX does not import."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return _NullWriter()
+    return SummaryWriter(logfolder)
+
+
+def _gift_dataset(cfg: TrainConfig, scene, split: str):
+    """The single view of the progress figures (reference train.py:176-177,
+    frame 26); None when the split has no such frame."""
+    try:
+        return _dataset(cfg, scene, split, num_images=[26], is_stack=True)
+    except (IndexError, OSError):
+        return None
+
+
+def _save(state: TrainState, path: str, iteration: int, history: Dict[str, list],
+          window: Dict[str, list]) -> str:
+    """A resumable checkpoint at ``iteration``: the field, aabb and mask,
+    the schedule position and budgets in ``extra``, the optimizer's
+    ``opt/`` leaves, and in ``aux`` the sampler's state (under
+    ``port_sampler``: the JAX loop reads its own ``sampler`` key only, and
+    restratifies without it), the history rows and ``window``, the train
+    PSNR window and the last test PSNRs the next history row averages."""
     extra = dict(iteration=int(iteration), n_samples=int(state.n_samples),
                  l1_weight=float(state.l1_weight), ratio=float(state.ratio),
-                 lr_scale=float(state.lr_scale))
-    return save_checkpoint(path, state.field, state.geometry.aabb_np, state.alpha_mask, extra)
+                 lr_scale=float(state.lr_scale), run_budget=int(state.run_budget),
+                 prefilter_run=int(state.prefilter_run),
+                 strata_budgets=state.strata_budgets,
+                 strata_alive_budgets=state.strata_alive_budgets,
+                 strata_n_samples=(None if state.strata_n_samples is None
+                                   else list(state.strata_n_samples)),
+                 strata_loss_w=state.strata_loss_w,
+                 overflow_strikes=list(state.overflow_strikes))
+    meta, arrays = state.sampler.get_state()
+    kind = "stratified" if isinstance(state.sampler, StratifiedSampler) else "simple"
+    extra["port_sampler"] = dict(kind=kind, **meta)
+    aux = {f"port_sampler/{k}": v for k, v in arrays.items()}
+    aux.update({f"history/{k}": np.asarray(v) for k, v in history.items()})
+    # the progress reads behind the next history row's PSNR columns
+    aux.update({f"progress/{k}": np.asarray(v, np.float64) for k, v in window.items()})
+    return save_checkpoint(path, state.field, state.geometry.aabb_np, state.alpha_mask, extra,
+                           opt_leaves=optimizer_to_jax(state.optimizer, state.field), aux=aux)
 
 
 class ReconstructionResult(NamedTuple):
@@ -553,26 +750,74 @@ def reconstruction(
     log: Callable[[str], None] = print,
     on_step: Optional[Callable[[int, TrainState], None]] = None,
 ) -> ReconstructionResult:
-    """Run ``cfg``'s schedule (tensorf_tpu loop.py:195-1420, single host,
-    no resume).
+    """Run ``cfg``'s schedule (tensorf_tpu loop.py:195-1420, single host).
 
     ``scene`` is an in-memory dataset (data/synthetic.py); None reads
     ``cfg.datadir``.  ``save_images`` writes the final evaluations' PNGs,
-    videos and mean.txt (needs imageio).  ``on_step(it, state)`` runs after
-    step ``it``, before that iteration's evaluation and events.  Segment
-    times exclude the evaluations and events between them; the first
-    segment's start after step 0.
+    videos and mean.txt, the progress figures and the GIF (needs imageio
+    and matplotlib).  ``on_step(it, state)`` runs after step ``it``, before
+    that iteration's evaluation, events and checkpoint.  Segment times
+    exclude the evaluations and events between them; the first segment's
+    start after the run's first step.  With ``cfg.resume`` the run
+    continues from the newest resumable checkpoint in its logfolder (a
+    fresh start without one); a finished run then only renders.
     """
     device = resolve_device(device)
     _refuse_unported(cfg, _UNPORTED_SCHEDULE)
+    # armed before any device work; setup milestones and every step beat
+    # it, and writes under the build directory count as progress
+    watchdog = Watchdog(cfg.wedge_timeout_s, tag=cfg.expname,
+                        resume_hint="python -m tensorf_tpu_torch ... --resume 1",
+                        cache_dirs=[str(BUILD_DIR)]).start()
+    writer = None
+    try:
+        logfolder = _make_logfolder(cfg, log)
+        writer = _summary_writer(logfolder)
+        return _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer,
+                            logfolder)
+    finally:
+        watchdog.stop()
+        if writer is not None:
+            writer.close()
+
+
+def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer, logfolder):
+    """``reconstruction``'s body, inside its watchdog and summary writer."""
+    if cfg.resume and not cfg.ckpt_path:
+        found = _latest_ckpt(logfolder)
+        if found:
+            cfg = dataclasses.replace(cfg, ckpt_path=found[0])
+            log(f"[resume] newest checkpoint: {found[0]}")
+        else:
+            log(f"[resume] no checkpoint under {logfolder} — fresh start")
     state = TrainState(cfg, device, scene)
-    logfolder = _make_logfolder(cfg)
+    resume_extra, start_iter = state.resume_extra, state.start_iter
+    history = defaultdict(list)
+    psnrs_window, psnrs_test = [], [0.0]
+    if resume_extra is not None:
+        log(f"[resume] continuing at iteration {start_iter} (n_samples {state.n_samples}, "
+            f"lr_scale {state.lr_scale:g})")
+        state.restore_optimizer(load_opt_leaves(cfg.ckpt_path), log)
+        aux = load_aux(cfg.ckpt_path)
+        # the history rows written before the interruption, and the progress
+        # reads their next row averages
+        for k, v in aux.items():
+            if k.startswith("history/"):
+                history[k[len("history/"):]] = list(np.asarray(v))
+        psnrs_window = [float(v) for v in aux.get("progress/psnrs_window", [])]
+        psnrs_test = [float(v) for v in aux.get("progress/psnrs_test", [0.0])]
+    watchdog.beat()  # setup milestone: datasets, field and ray store on the device
+    train_gift = test_gift = None
+    if save_images:
+        train_gift = _gift_dataset(cfg, scene, "train")
+        test_gift = _gift_dataset(cfg, scene, "test")
     log(f"[port] {cfg.model_name} grid {state.geometry.grid_size} n_samples "
         f"{state.n_samples} batch {cfg.batch_size} store {state.rays.shape[0]} rays "
         f"on {device}; logfolder {logfolder}")
 
     event_iters = set(cfg.update_AlphaMask_list) | set(cfg.upsamp_list)
-    noise = torch.Generator(device=device).manual_seed(cfg.seed)
+    # reseeded every step from (seed, iteration): stateless noise
+    noise = torch.Generator(device=device)
     totals, segments, events, test_psnrs, plans, progress = [], [], [], {}, [], []
     eval_overflow = {}
 
@@ -581,9 +826,15 @@ def reconstruction(
         if plan is not None:
             plans.append(plan)
 
-    # partition the store up front (by in-bbox chord before the first mask)
-    stratify(0)
-    step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
+    step_fn = None
+    if start_iter < cfg.n_iters:
+        # partition the store up front (by in-bbox chord before the first
+        # mask), or restore the plan and sampler the checkpoint carries
+        if resume_extra is None or not state.restore_sampling_state(resume_extra, aux, log):
+            stratify(start_iter)
+        step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
+    # else: a finished run's resume goes straight to the final renders,
+    # with no count pass and no step built
     aabb = state.aabb
     seg = None
     run_tic = time.perf_counter()
@@ -608,12 +859,15 @@ def reconstruction(
         log(f"[port] segment {seg['start']}..{end}: grid {seg['grid']} n_samples "
             f"{seg['n_samples']} {seg['ms_per_step']:.3f} ms/step peak {seg['peak_gib']:.2f} GiB")
 
-    for iteration in range(cfg.n_iters):
+    watchdog.resume_hint = f"python -m tensorf_tpu_torch ... --resume 1 (logfolder {logfolder})"
+    for iteration in range(start_iter, cfg.n_iters):
+        watchdog.beat()
+        noise.manual_seed(step_seed(cfg.seed, iteration))
         metrics = step_fn(aabb, state.rays, state.rgbs, iteration, noise, state.alpha_mask,
                           ids=state.next_ids())
         totals.append(metrics["total_loss"])
-        if seg is None and iteration == 0:
-            seg = open_segment(1)
+        if seg is None and iteration == start_iter:
+            seg = open_segment(iteration + 1)
         if on_step is not None:
             on_step(iteration, state)
         if iteration % max(int(cfg.progress_refresh_rate), 1) == 0:
@@ -624,10 +878,13 @@ def reconstruction(
                 per_budget = [float(metrics["budget_overflow_frac"])]
             progress.append(dict(iteration=iteration, psnr=float(metrics["psnr"]),
                                  mse=float(metrics["mse"]), overflow=per_budget))
-            log(f"Iteration {iteration:05d}: train_psnr = {progress[-1]['psnr']:.2f} "
-                f"mse = {progress[-1]['mse']:.6f} overflow "
+            psnrs_window.append(progress[-1]["psnr"])
+            _write_scalars(writer, metrics, progress[-1], iteration)
+            log(f"Iteration {iteration:05d}: train_psnr = {np.mean(psnrs_window):.2f} "
+                f"test_psnr = {np.mean(psnrs_test):.2f} mse = {progress[-1]['mse']:.6f} overflow "
                 f"{[round(o, 4) for o in per_budget]} "
                 f"elapsed = {time.perf_counter() - run_tic:.1f}s")
+            psnrs_window = psnrs_window[-50:]
             raised = raise_budgets(state, per_budget, iteration, log)
             if raised:
                 plans.append(dict(event="budget_raise", iteration=iteration, raised=raised))
@@ -637,15 +894,31 @@ def reconstruction(
             close_segment(seg, iteration)
             seg = None
 
-        if cfg.vis_every > 0 and iteration % cfg.vis_every == 0 and iteration > 0:
+        # test PSNR (vis_every) and the progress row and figure
+        # (train_vis_every) are independent, as in the JAX loop
+        do_test_eval = cfg.vis_every > 0 and iteration % cfg.vis_every == 0 and iteration > 0
+        do_train_vis = (cfg.train_vis_every > 0 and iteration % cfg.train_vis_every == 0
+                        and iteration > 0)
+        if do_test_eval or do_train_vis:
             _sync(device)
             t0 = time.perf_counter()
             handle = make_handle(state)
-            test_psnrs[iteration] = float(np.mean(
-                psnrs_calculate(handle, state.test_ds, chunk=cfg.batch_size) or [0.0]
-            ))
-            eval_overflow[iteration] = handle.max_overflow
-            log(f"[{iteration}] test psnr {test_psnrs[iteration]:.4f}")
+            if do_test_eval:
+                psnrs_test = psnrs_calculate(handle, state.test_ds, chunk=cfg.batch_size,
+                                             heartbeat=watchdog.beat) or [0.0]
+                test_psnrs[iteration] = float(np.mean(psnrs_test))
+                eval_overflow[iteration] = handle.max_overflow
+                writer.add_scalar("test/psnr", test_psnrs[iteration], iteration)
+                log(f"[{iteration}] test psnr {test_psnrs[iteration]:.4f}")
+            if do_train_vis:
+                history["iteration"].append(iteration)
+                history["train_psnr"].append(round(float(np.mean(psnrs_window or [0])), 2))
+                history["test_psnr"].append(round(float(np.mean(psnrs_test)), 2))
+                history["mse"].append(round(float(metrics["mse"]), 5))
+                if train_gift is not None:
+                    save_rendered_image_per_train(train_gift, test_gift, handle, iteration,
+                                                  history, savePath=f"{logfolder}/gif/",
+                                                  chunk=cfg.batch_size)
             if seg is not None:
                 seg["paused"] += time.perf_counter() - t0
 
@@ -665,19 +938,48 @@ def reconstruction(
                 seg = open_segment(iteration + 1)
 
         if iteration in (cfg.save_ckpt_every or []):
-            _save(state, f"{logfolder}/{iteration // 1000}k_{cfg.expname}.npz", iteration)
+            _save(state, f"{logfolder}/{iteration // 1000}k_{cfg.expname}.npz", iteration,
+                  history, dict(psnrs_window=psnrs_window, psnrs_test=psnrs_test))
 
-    final_path = _save(state, f"{logfolder}/final_{cfg.expname}.npz", cfg.n_iters - 1)
+    # the final renders are device work too: the watchdog stays armed,
+    # beaten per rendered image
+    watchdog.beat()
+    # resumable too: a resume of the finished run goes straight to the renders
+    final_path = _save(state, f"{logfolder}/final_{cfg.expname}.npz", cfg.n_iters - 1, history,
+                       dict(psnrs_window=psnrs_window, psnrs_test=psnrs_test))
+    watchdog.beat()
     elapsed = time.perf_counter() - run_tic
     np.savetxt(f"{logfolder}/training_time.txt", np.asarray([elapsed]))
     log(f"Total time {elapsed:.2f}s.")
     handle = make_handle(state)
     final_psnrs = _render_after_training(cfg, scene, handle, state.test_ds, logfolder,
-                                         save_images, log)
+                                         save_images, log, heartbeat=watchdog.beat)
+    if final_psnrs:
+        writer.add_scalar("test/psnr_all", float(np.mean(final_psnrs)), cfg.n_iters)
     eval_overflow[cfg.n_iters] = handle.max_overflow
+    watchdog.stop()
+    np.savez(f"{logfolder}/history.npz", **{k: np.asarray(v) for k, v in history.items()})
+    if save_images:
+        create_gif(f"{logfolder}/gif/plot/vis_every", f"{logfolder}/gif/training.gif")
     totals = torch.stack(totals).tolist() if totals else []
     return ReconstructionResult(final_path, totals, test_psnrs, final_psnrs, eval_overflow,
                                 segments, events, state, plans, progress)
+
+
+def _write_scalars(writer, metrics: Dict[str, torch.Tensor], read: dict, iteration: int) -> None:
+    """The train scalars of a progress read (tensorf_tpu loop.py:1036-1047);
+    nothing more is read from the device when no writer records them."""
+    if isinstance(writer, _NullWriter):
+        return
+    writer.add_scalar("train/PSNR", read["psnr"], iteration)
+    writer.add_scalar("train/mse", read["mse"], iteration)
+    for k in ("reg_ortho", "reg_l1", "reg_tv_density", "reg_tv_app", "reg_occ"):
+        if k in metrics:
+            writer.add_scalar(f"train/{k}", float(metrics[k]), iteration)
+    writer.add_scalar("train/mean_alive_samples",
+                      float(metrics.get("mean_alive_samples", 0.0)), iteration)
+    writer.add_scalar("train/budget_overflow_frac",
+                      float(metrics.get("budget_overflow_frac", 0.0)), iteration)
 
 
 def _sampling_summary(state: TrainState) -> dict:
@@ -705,7 +1007,9 @@ def render_test(
     """Render-only entry (reference train.py:77-165): load ``cfg.ckpt`` (or
     ``ckpt_path``), render what ``render_train``, ``render_test`` and
     ``render_path`` ask for and return the test split's per-view PSNRs;
-    with ``save_images`` the images go beside the checkpoint."""
+    with ``save_images`` the images go beside the checkpoint.  As in the JAX
+    entry, the whole test split renders (no few-shot selection) and the
+    train split loads only for ``render_train``."""
     device = resolve_device(device)
     _refuse_unported(cfg, _UNPORTED_SCHEDULE)
     ckpt = cfg.ckpt or cfg.ckpt_path
@@ -714,7 +1018,7 @@ def render_test(
         return []
     model_cfg, field, aabb, grid_size, alpha_mask, _ = load_checkpoint(ckpt, device)
     geometry = GridGeometry.create(aabb, grid_size, model_cfg.step_ratio)
-    _, test_ds = _datasets(cfg, scene)
+    test_ds = _dataset(cfg, scene, "test", is_stack=True)
     handle = RendererHandle(
         field=field,
         alpha_mask=alpha_mask,
@@ -731,6 +1035,42 @@ def render_test(
     )
     return _render_after_training(cfg, scene, handle, test_ds, os.path.dirname(ckpt),
                                   save_images, log)
+
+
+class MeshExport(NamedTuple):
+    ply: str  # the .ply written beside the checkpoint
+    mesh: PlyMesh  # its vertices (world space) and triangles
+    native: bool  # the native marching library ran (else the numpy version)
+    alpha_ms: float  # compute_alpha_grid, host clock, device synchronised at both ends
+    march_ms: float  # the iso-surface extraction and the .ply write, on the host
+
+
+def export_mesh(cfg: TrainConfig, ckpt_path: Optional[str] = None, device=None,
+                log: Callable[[str], None] = print) -> MeshExport:
+    """Mesh-export entry (tensorf_tpu loop.py:1490-1507, reference
+    train.py:59-74): load ``ckpt_path`` (else ``cfg.ckpt``, else
+    ``cfg.ckpt_path``) on ``device`` (cuda unless asked), compute its dense
+    alpha grid there, and write the level-0.005 iso-surface to the
+    checkpoint's path with ``.ply`` in place of its extension."""
+    device = resolve_device(device)
+    ckpt = ckpt_path or cfg.ckpt or cfg.ckpt_path
+    model_cfg, field, aabb, grid_size, alpha_mask, _ = load_checkpoint(ckpt, device)
+    geometry = GridGeometry.create(aabb, grid_size, model_cfg.step_ratio)
+    _sync(device)
+    t0 = time.perf_counter()
+    alpha, _ = compute_alpha_grid(field, alpha_mask, geometry.aabb_np, geometry.grid_size,
+                                  geometry.step_size)
+    alpha = alpha.cpu().numpy()
+    alpha_ms = (time.perf_counter() - t0) * 1e3
+    native = native_available()
+    out = ckpt.rsplit(".", 1)[0] + ".ply"
+    t0 = time.perf_counter()
+    mesh = convert_alpha_samples_to_ply(alpha, out, geometry.aabb_np, level=0.005)
+    march_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[mesh] {out}: grid {geometry.grid_size}, {len(mesh.verts)} verts, "
+        f"{len(mesh.tris)} faces, {'native' if native else 'numpy'} marching; alpha grid "
+        f"{alpha_ms:.1f} ms, marching {march_ms:.1f} ms")
+    return MeshExport(out, mesh, native, alpha_ms, march_ms)
 
 
 class TrainResult(NamedTuple):
@@ -779,11 +1119,12 @@ def train_steps(
     )
     restratify(state, 0, log)
     step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
-    noise = torch.Generator(device=device).manual_seed(cfg.seed)
+    noise = torch.Generator(device=device)
     aabb = state.aabb
     totals = []
     t_first = None
     for it in range(n_steps):
+        noise.manual_seed(step_seed(cfg.seed, it))
         metrics = step_fn(aabb, state.rays, state.rgbs, it, noise, state.alpha_mask,
                           ids=state.next_ids())
         totals.append(metrics["total_loss"])

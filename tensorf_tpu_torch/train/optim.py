@@ -4,7 +4,9 @@
 Spatial grids (planes, lines) train at ``lr_init`` and the network (basis,
 shading MLP) at ``lr_basis``; betas (0.9, 0.99), eps 1e-8 outside the sqrt,
 with bias correction.  Step t (counting from 0) uses lr0 * factor**t —
-the schedule of the JAX version's ``-lr0 * lr_factor**count``.
+the schedule of the JAX version's ``-lr0 * lr_factor**count``.  The
+schedule's position is that ``count``; ``set_schedule_count`` moves a
+fresh optimizer there on resume.
 """
 
 from __future__ import annotations
@@ -39,6 +41,23 @@ class TwoGroupAdam:
     def step(self) -> None:
         self.adam.step()
         self.schedule.step()
+
+    @property
+    def schedule_count(self) -> int:
+        """Steps taken: the exponent of the LR decay."""
+        return int(self.schedule.last_epoch)
+
+    def set_schedule_count(self, count: int) -> None:
+        """Move the LR decay to ``count`` steps, each group's LR multiplied
+        by gamma ``count`` times as ``ExponentialLR`` multiplies it, so the
+        LR equals the one an uninterrupted run reaches bit for bit."""
+        for group in self.adam.param_groups:
+            lr = group["initial_lr"]
+            for _ in range(int(count)):
+                lr = lr * self.schedule.gamma
+            group["lr"] = lr
+        self.schedule.last_epoch = int(count)
+        self.schedule._last_lr = [group["lr"] for group in self.adam.param_groups]
 
 
 def make_optimizer(

@@ -6,11 +6,17 @@ count-partitioned ray store (render/culling.py::stratify_rays); with
 quotas proportional to stratum sizes every ray keeps about the per-step
 inclusion probability of uniform sampling, while each sub-batch renders at
 its own sample budget.  Multi-host id pools are not ported.
+
+``get_state``/``set_state`` carry a sampler across a resume: a json-able
+meta (sizes, cursor) and arrays (the generator state, the permutation
+being drawn and, stratified, the strata), so a resumed run draws the ids
+an uninterrupted run draws.  They are the port's own: the JAX samplers
+draw from numpy generators.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +53,26 @@ class SimpleSampler:
             self.ids = torch.randperm(self.total, generator=self._gen)
             self.curr = 0
         return self.ids[self.curr : self.curr + self.batch]
+
+    def get_state(self) -> Tuple[dict, Dict[str, np.ndarray]]:
+        """(json-able meta, arrays) from which ``set_state`` continues this
+        sampler's id stream exactly."""
+        meta = dict(total=int(self.total), batch=int(self.batch), curr=int(self.curr),
+                    has_ids=self.ids is not None)
+        arrays = {"rng": self._gen.get_state().numpy()}
+        if self.ids is not None:
+            arrays["ids"] = self.ids.numpy()
+        return meta, arrays
+
+    def set_state(self, meta: dict, arrays: Dict[str, np.ndarray]) -> None:
+        if int(meta["total"]) != self.total or int(meta["batch"]) != self.batch:
+            raise ValueError(
+                f"sampler state mismatch: saved total/batch {meta['total']}/{meta['batch']} "
+                f"vs {self.total}/{self.batch}"
+            )
+        self._gen.set_state(torch.from_numpy(np.array(arrays["rng"], np.uint8)))
+        self.curr = int(meta["curr"])
+        self.ids = torch.from_numpy(np.array(arrays["ids"], np.int64)) if meta["has_ids"] else None
 
 
 def allocate_quotas(
@@ -119,3 +145,23 @@ class StratifiedSampler:
     def nextids(self) -> Tuple[torch.Tensor, ...]:
         """One (quota,) int64 CPU tensor of store ids per stratum."""
         return tuple(s[smp.nextids()] for s, smp in zip(self.strata, self.samplers))
+
+    def get_state(self) -> Tuple[dict, Dict[str, np.ndarray]]:
+        """(json-able meta, arrays): the quotas, each stratum's ids and each
+        stratum sampler's state; rebuild with ``from_state``."""
+        metas, arrays = [], {}
+        for i, (stratum, smp) in enumerate(zip(self.strata, self.samplers)):
+            m, a = smp.get_state()
+            metas.append(m)
+            arrays[f"strata/{i}"] = stratum.numpy()
+            arrays.update({f"{k}/{i}": v for k, v in a.items()})
+        return {"quotas": list(self.quotas), "samplers": metas}, arrays
+
+    @classmethod
+    def from_state(cls, meta: dict, arrays: Dict[str, np.ndarray]) -> "StratifiedSampler":
+        n = len(meta["samplers"])
+        smp = cls([arrays[f"strata/{i}"] for i in range(n)], meta["quotas"])
+        for i, (sub, m) in enumerate(zip(smp.samplers, meta["samplers"])):
+            sub.set_state(m, {k: arrays[f"{k}/{i}"] for k in ("rng", "ids")
+                              if f"{k}/{i}" in arrays})
+        return smp

@@ -4,9 +4,11 @@ tensorf_tpu/utils/ckpt.py, so a checkpoint loads in either package.
 Entries: every parameter under ``params/<flat JAX key>`` (channels-last
 planes, lines, basis, the shading MLP), ``kwargs`` (the JSON of the
 ModelConfig fields plus ``gridSize`` and ``extra``), ``aabb`` (2, 3) and,
-with a mask, ``alphaMask.{shape,mask,aabb}`` bit-packed.  Optimizer
-leaves (``opt/...``) and ``aux/...`` arrays are neither written nor read
-here: resume is not ported yet.
+with a mask, ``alphaMask.{shape,mask,aabb}`` bit-packed.  A resumable
+checkpoint also carries the optimizer state as ordered leaves
+``opt/{i:05d}`` (the leaf order of the JAX package's optax state,
+convert.py::optimizer_to_jax) and free-form ``aux/<name>`` arrays (sampler
+state, history rows), which ``load_opt_leaves`` and ``load_aux`` read.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -31,9 +33,13 @@ def save_checkpoint(
     aabb,
     alpha_mask: Optional[AlphaGridMask] = None,
     extra: Optional[Dict[str, Any]] = None,
+    opt_leaves: Optional[Sequence[np.ndarray]] = None,
+    aux: Optional[Dict[str, np.ndarray]] = None,
 ) -> str:
-    """Write ``field`` (its cfg, grid and params), ``aabb`` and the mask to
-    ``path`` through a ``.tmp`` file renamed into place; returns the path
+    """Write ``field`` (its cfg, grid and params), ``aabb``, the mask and,
+    for a resumable checkpoint, the optimizer leaves and aux arrays to
+    ``path`` through a ``.tmp`` file renamed into place (a kill mid-write
+    never corrupts the checkpoint a resume depends on); returns the path
     written (``.npz`` appended when missing)."""
     entries: Dict[str, np.ndarray] = {
         f"params/{k}": v for k, v in params_to_jax(field).items()
@@ -46,6 +52,10 @@ def save_checkpoint(
     entries["aabb"] = np.asarray(aabb, np.float32).reshape(2, 3)
     if alpha_mask is not None:
         entries.update(pack_mask(alpha_mask))
+    for i, leaf in enumerate(opt_leaves or ()):
+        entries[f"opt/{i:05d}"] = np.asarray(leaf)
+    for k, v in (aux or {}).items():
+        entries[f"aux/{k}"] = np.asarray(v)
     tmp = f"{path}.tmp"
     np.savez(tmp, **entries)  # np.savez appends .npz
     final = path if path.endswith(".npz") else f"{path}.npz"
@@ -78,3 +88,17 @@ def load_checkpoint(path: str, device=None):
             device=device,
         )
     return cfg, field, np.asarray(data["aabb"], np.float32), grid_size, alpha_mask, extra
+
+
+def load_opt_leaves(path: str) -> Optional[List[np.ndarray]]:
+    """The ordered optimizer leaves of a resumable checkpoint (None when it
+    carries none)."""
+    data = np.load(path, allow_pickle=False)
+    keys = sorted(k for k in data.files if k.startswith("opt/"))
+    return [data[k] for k in keys] if keys else None
+
+
+def load_aux(path: str) -> Dict[str, np.ndarray]:
+    """The ``aux/`` arrays of a checkpoint, by name (empty without them)."""
+    data = np.load(path, allow_pickle=False)
+    return {k[len("aux/"):]: data[k] for k in data.files if k.startswith("aux/")}

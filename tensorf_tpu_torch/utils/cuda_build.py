@@ -1,10 +1,14 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native libraries and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``build/lib<name>_<digest>.so`` inside the package (a directory git
-ignores), at first use.  The digest covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing is
-built or loaded when a module is imported.
+Each ``csrc/<name>.cu`` (a CUDA kernel, built with nvcc) or
+``csrc/<name>.cpp`` (host C++, built with g++) exposes a plain C interface
+and compiles on its own into ``build/lib<name>_<digest>.so`` inside the
+package (a directory git ignores), at first use.  The digest covers the
+source and the flags, so an edited source is rebuilt and a stale library
+is never loaded.  Nothing is built or loaded when a module is imported.
+The build directory is what the JAX package's persistent compile cache is
+to it (tensorf_tpu/utils/cache.py): a first use pays the build, and the
+watchdog counts fresh writes there as progress (utils/watchdog.py).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# host C++ (-march=native: the library is built on the machine that runs it)
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-march=native", "-shared")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -55,15 +61,25 @@ def nvcc_path() -> str:
     return path
 
 
+def _source(name: str) -> Path:
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
+def _flags(src: Path):
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    src = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(src)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str], force: bool = False) -> Dict[str, BuildResult]:
-    """Compile each named kernel source, one nvcc process per source, all
-    started together.  Raises with nvcc's output if any build fails."""
+    """Compile each named source, one nvcc or g++ process per source, all
+    started together.  Raises with the compiler's output if any build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results = {}
     to_build = []
@@ -73,11 +89,12 @@ def build(names: Iterable[str], force: bool = False) -> Dict[str, BuildResult]:
             results[name] = BuildResult(name, out, 0.0, "")
         else:
             to_build.append((name, out))
-    nvcc = nvcc_path() if to_build else ""
     started = {}
     for name, out in to_build:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        src = _source(name)
+        compiler = nvcc_path() if src.suffix == ".cu" else "g++"
+        cmd = [compiler, *_flags(src), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -87,7 +104,7 @@ def build(names: Iterable[str], force: bool = False) -> Dict[str, BuildResult]:
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            failures.append(f"{proc.args[0]} failed for csrc/{_source(name).name}:\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
         results[name] = BuildResult(name, out, seconds, log)
@@ -97,7 +114,7 @@ def build(names: Iterable[str], force: bool = False) -> Dict[str, BuildResult]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if needed (cached per process)."""
+    """The library ``name``, built first if needed (cached per process)."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name].path))

@@ -198,6 +198,6 @@ def test_tiny_reconstruction_end_to_end(tmp_path):
 def test_schedule_refuses_what_is_not_ported(tmp_path):
     cfg = load_config("configs/synth_sphere.txt", dict(TINY, basedir=str(tmp_path)))
     scene = make_synthetic_scene_arrays(n_train=2, n_test=1, wh=(16, 16), scene="sphere")
-    for knob in ("ndc_ray", "resume"):
+    for knob in ("ndc_ray",):  # resume is ported (tests/test_torch_resume.py)
         with pytest.raises(NotImplementedError, match=knob):
             reconstruction(dataclasses.replace(cfg, **{knob: 1}), scene, "cpu")

@@ -1,13 +1,17 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
 Marked ``cuda``: they skip without a GPU (a CUDA kernel has no CPU mode).
-This file imports neither jax nor tensorf_tpu, so it also runs on a GPU
-machine without them; tests/conftest.py imports jax, so run it there as
+Mesh export and resume on the card are held against the CPU and the
+checkpoint.  This file imports neither jax nor tensorf_tpu, so it also
+runs on a GPU machine without them; tests/conftest.py imports jax, so run
+it there as
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
 Tolerance rtol 1e-5, atol 1e-4: the same sums in another (atomic) order.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -341,3 +345,92 @@ def test_stratified_serving_on_the_card_matches_uniform_and_cpu(path):
     np.testing.assert_allclose(card[1], uniform[1], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(card[0], cpu[0], **TOL)
     np.testing.assert_allclose(card[1], cpu[1], **TOL)
+
+
+@pytest.mark.cuda
+def test_export_mesh_on_the_card_matches_the_cpu(tmp_path):
+    """A checkpoint's mesh exported on the card and on the CPU: the alpha
+    grids within TOL, the native marching on both, and the same mesh
+    (vertices within 1e-4) unless an alpha value lies within 1e-5 of the
+    level, where the two devices' rounding may pick different sides."""
+    from tensorf_tpu_torch.config import TrainConfig
+    from tensorf_tpu_torch.models.config import GridGeometry
+    from tensorf_tpu_torch.render.culling import compute_alpha_grid
+    from tensorf_tpu_torch.train.loop import export_mesh
+    from tensorf_tpu_torch.utils.ckpt import save_checkpoint
+
+    _need_gpu()
+    field = _small_field(2, density_shift=-10.0, density_scale=8.0)
+    aabb = np.asarray([[-1.5] * 3, [1.5] * 3], np.float32)
+    paths = {}
+    for dev in ("cpu", "cuda"):
+        (tmp_path / dev).mkdir()
+        paths[dev] = save_checkpoint(str(tmp_path / dev / "tiny.npz"), field, aabb)
+    geometry = GridGeometry.create(aabb, field.grid_size, field.cfg.step_ratio)
+    alpha = {dev: compute_alpha_grid(field.to(dev), None, aabb, field.grid_size,
+                                     geometry.step_size)[0].cpu().numpy()
+             for dev in ("cpu", "cuda")}
+    np.testing.assert_allclose(alpha["cuda"], alpha["cpu"], **TOL)
+    out = {dev: export_mesh(TrainConfig(), paths[dev], device=dev, log=lambda m: None)
+           for dev in ("cpu", "cuda")}
+    assert out["cuda"].native and out["cpu"].native and len(out["cuda"].mesh.tris) > 0
+    assert os.path.exists(out["cuda"].ply)
+    if not np.any(np.abs(alpha["cpu"] - 0.005) <= 1e-5):
+        np.testing.assert_array_equal(out["cuda"].mesh.tris, out["cpu"].mesh.tris)
+        np.testing.assert_allclose(out["cuda"].mesh.verts, out["cpu"].mesh.verts, rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card(tmp_path):
+    """A tiny schedule on the card killed after step 31 and resumed from its
+    checkpoint at 30: the resume restores the checkpoint's parameters and
+    Adam state exactly, logs the optimizer and sampling state restored, and
+    carries the history rows written before the kill."""
+    import dataclasses
+
+    from tensorf_tpu_torch.config import TrainConfig
+    from tensorf_tpu_torch.convert import optimizer_to_jax, params_to_jax
+    from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
+    from tensorf_tpu_torch.train.loop import TrainState, reconstruction
+    from tensorf_tpu_torch.utils.ckpt import load_opt_leaves
+
+    _need_gpu()
+    cfg = TrainConfig(
+        basedir=str(tmp_path), dataset_name="blender", model_name="TensorVMSplit",
+        shadingMode="MLP_Fea", batch_size=256, n_iters=45, N_voxel_init=16**3,
+        N_voxel_final=20**3, upsamp_list=[20], update_AlphaMask_list=[22, 28],
+        save_ckpt_every=[30], n_lamb_sigma=[2, 2, 2], n_lamb_sh=[2, 2, 2], data_dim_color=6,
+        featureC=16, pos_pe=2, view_pe=2, fea_pe=2, density_shift=-3.0, vis_every=1000,
+        train_vis_every=10, render_test=1, progress_refresh_rate=100)
+    scene = make_synthetic_scene_arrays(n_train=4, n_test=1, wh=(24, 24), scene="composite")
+
+    class Killed(Exception):
+        pass
+
+    def kill(it, state):
+        if it == 31:
+            raise Killed()
+
+    with pytest.raises(Killed):
+        reconstruction(cfg, scene, "cuda", save_images=False, on_step=kill, log=lambda m: None)
+    (ckpt,) = tmp_path.glob("*/exp/0k_exp.npz")
+    state = TrainState(dataclasses.replace(cfg, resume=1, ckpt_path=str(ckpt)),
+                       torch.device("cuda"), scene)
+    leaves = load_opt_leaves(str(ckpt))
+    assert state.start_iter == 31 and state.restore_optimizer(leaves, lambda m: None)
+    data = np.load(ckpt)
+    for k, v in params_to_jax(state.field).items():
+        np.testing.assert_array_equal(v, data[f"params/{k}"])
+    for a, b in zip(optimizer_to_jax(state.optimizer, state.field), leaves):
+        np.testing.assert_array_equal(a, b)
+    logs = []
+    res = reconstruction(dataclasses.replace(cfg, resume=1), scene, "cuda", save_images=False,
+                         log=logs.append)
+    for want in ("continuing at iteration 31", "optimizer state restored",
+                 "sampling state restored"):
+        assert any(want in line for line in logs), want
+    assert len(res.total_loss) == 14 and np.all(np.isfinite(res.total_loss))
+    assert np.isfinite(np.mean(res.final_psnrs))
+    hist = np.load(os.path.join(os.path.dirname(res.final_path), "history.npz"))
+    assert list(hist["iteration"]) == [10, 20, 30, 40]
