@@ -70,14 +70,45 @@ each prints its seconds):
      exactly, its history.npz must hold the row at 250, and its final test
      PSNR must lie within 0.5 dB of the uninterrupted run's (phase 9):
      float atomics sum in another order on each run, so the two drift
-     apart in rounding as two clean runs do.
+     apart in rounding as two clean runs do;
+ 12. lego_path: ``reconstruction`` of configs/lego.txt as written
+     (TensorCP, ranks 16/48, app_dim 27, MLP shading with pos/view/fea PE
+     2 and featureC 128, batch 1024, sample_budget 160, stratify and
+     stratify_render, downsample 2, the FreeNeRF, occlusion and L1 terms)
+     on the composite scene with Blender's 100/200 views at 800x800, its
+     schedule cut to 600 steps (profile_step.LEGO_CUT: the upsample and
+     alpha mask at 2000 move to 400).  TensorCP has no plane, so its steps
+     launch no scatter-add: one step's gradients on the card are held to
+     the same step on the CPU (rtol/atol 1e-4) instead, and the run must
+     launch the kernel 0 times, the per-stratum sum.  Every segment
+     stratified, the loss no higher than LEGO_LOSS_RATIO of its start by
+     400 (as written the L1 term holds the density at its initial plateau
+     on this scene, in both packages), every eval overflow 0.0, the final
+     checkpoint re-rendered through render_test on the selected test views
+     within 1e-4 dB; then its mesh export (as phase 10, an empty mesh
+     allowed).  Then lego_l1_off: the same first segment with the L1
+     weights at 0, whose loss must fall to LEGO_L1_OFF_LOSS_RATIO and
+     whose test view must beat the untrained field's.  Prints its
+     segments' ms/step and peak GiB;
+ 13. tensorvm: configs/synth_full.txt with ``model_name`` TensorVM over the
+     main path's first segment (200 steps at 128^3, full width: 64-channel
+     planes): one step's gradients kernel vs plain, launches equal to the
+     per-stratum sum, the loss halved; then the kernel against its plain
+     version on the index streams its last step hands it (the packed
+     128^3 table and the top-K path's density and appearance tables);
+ 14. shading: SH, RGB, MLP_PE and MLP heads on configs/synth_sphere.txt's
+     first segment (150 steps): for each, one step's gradients kernel vs
+     plain, launches equal to the per-stratum sum, a falling loss, and a
+     test PSNR above the untrained field's.
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
 Cuts (each is printed): 8 train and 2 test views instead of 40 and 8,
 200x200 pixels instead of 800x800, and synth_full's 30000-step schedule cut
 to 450 steps with its events at 200-400, the LR decay of the 30000 and a
-progress read every 25 steps (profile_step.CUT_SCHEDULE).
+progress read every 25 steps (profile_step.CUT_SCHEDULE); lego's
+3000-step schedule cut to 600 with its event at 400, the LR decay of the
+3000, and its final state scored (profile_step.LEGO_CUT).
 
 Without a GPU, or outside a checkout of the repo, it exits non-zero and
 prints no result.  The last line of stdout is
@@ -122,6 +153,27 @@ MESH_RADIUS_TOL = 0.05
 # newest; its final test PSNR within this many dB of the uninterrupted run's
 RESUME_KILL = 251
 RESUME_MAX_DPSNR = 0.5
+# configs/lego.txt's path (profile_step.LEGO_CUT): its first segment runs
+# to the upsample and alpha mask at 400.  The bars compare the mean loss of
+# the segment's last 5 steps with that of its first 5, and come from the
+# port's CPU drives of the same path (PERF.md §6 PR 7): as written the loss
+# stays on its initial plateau (ratio 1.096), so it may not rise past
+# LEGO_LOSS_RATIO; with the L1 weights at 0 it falls (ratio
+# 0.112) and must reach LEGO_L1_OFF_LOSS_RATIO
+LEGO_FIRST_SEGMENT = 400
+LEGO_LOSS_RATIO = 1.25
+LEGO_L1_OFF_LOSS_RATIO = 0.5
+# configs/synth_full.txt with --model_name TensorVM over the first segment
+# of the main path (200 steps at 128^3); its loss must halve, as the main
+# path's does (the CPU drive in PERF.md)
+TENSORVM_LOSS_RATIO = 0.5
+# the shading modes of the shading phase, each with the data_dim_color it
+# needs (SH 3 x 9 coefficients, RGB the colour itself; the MLP heads take
+# synth_sphere's 9), over synth_sphere's first segment
+SHADING_MODES = {"SH": 27, "RGB": 3, "MLP_PE": None, "MLP": None}
+SPHERE_FIRST_SEGMENT = 150
+# the keys of each kernel case in the kernels line
+CASE_KEYS = ("case", "M", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 # scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
 STREAM_KINDS = {64: "density", 192: "appearance", 256: "fused"}
 # the eval's chunk (tensorf_tpu evaluation's default), and the uniform
@@ -273,24 +325,30 @@ def synthetic_streams(torch, dev, rays):
         yield name, idx, torch.randn((M, C), generator=gen, device=dev), n_rows
 
 
-def step_inputs(torch, dev, cfg, scene, field, grid):
-    """A synth_full step's statics, batch, bbox and jitter for ``field``."""
+def step_inputs(torch, dev, cfg, scene, grid):
+    """A first-segment step's statics (unstratified, the prefilter top-K),
+    batch, bbox and jitter on ``dev``: the path's train split as its run
+    loads it, a batch and the jitter drawn from seeds."""
     import numpy as np
 
-    from tensorf_tpu_torch.data.blender import BlenderDataset
     from tensorf_tpu_torch.models import GridGeometry
     from tensorf_tpu_torch.models.config import cal_n_samples
+    from tensorf_tpu_torch.train.loop import _dataset
     from tensorf_tpu_torch.train.losses import LossWeights
     from tensorf_tpu_torch.train.step import TrainStatics, draw_noise
 
-    ds = BlenderDataset("", split="train", wh=SCENE["wh"], meta=scene["train"])
+    ds = _dataset(cfg, scene, "train", num_images=cfg.resolved_train_images())
     aabb_np = ds.scene_bbox
     statics = TrainStatics(
         n_samples=cal_n_samples(grid, cfg.step_ratio),
         step_size=GridGeometry.create(aabb_np, grid, cfg.step_ratio).step_size,
         white_bg=True, ndc_ray=False, total_steps=cfg.n_iters, lr_factor=0.9999,
-        weights=LossWeights(ortho=cfg.Ortho_weight, l1=cfg.L1_weight_inital,
-                            tv_density=cfg.TV_weight_density, tv_app=cfg.TV_weight_app),
+        # the loop's weights: ortho for the VM models only
+        weights=LossWeights(ortho=cfg.Ortho_weight if "VM" in cfg.model_name else 0.0,
+                            l1=cfg.L1_weight_inital, tv_density=cfg.TV_weight_density,
+                            tv_app=cfg.TV_weight_app, occ=cfg.occ_reg_loss_mult,
+                            occ_range=cfg.occ_reg_range, occ_wb_range=cfg.occ_wb_range,
+                            occ_wb_prior=bool(cfg.occ_wb_prior)),
         free_reg=True, free_decomp=True, freq_reg_ratio=cfg.freq_reg_ratio,
         shade_top_k=cfg.prefilter_shade_top_k,
     )
@@ -302,59 +360,106 @@ def step_inputs(torch, dev, cfg, scene, field, grid):
     return statics, aabb, rays, rgbs, u, flip
 
 
-def step_parity_phase(torch, dev, cfg, scene):
-    """One synth_full step's gradients, kernel vs plain, same inputs."""
-    from unittest import mock
-
+def path_field(torch, dev, cfg, scene, seed=1):
+    """A fresh field of ``cfg``'s model at full width on the path's first
+    grid, drawn from ``seed``, and that grid."""
     from tensorf_tpu_torch.config import model_config_from
-    from tensorf_tpu_torch.data.blender import BlenderDataset
-    from tensorf_tpu_torch.models import TensorVMSplit
+    from tensorf_tpu_torch.models import FIELD_MODELS
     from tensorf_tpu_torch.models.config import n_to_reso
-    from tensorf_tpu_torch.ops import grid_sample
-    from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
+    from tensorf_tpu_torch.train.loop import _dataset
+
+    aabb = _dataset(cfg, scene, "test", num_images=[0]).scene_bbox
+    grid = n_to_reso(cfg.N_voxel_init, aabb)
+    field = FIELD_MODELS[cfg.model_name](model_config_from(cfg), grid, dev,
+                                         torch.Generator().manual_seed(seed))
+    return field, grid
+
+
+def step_grads(torch, field, statics, aabb, rays, rgbs, u, flip):
+    """One step's total loss and every leaf's gradient."""
     from tensorf_tpu_torch.train.step import loss_fn
 
-    ds = BlenderDataset("", split="train", wh=SCENE["wh"], meta=scene["train"])
-    grid = n_to_reso(cfg.N_voxel_init, ds.scene_bbox)
-    field = TensorVMSplit(model_config_from(cfg), grid, dev, torch.Generator().manual_seed(1))
-    statics, aabb, rays, rgbs, u, flip = step_inputs(torch, dev, cfg, scene, field, grid)
-
-    def grads():
-        field.zero_grad(set_to_none=True)
-        total, _ = loss_fn(field, statics, aabb, rays, rgbs, 10, u, flip)
-        total.backward()
+    field.zero_grad(set_to_none=True)
+    total, _ = loss_fn(field, statics, aabb, rays, rgbs, 10, u, flip)
+    total.backward()
+    if aabb.is_cuda:
         torch.cuda.synchronize()
-        return total.item(), {n: p.grad.clone() for n, p in field.named_parameters()}
+    return total.item(), {n: p.grad.clone() for n, p in field.named_parameters()}
+
+
+def step_parity_phase(torch, dev, cfg, scene, label="step_parity"):
+    """One first-segment step's gradients of ``cfg``'s model, kernel vs
+    plain, same inputs."""
+    from unittest import mock
+
+    from tensorf_tpu_torch.ops import grid_sample
+    from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
+
+    field, grid = path_field(torch, dev, cfg, scene)
+    statics, aabb, rays, rgbs, u, flip = step_inputs(torch, dev, cfg, scene, grid)
+    inputs = (statics, aabb, rays, rgbs, u, flip)
 
     before = scatter_add.launches
-    loss_k, g_kernel = grads()
-    want = scatter_launches_per_step(statics)
-    check(scatter_add.launches - before == want, f"kernel step did not launch scatter_add {want} times")
+    loss_k, g_kernel = step_grads(torch, field, *inputs)
+    want = scatter_launches_per_step(statics, cfg.model_name)
+    check(scatter_add.launches - before == want, f"{label}: the kernel step did not launch "
+          f"scatter_add {want} times")
     before = scatter_add.launches
     with mock.patch.object(grid_sample, "scatter_add", scatter_add_reference):
-        loss_p, g_plain = grads()
-    check(scatter_add.launches == before, "plain step launched the kernel")
+        loss_p, g_plain = step_grads(torch, field, *inputs)
+    check(scatter_add.launches == before, f"{label}: the plain step launched the kernel")
     # the forward has no scatter: the two losses agree to rounding
-    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p), f"step losses differ: {loss_k} vs {loss_p}")
+    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p),
+          f"{label}: step losses differ: {loss_k} vs {loss_p}")
     worst = 0.0
     for name, gk in g_kernel.items():
         gp = g_plain[name]
         err = float((gk - gp).abs().max())
         # atomics sum in another order: 1e-4 of the leaf's largest gradient
         tol = 1e-4 * float(gp.abs().max()) + 1e-12
-        check(err <= tol, f"step gradient {name}: max |kernel - plain| {err} > {tol}")
+        check(err <= tol, f"{label} gradient {name}: max |kernel - plain| {err} > {tol}")
         worst = max(worst, err / tol)
-    print(f"step_parity: loss {loss_k:.6f}, {len(g_kernel)} leaves, "
-          f"max err/tol {worst:.3g} (tol = 1e-4 x max|grad| per leaf)", flush=True)
+    print(f"{label}: {cfg.model_name} {cfg.shadingMode}, {want} scatter-adds a step, loss "
+          f"{loss_k:.6f}, {len(g_kernel)} leaves, max err/tol {worst:.3g} (tol = 1e-4 x "
+          f"max|grad| per leaf)", flush=True)
 
 
-def capture_streams(torch, state, suffix, stratum=None):
+def device_parity_phase(torch, cfg, scene, label):
+    """One first-segment step's gradients of ``cfg``'s model on the card
+    against the same step on the CPU, within rtol/atol 1e-4 elementwise:
+    for a path that launches no kernel, this holds its card run to the
+    plain path."""
+    import copy
+
+    dev = torch.device("cuda")
+    field, grid = path_field(torch, dev, cfg, scene)
+    inputs = step_inputs(torch, dev, cfg, scene, grid)
+    loss_c, g_card = step_grads(torch, field, *inputs)
+    on_cpu = [x.cpu() if isinstance(x, torch.Tensor) else x for x in inputs]
+    loss_h, g_host = step_grads(torch, copy.deepcopy(field).cpu(), *on_cpu)
+    check(abs(loss_c - loss_h) <= 1e-4 * abs(loss_h) + 1e-4,
+          f"{label}: step loss {loss_c} on the card, {loss_h} on the CPU")
+    worst, worst_name = 0.0, None
+    for name, gc in g_card.items():
+        gh = g_host[name]
+        excess = float(((gc.cpu() - gh).abs() - (1e-4 + 1e-4 * gh.abs())).max())
+        if worst_name is None or excess > worst:
+            worst, worst_name = excess, name
+        check(excess <= 0.0, f"{label} gradient {name}: |card - cpu| exceeds 1e-4 + 1e-4 |cpu| "
+              f"by {excess:.3g}")
+    print(f"{label}: {cfg.model_name} {cfg.shadingMode} at {grid}, batch {cfg.batch_size}: "
+          f"loss card {loss_c:.6f} cpu {loss_h:.6f}; {len(g_card)} leaves within rtol/atol "
+          f"1e-4 elementwise (closest: {worst_name}, {worst:.3g} below the bound)", flush=True)
+
+
+def capture_streams(torch, state, suffix, stratum=None, **statics_over):
     """The index streams of the field in ``state``: the (idx, g, n_rows)
     that the first scatter-add of each width (density, appearance, or both
     fused) of one more train step (the segment's statics, its mask)
     receives, by case name.  With ``stratum`` the step is that stratum's
-    sub-batch alone, at its quota, budget and lattice.  The step's
-    backward runs the plain version, so capturing launches no kernel."""
+    sub-batch alone, at its quota, budget and lattice; ``statics_over``
+    replaces fields of the step's statics.  The step's backward runs the
+    plain version, so capturing launches no kernel."""
     from unittest import mock
 
     from tensorf_tpu_torch.ops import grid_sample
@@ -363,7 +468,7 @@ def capture_streams(torch, state, suffix, stratum=None):
     from tensorf_tpu_torch.train.step import draw_noise, loss_fn
 
     dev, cfg = state.device, state.cfg
-    statics = build_statics(state)
+    statics = build_statics(state)._replace(**statics_over)
     gen = torch.Generator().manual_seed(0)
     if stratum is None:
         ids = torch.randperm(state.rays.shape[0], generator=gen)[: cfg.batch_size].to(dev)
@@ -429,24 +534,30 @@ def check_schedule(result, cfg):
     check(any(e.get("refiltered") for e in result.events), "no alpha ray re-filtering")
 
 
-def scatter_launches_per_step(statics) -> int:
-    """The scatter-adds one train step launches under ``statics``: one per
-    gathered plane table, in each stratum's render.  The fused path packs
-    density and appearance into one table per plane (3) unless top-K
-    shading below the render's width gathers appearance apart (6); the
-    unfused path gathers every plane and line apart (12)."""
+def scatter_launches_per_step(statics, model_name: str) -> int:
+    """The scatter-adds one train step of ``model_name`` launches under
+    ``statics``: one per gathered plane table, in each stratum's render.
+    TensorVMSplit's and TensorVM's fused path packs density and appearance
+    into one table per plane (3) unless top-K shading below the render's
+    width gathers them apart (6); TensorCP has no plane, and its fused path
+    samples lines by matmul (0).  Unfused, every plane and line is a row
+    gather of its own: 12 for the VM models, CP's 6 lines."""
     from tensorf_tpu_torch.train.step import render_widths
 
+    widths = render_widths(statics)
     if not statics.fused:
-        return 12 * len(render_widths(statics))
+        return (6 if model_name == "TensorCP" else 12) * len(widths)
+    if model_name == "TensorCP":
+        return 0
     k = statics.shade_top_k
-    return sum(6 if k is not None and k < w else 3 for w in render_widths(statics))
+    return sum(6 if k is not None and k < w else 3 for w in widths)
 
 
 def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     """One path through ``reconstruction``: the launch counts set to 0
     just before it and read just after; each kernel must have launched on
-    every step, as many times as that step's statics call for."""
+    every step, as many times as that step's statics call for (on a path
+    whose steps call for none, such as TensorCP's, no time at all)."""
     import numpy as np
 
     from tensorf_tpu_torch.train.loop import build_statics, reconstruction
@@ -454,7 +565,7 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     want = {"scatter_add": 0}
 
     def count(it, state):  # runs after step ``it``, whose statics the state still holds
-        want["scatter_add"] += scatter_launches_per_step(build_statics(state))
+        want["scatter_add"] += scatter_launches_per_step(build_statics(state), cfg.model_name)
         if on_step is not None:
             on_step(it, state)
 
@@ -469,7 +580,7 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
           f"{time.perf_counter() - t0:.2f} s, launches {launches} (want {want})", flush=True)
     check(set(want) == set(launches), f"{name}: launch counts {launches}, want {want}")
     for kernel, n in want.items():
-        check(launches[kernel] == n > 0, f"{name}: {kernel} launched {launches[kernel]} times "
+        check(launches[kernel] == n, f"{name}: {kernel} launched {launches[kernel]} times "
               f"in {steps} steps, want {n}")
     losses = np.asarray(result.total_loss)
     check(losses.shape == (steps,) and np.all(np.isfinite(losses)), f"{name}: non-finite loss")
@@ -539,6 +650,7 @@ def full_path(torch, np, name, cfg, scene, kernels, on_step=None):
     FIRST_SEGMENT.  Prints its events, plans and segments."""
     t0 = time.perf_counter()
     result, launches = drive(torch, name, cfg, scene, kernels, cfg.n_iters, on_step)
+    check(all(launches.values()), f"{name}: a kernel of the path never launched: {launches}")
     losses = np.asarray(result.total_loss)
     first, last = float(losses[:5].mean()), float(losses[FIRST_SEGMENT - 5:FIRST_SEGMENT].mean())
     print(f"{name}: loss first-5 mean {first:.6f} -> mean of steps {FIRST_SEGMENT - 5}.."
@@ -813,11 +925,11 @@ def ply_vertices(np, path):
     return np.frombuffer(body[: n * 12], "<f4").reshape(n, 3)
 
 
-def mesh_export(torch, np, kernels, name, config, ckpt):
+def mesh_export(torch, np, kernels, name, config, ckpt, min_verts=1):
     """The CLI's mesh export of ``ckpt``: it must write the .ply beside it
-    and nothing else, launch no kernel (it takes no train step) and run the
-    native marching library.  Returns the CLI's JSON line and the .ply's
-    vertices."""
+    and nothing else, launch no kernel (it takes no train step), run the
+    native marching library and write at least ``min_verts`` vertices.
+    Returns the CLI's JSON line and the .ply's vertices."""
     import contextlib
     import io
     import os
@@ -847,8 +959,9 @@ def mesh_export(torch, np, kernels, name, config, ckpt):
           "it took a train step")
     check(row["native"], f"{name}: the mesh export ran the numpy marching, not the native library")
     verts = ply_vertices(np, row["ply"])
-    check(len(verts) == row["verts"] > 0 and row["faces"] > 0 and np.all(np.isfinite(verts)),
-          f"{name}: the .ply holds {len(verts)} vertices, the CLI reported {row['verts']}")
+    check(len(verts) == row["verts"] >= min_verts and (row["faces"] > 0 or not min_verts)
+          and np.all(np.isfinite(verts)), f"{name}: the .ply holds {len(verts)} vertices, the "
+          f"CLI reported {row['verts']}, want at least {min_verts}")
     print(f"{name}: {row['verts']} vertices, {row['faces']} faces, native marching "
           f"{row['native']}; alpha grid {row['alpha_ms']:.1f} ms on the card (host clock, "
           f"synchronised), marching and .ply {row['march_ms']:.1f} ms on the host; export "
@@ -924,8 +1037,210 @@ def resume_phase(torch, np, cfg, scene, clean_psnr, workdir) -> None:
           f"{delta:+.3f} dB from the uninterrupted run's {clean_psnr}")
 
 
+def loss_fall(np, losses, end):
+    """(mean of the first 5 losses, mean of the 5 before ``end``)."""
+    losses = np.asarray(losses)
+    return float(losses[:5].mean()), float(losses[end - 5:end].mean())
+
+
+def selected_test_split(scene, idxs):
+    """The scene with its test split cut to the views ``idxs`` selects, in
+    order: what a run's evaluation scores; render-only renders a whole
+    split."""
+    test = dict(scene["test"], frames=[scene["test"]["frames"][i] for i in idxs])
+    return dict(scene, test=test)
+
+
+def lego_phase(torch, np, kernels, workdir):
+    """configs/lego.txt through ``reconstruction`` as written but for the
+    cut schedule (profile_step.LEGO_CUT) on Blender's split sizes.
+    TensorCP launches no kernel, so its card step is held to the CPU's,
+    and its run to 0 scatter-adds, the loss bar, every segment stratified,
+    eval overflow 0.0 and a render-only re-render of the final checkpoint;
+    then its mesh export.  As written, the config's L1 term holds the CP
+    density at its initial plateau on this scene (in both packages; PERF.md
+    §6 PR 7), so the same path's first segment runs again with the L1
+    weights at 0: its loss must fall to LEGO_L1_OFF_LOSS_RATIO and its test
+    view beat the untrained field's.  Returns the launch counts of both."""
+    import dataclasses
+
+    from tensorf_tpu_torch.config import load_config
+    from tensorf_tpu_torch.profile_step import LEGO, LEGO_CUT, PATHS, path_scene
+    from tensorf_tpu_torch.train.loop import render_test
+
+    t0 = time.perf_counter()
+    cfg = load_config(LEGO, dict(LEGO_CUT, basedir=workdir))
+    views, _ = PATHS[LEGO]
+    scene = path_scene(LEGO, cfg)
+    print(f"cuts: lego_path: {cfg.n_iters} of 3000 steps with upsamples at {cfg.upsamp_list} "
+          f"and alpha masks at {cfg.update_AlphaMask_list} (config: [2000..7000], [2000, 4000]; "
+          f"the one event in reach, at 2000, moves to {LEGO_FIRST_SEGMENT}), LR decay over "
+          f"{cfg.lr_decay_iters}, evaluations at {cfg.vis_every} (2000) and of the final state "
+          f"(render_test {cfg.render_test}; the config sets none); the scene has Blender's "
+          f"{views['n_train']}/{views['n_test']} views at {views['wh'][0]}x{views['wh'][1]}, "
+          f"of which the {len(cfg.train_idxs)} train and {len(cfg.test_idxs)} test views the "
+          f"config selects are traced ({time.perf_counter() - t0:.1f} s); {cfg.model_name} "
+          f"ranks {cfg.n_lamb_sigma}/{cfg.n_lamb_sh}, app_dim {cfg.data_dim_color}, "
+          f"{cfg.shadingMode} shading (pe {cfg.pos_pe}/{cfg.view_pe}/{cfg.fea_pe}, featureC "
+          f"{cfg.featureC}), batch {cfg.batch_size}, sample_budget {cfg.sample_budget}, "
+          f"downsample {cfg.downsample_train}, L1 {cfg.L1_weight_inital}/{cfg.L1_weight_rest}, "
+          f"stratify {cfg.stratify}, stratify_render {cfg.stratify_render} as written", flush=True)
+    device_parity_phase(torch, cfg, scene, "lego_parity")
+    torch.cuda.empty_cache()
+
+    result, launches = drive(torch, "lego_path", cfg, scene, kernels, cfg.n_iters)
+    check(launches["scatter_add"] == 0, f"lego_path: TensorCP launched {launches} scatter-adds")
+    check(all(seg["strata"] > 0 for seg in result.segments),
+          "lego_path: a segment ran unstratified")
+    for e in result.events:
+        print("lego_path: event " + json.dumps(e), flush=True)
+    for plan in result.plans:
+        print("lego_path: plan " + json.dumps(plan), flush=True)
+    for seg in result.segments:
+        print("lego_path: segment " + json.dumps(seg), flush=True)
+    first, last = loss_fall(np, result.total_loss, LEGO_FIRST_SEGMENT)
+    psnr_first = result.test_psnrs[min(result.test_psnrs)]
+    psnr_final = float(np.mean(result.final_psnrs))
+    print(f"lego_path: loss first-5 mean {first:.6f} -> mean of steps "
+          f"{LEGO_FIRST_SEGMENT - 5}..{LEGO_FIRST_SEGMENT - 1} {last:.6f} (ratio "
+          f"{last / first:.4f}, bar {LEGO_LOSS_RATIO}: the plateau the CPU drive shows); test "
+          f"psnr iteration {min(result.test_psnrs)} {psnr_first:.4f} dB, final (iteration "
+          f"{cfg.n_iters - 1}) {psnr_final:.4f} dB over the {len(result.final_psnrs)} selected "
+          f"test views", flush=True)
+    check(last <= LEGO_LOSS_RATIO * first, f"lego_path: the loss rose to {last / first:.4f} of "
+          f"its start over the first segment, above the bar {LEGO_LOSS_RATIO}")
+    reloaded = render_test(dataclasses.replace(cfg, ckpt=result.final_path, render_test=1),
+                           selected_test_split(scene, cfg.test_idxs), "cuda", save_images=False,
+                           log=lambda m: None)
+    delta = abs(float(np.mean(reloaded)) - psnr_final)
+    print(f"render_only: lego_path's final checkpoint, its {len(reloaded)} selected test views: "
+          f"test psnr {float(np.mean(reloaded)):.6f} dB, |delta| {delta:.3g} (tol 1e-4)",
+          flush=True)
+    check(delta <= 1e-4, f"lego_path: the final checkpoint renders {np.mean(reloaded)}, not "
+          f"{psnr_final}")
+    final_path = result.final_path
+    del result
+    torch.cuda.empty_cache()
+    # a field the alpha mask found empty exports an empty mesh
+    mesh_export(torch, np, kernels, "mesh_lego", LEGO, final_path, min_verts=0)
+
+    l1_off = dataclasses.replace(cfg, L1_weight_inital=0.0, L1_weight_rest=0.0)
+    res, off_launches, untrained = first_segment(torch, np, "lego_l1_off", l1_off, scene,
+                                                 kernels, LEGO_FIRST_SEGMENT)
+    first, last = loss_fall(np, res.total_loss, LEGO_FIRST_SEGMENT)
+    print(f"lego_l1_off: loss first-5 mean {first:.6f} -> last-5 mean {last:.6f} (ratio "
+          f"{last / first:.4f}, bar {LEGO_L1_OFF_LOSS_RATIO}); test view 0 {res.test_psnr:.4f} dB "
+          f"against {untrained:.4f} untrained", flush=True)
+    check(last <= LEGO_L1_OFF_LOSS_RATIO * first and res.test_psnr > untrained,
+          f"lego_l1_off: the loss fell to {last / first:.4f} of its start (bar "
+          f"{LEGO_L1_OFF_LOSS_RATIO}), test psnr {res.test_psnr} against {untrained} untrained")
+    phase_done("lego_path", t0)
+    return launches["scatter_add"], off_launches["scatter_add"]
+
+
+def first_segment(torch, np, name, cfg, scene, kernels, steps, capture=None):
+    """``steps`` first-segment steps of ``cfg``'s path through
+    ``train_steps``, the launch counts set to 0 just before and read just
+    after (each step's statics say how many it calls for); ``capture(it,
+    state)`` runs after each step.  Returns (result, launches, untrained
+    test PSNR), the untrained field's PSNR on the same test view."""
+    from tensorf_tpu_torch.train.loop import build_statics, train_steps
+
+    untrained = train_steps(cfg, 0, device="cuda", scene=scene, log=lambda m: None).test_psnr
+    want = {"scatter_add": 0}
+
+    def count(it, state):
+        want["scatter_add"] += scatter_launches_per_step(build_statics(state), cfg.model_name)
+        if capture is not None:
+            capture(it, state)
+
+    for fn, *_ in kernels.values():
+        fn.launches = 0
+    result = train_steps(cfg, steps, device="cuda", scene=scene, on_step=count,
+                         log=lambda m: print(f"{name}: {m}", flush=True))
+    torch.cuda.synchronize()
+    launches = {k: v[0].launches for k, v in kernels.items()}
+    print(f"{name}: {cfg.model_name} {cfg.shadingMode}, {steps} steps at "
+          f"{result.grid_size}, {result.step_ms:.3f} ms/step, launches {launches} (want "
+          f"{want}); test view 0 psnr {result.test_psnr:.4f} dB (untrained "
+          f"{untrained:.4f})", flush=True)
+    check(launches == want, f"{name}: launches {launches}, want {want}")
+    check(np.all(np.isfinite(result.total_loss)), f"{name}: non-finite loss")
+    return result, launches, untrained
+
+
+def tensorvm_phase(torch, np, kernels, workdir, scene):
+    """configs/synth_full.txt with --model_name TensorVM over the main
+    path's first segment, at full width: one step's gradients kernel vs
+    plain, the per-stratum launch sum, the loss bar; returns the index
+    streams its last step hands the kernel and its launch counts."""
+    from tensorf_tpu_torch.config import load_config
+    from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = load_config("configs/synth_full.txt", dict(OVERRIDES, **CUT_SCHEDULE, basedir=workdir,
+                                                     model_name="TensorVM"))
+    step_parity_phase(torch, dev, cfg, scene, "tensorvm_parity")
+    torch.cuda.empty_cache()
+    streams = {}
+
+    def capture(it, state):
+        if it == FIRST_SEGMENT - 1:
+            # every stratum's render splits density from appearance here
+            # (top-64 below each width); the packed table is what the same
+            # step gathers where it shades every sample
+            streams.update(capture_streams(torch, state, "tensorvm_128", 0))
+            streams.update(capture_streams(torch, state, "tensorvm_128", 0, shade_top_k=None))
+
+    result, launches, untrained = first_segment(torch, np, "tensorvm", cfg, scene, kernels,
+                                                FIRST_SEGMENT, capture)
+    check(launches["scatter_add"] > 0, "tensorvm: the kernel never launched")
+    first, last = loss_fall(np, result.total_loss, FIRST_SEGMENT)
+    print(f"tensorvm: planes of {cfg.n_lamb_sh[0] + cfg.n_lamb_sigma[0]} channels; loss first-5 "
+          f"mean {first:.6f} -> mean of steps {FIRST_SEGMENT - 5}..{FIRST_SEGMENT - 1} "
+          f"{last:.6f} (ratio {last / first:.4f}, bar {TENSORVM_LOSS_RATIO}); streams "
+          f"{sorted(streams)}", flush=True)
+    check(last <= TENSORVM_LOSS_RATIO * first, f"tensorvm: the loss fell to {last / first:.4f} "
+          f"of its start, above the bar {TENSORVM_LOSS_RATIO}")
+    phase_done("tensorvm", t0)
+    return streams, launches
+
+
+def shading_phase(torch, np, kernels, workdir, scene):
+    """Each shading mode of SHADING_MODES on configs/synth_sphere.txt's
+    first segment: one step's gradients kernel vs plain, the launch sum, a
+    falling loss, and a test PSNR above the untrained field's.  Returns the
+    launch counts by mode."""
+    from tensorf_tpu_torch.config import load_config
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {}
+    for mode, dim in SHADING_MODES.items():
+        over = dict(basedir=workdir, shadingMode=mode)
+        if dim is not None:
+            over["data_dim_color"] = dim
+        cfg = load_config("configs/synth_sphere.txt", over)
+        step_parity_phase(torch, dev, cfg, scene, f"shading_{mode}_parity")
+        result, launches, untrained = first_segment(torch, np, f"shading_{mode}", cfg, scene,
+                                                    kernels, SPHERE_FIRST_SEGMENT)
+        check(launches["scatter_add"] > 0, f"shading_{mode}: the kernel never launched")
+        first, last = loss_fall(np, result.total_loss, SPHERE_FIRST_SEGMENT)
+        print(f"shading_{mode}: app_dim {cfg.data_dim_color}; loss first-5 mean {first:.6f} -> "
+              f"last-5 mean {last:.6f}; test psnr {result.test_psnr:.4f} dB against "
+              f"{untrained:.4f} untrained", flush=True)
+        check(last < first, f"shading_{mode}: the loss did not fall")
+        check(result.test_psnr > untrained, f"shading_{mode}: test psnr {result.test_psnr} does "
+              f"not beat the untrained field's {untrained}")
+        out[mode] = launches["scatter_add"]
+        torch.cuda.empty_cache()
+    phase_done("shading", t0)
+    return out
+
+
 def run_paths(torch, np, kernels, workdir) -> None:
-    """Phases 2-9; prints the kernels line."""
+    """Phases 2-14; prints the kernels line."""
     from tensorf_tpu_torch.config import load_config
     from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
     from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES, UNSTRATIFIED
@@ -1020,8 +1335,10 @@ def run_paths(torch, np, kernels, workdir) -> None:
     # ---- the second path: synth_sphere as written, counts to 0 again ----
     t0 = time.perf_counter()
     sphere_cfg = load_config("configs/synth_sphere.txt", dict(basedir=workdir))
-    sphere, _ = drive(torch, "sphere_path", sphere_cfg, make_synthetic_scene_arrays(**SPHERE),
-                      kernels, sphere_cfg.n_iters)
+    sphere_scene = make_synthetic_scene_arrays(**SPHERE)
+    sphere, sphere_launches = drive(torch, "sphere_path", sphere_cfg, sphere_scene, kernels,
+                                    sphere_cfg.n_iters)
+    check(all(sphere_launches.values()), f"sphere_path: a kernel never launched: {sphere_launches}")
     for plan in sphere.plans:
         print("sphere_path: plan " + json.dumps(plan), flush=True)
     check(all(seg["strata"] > 0 for seg in sphere.segments), "sphere_path: a segment ran "
@@ -1048,9 +1365,22 @@ def run_paths(torch, np, kernels, workdir) -> None:
     phase_done("mesh_sphere", t0)
 
     t0 = time.perf_counter()
-    resume_phase(torch, np, sphere_cfg, make_synthetic_scene_arrays(**SPHERE), sphere_psnr,
-                 workdir)
+    resume_phase(torch, np, sphere_cfg, sphere_scene, sphere_psnr, workdir)
     phase_done("resume", t0)
+
+    # ---- the slice's paths: lego (TensorCP, MLP), TensorVM, every shading mode ----
+    by_path = {"main_path": main_launches["scatter_add"],
+               "sphere_path": sphere_launches["scatter_add"]}
+    by_path["lego_path"], by_path["lego_l1_off"] = lego_phase(torch, np, kernels, workdir)
+    vm_streams, vm_launches = tensorvm_phase(torch, np, kernels, workdir, scene)
+    by_path["tensorvm"] = vm_launches["scatter_add"]
+    t0 = time.perf_counter()
+    vm_cases = [kernel_case(torch, name, *stream) for name, stream in vm_streams.items()]
+    del vm_streams
+    torch.cuda.empty_cache()
+    phase_done("tensorvm_streams", t0)
+    for mode, n in shading_phase(torch, np, kernels, workdir, sphere_scene).items():
+        by_path[f"shading_{mode}"] = n
 
     # the headline numbers are density_128's, the widest scatter of the
     # unstratified first segment; "shapes" carries every main-path shape
@@ -1073,8 +1403,11 @@ def run_paths(torch, np, kernels, workdir) -> None:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "shapes": [{k: c[k] for k in ("case", "M", "kernel_ms", "plain_ms", "bound_ms",
-                                      "library_ms")} for c in main_cases],
+        "shapes": [{k: c[k] for k in CASE_KEYS} for c in main_cases],
+        # each path's launches, its counts set to 0 just before it; TensorCP
+        # (lego_path) gathers no plane, so none
+        "launches_by_path": by_path,
+        "tensorvm_shapes": [{k: c[k] for k in CASE_KEYS} for c in vm_cases],
     } for name, (_, src, replaces, grids) in kernels.items()]}
     print(json.dumps(line), flush=True)
 

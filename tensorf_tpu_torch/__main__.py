@@ -17,8 +17,10 @@ only together with a render flag (and trains otherwise), and
 ``export_mesh`` after training exports the final checkpoint.  Each result
 is one JSON line.  Runs on the GPU unless ``--device cpu`` is given, and
 fails when no GPU is present.  ``--synthetic`` builds a procedural scene in
-memory (no files, no PIL) in place of reading ``datadir``.  A config runs
-as written; only ``ndc_ray`` is refused (not ported yet).
+memory (no files, no PIL) in place of reading ``datadir``; a training run
+traces only the views the config's ``train_idxs`` and ``test_idxs``
+select.  A config runs as written; only ``ndc_ray`` and the bf16 dtypes
+are refused (not ported yet).
 """
 
 from __future__ import annotations
@@ -92,14 +94,21 @@ def main(argv=None) -> int:
         _print_mesh(export_mesh(cfg, device=args.device))
         return 0
 
+    render_only = cfg.render_only and (cfg.render_test or cfg.render_path or cfg.render_train)
     scene = None
     if args.synthetic:
         n_train, n_test = (int(v) for v in args.synthetic_views.split(","))
+        views = None
+        if not (render_only or cfg.render_train):  # those read whole splits
+            # and frame 26 of each split, the progress figures' view
+            gift = [26] if args.save_images else []
+            views = {split: [*idxs, *gift] for split, idxs in (("train", cfg.train_idxs),
+                                                               ("test", cfg.test_idxs)) if idxs}
         scene = make_synthetic_scene_arrays(
             n_train=n_train, n_test=n_test, wh=(args.synthetic_wh, args.synthetic_wh),
-            scene=args.synthetic_scene,
+            scene=args.synthetic_scene, views=views,
         )
-    if cfg.render_only and (cfg.render_test or cfg.render_path or cfg.render_train):
+    if render_only:
         psnrs = render_test(cfg, scene, args.device, save_images=bool(args.save_images))
         print(json.dumps({"test_psnr": float(np.mean(psnrs)) if psnrs else None}))
         return 0
@@ -109,6 +118,10 @@ def main(argv=None) -> int:
             "steps": args.n_steps,
             "first_loss": result.total_loss[0] if result.total_loss else None,
             "last_loss": result.total_loss[-1] if result.total_loss else None,
+            # the means over the first and the last 5 steps, which chip_smoke.py's
+            # loss checks compare
+            "first5_loss": float(np.mean(result.total_loss[:5])) if result.total_loss else None,
+            "last5_loss": float(np.mean(result.total_loss[-5:])) if result.total_loss else None,
             "step_ms": result.step_ms,
             "test_psnr": result.test_psnr,
         }))

@@ -25,7 +25,7 @@ from .models.tensorf import spatial_label_tree
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat JAX params -> a state dict for ``TensorVMSplit.load_state_dict``
+    """Flat JAX params -> a state dict for a field's ``load_state_dict``
     (float32 CPU tensors; ``load_state_dict`` copies them to the field's
     device and rejects missing or unexpected names)."""
     return {

@@ -9,7 +9,7 @@ stores as PNGs — so BlenderDataset loads it with no files and no PIL.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -126,18 +126,22 @@ def make_synthetic_scene_arrays(
     cam_radius: float = 4.0,
     seed: int = 0,
     scene: str = "sphere",
+    views: Optional[Dict[str, Iterable[int]]] = None,
 ) -> Dict[str, dict]:
     """{split: transforms dict} with each frame's uint8 RGBA ``image``.
 
     ``scene``: "sphere" (one lambertian sphere) or "composite" (the
     checker-textured multi-sphere arrangement of configs/synth_full.txt).
     Same cameras and pixels as the JAX package's on-disk writer for the
-    same arguments.
+    same arguments.  ``views`` ({split: frame indices}) traces only those
+    frames of a split it names; the split's other frames keep their cameras
+    and carry an all-zero image, for a reader that selects the named ones.
     """
     if scene not in ("sphere", "composite"):
         raise ValueError(f"unknown synthetic scene {scene!r}")
     trace = _trace_composite if scene == "composite" else _trace_sphere
     rng = np.random.default_rng(seed)
+    views = None if views is None else {k: set(v) for k, v in views.items()}
     out = {}
     for split, n in (("train", n_train), ("test", n_test)):
         frames = []
@@ -148,7 +152,10 @@ def make_synthetic_scene_arrays(
                 [np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi), np.sin(phi)]
             )
             c2w = _look_at_c2w_opengl(pos)
-            img = trace(c2w, wh, camera_angle_x)
+            if views is not None and split in views and k not in views[split]:
+                img = np.zeros((wh[1], wh[0], 4))
+            else:
+                img = trace(c2w, wh, camera_angle_x)
             frames.append(
                 {
                     "file_path": f"./{split}/r_{k}",

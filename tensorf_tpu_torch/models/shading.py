@@ -1,10 +1,10 @@
-"""Shading head: the MLP_Fea branch (counterpart of
-tensorf_tpu/models/shading.py).
+"""Shading heads (counterpart of tensorf_tpu/models/shading.py): the MLP
+variants MLP_Fea, MLP_PE and MLP with their FreeNeRF PE masks, SH, and
+plain RGB.
 
-Weights keep the JAX layout, ``w (in, out)`` and ``b (out,)``, and the
+MLP weights keep the JAX layout, ``w (in, out)`` and ``b (out,)``, and the
 torch.nn.Linear default init U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with the
-last layer's bias zero.  The other shading modes (SH, RGB, MLP_PE, MLP)
-are not ported yet and raise.
+last layer's bias zero.  SH and RGB have no parameters.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops.encoding import positional_encoding
 from ..ops.freq_mask import FreeMasks
+from ..ops.sh import eval_sh_bases
 from .config import ModelConfig
 
 
@@ -40,23 +41,31 @@ class Linear(nn.Module):
         return x @ self.w + self.b
 
 
-def _require_mlp_fea(cfg: ModelConfig) -> None:
-    if cfg.shading_mode != "MLP_Fea":
-        raise NotImplementedError(
-            f"shading mode {cfg.shading_mode!r} is not ported yet (MLP_Fea only)"
-        )
+MODES = ("MLP_Fea", "MLP_PE", "MLP", "SH", "RGB")
+
+
+def _check(cfg: ModelConfig) -> None:
+    if cfg.shading_mode not in MODES:
+        raise ValueError(f"unrecognized shading mode {cfg.shading_mode}")
     if cfg.dtype != "float32":
         raise NotImplementedError("the shading MLP runs in float32 only")
 
 
 def mlp_in_dim(cfg: ModelConfig) -> int:
-    """Input width of the MLP_Fea shading MLP."""
-    _require_mlp_fea(cfg)
-    return 2 * cfg.view_pe * 3 + 2 * cfg.fea_pe * cfg.app_dim + 3 + cfg.app_dim
+    """Input width of the shading MLP (reference models/mlp.py:31/75/113)."""
+    mode = cfg.shading_mode
+    if mode == "MLP_Fea":
+        return 2 * cfg.view_pe * 3 + 2 * cfg.fea_pe * cfg.app_dim + 3 + cfg.app_dim
+    if mode == "MLP_PE":
+        return (3 + 2 * cfg.view_pe * 3) + (2 * cfg.pos_pe * 3) + cfg.app_dim
+    if mode == "MLP":
+        return (2 * cfg.pos_pe * 3 + 2 * cfg.view_pe * 3 + 2 * cfg.fea_pe * cfg.app_dim
+                + cfg.app_dim + 3)
+    raise ValueError(f"no MLP input dim for shading mode {mode}")
 
 
-class MLPFea(nn.Module):
-    """Three-layer MLP over [features, viewdirs, PE(features), PE(viewdirs)]."""
+class ShadingMLP(nn.Module):
+    """Three layers over the mode's input concatenation."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
@@ -66,8 +75,14 @@ class MLPFea(nn.Module):
         self.l3 = Linear(c, 3, generator, zero_bias=True)
 
 
-def init_shading(cfg: ModelConfig, generator: torch.Generator) -> MLPFea:
-    return MLPFea(cfg, generator)
+def init_shading(cfg: ModelConfig, generator: torch.Generator) -> nn.Module:
+    """The shading parameters: an MLP, or a module with none for the
+    parameter-free SH and RGB (the JAX package's ``{}``), so a field's
+    state dict and optimizer carry no ``render`` entries for them."""
+    _check(cfg)
+    if cfg.shading_mode in ("SH", "RGB"):
+        return nn.Module()
+    return ShadingMLP(cfg, generator)
 
 
 def _masked_pe(x: torch.Tensor, freqs: int, mask: Optional[torch.Tensor]):
@@ -77,7 +92,7 @@ def _masked_pe(x: torch.Tensor, freqs: int, mask: Optional[torch.Tensor]):
 
 def apply_shading(
     cfg: ModelConfig,
-    mlp: MLPFea,
+    mlp: nn.Module,
     pts: torch.Tensor,
     viewdirs: torch.Tensor,
     features: torch.Tensor,
@@ -85,15 +100,28 @@ def apply_shading(
 ) -> torch.Tensor:
     """points/viewdirs/features (M, ·) -> rgb (M, 3) in [0, 1].
 
-    The input concatenation order is the reference's MLP_Fea order.
-    ``pts`` is unused by MLP_Fea; it stays for the JAX signature.
+    ``pts`` are the normalized sample positions.  The input concatenation
+    order is each reference variant's (models/mlp.py:41-66, 85-107,
+    125-154).
     """
-    _require_mlp_fea(cfg)
+    _check(cfg)
+    mode = cfg.shading_mode
+    if mode == "SH":
+        sh_mult = eval_sh_bases(2, viewdirs)[:, None, :]  # (M, 1, 9)
+        rgb_sh = features.reshape(-1, 3, sh_mult.shape[-1])
+        return torch.relu(torch.sum(sh_mult * rgb_sh, dim=-1) + 0.5)
+    if mode == "RGB":
+        return features
+
     indata = [features, viewdirs]
-    if cfg.fea_pe > 0:
+    if mode in ("MLP_PE", "MLP") and cfg.pos_pe > 0:
+        indata.append(_masked_pe(pts, cfg.pos_pe, masks.pos))
+    if mode == "MLP_Fea" and cfg.fea_pe > 0:
         indata.append(_masked_pe(features, cfg.fea_pe, masks.fea))
     if cfg.view_pe > 0:
         indata.append(_masked_pe(viewdirs, cfg.view_pe, masks.view))
+    if mode == "MLP" and cfg.fea_pe > 0:
+        indata.append(_masked_pe(features, cfg.fea_pe, masks.fea))
     x = torch.cat(indata, dim=-1)
     x = torch.relu(mlp.l1(x))
     x = torch.relu(mlp.l2(x))

@@ -1,15 +1,16 @@
-"""Tensor factorizations: TensorVMSplit (counterpart of
-tensorf_tpu/models/tensorf.py), with the shape-changing schedule events
-(upsample, shrink).  TensorCP and TensorVM are not ported yet.
+"""Tensor factorizations (counterpart of tensorf_tpu/models/tensorf.py):
+TensorVMSplit, TensorCP and TensorVM, with the shape-changing schedule
+events (upsample, shrink).
 
 Layout, as in the JAX package:
   * plane factor i: (H, W, R) with H = grid[mat_mode[i][1]],
     W = grid[mat_mode[i][0]];
   * line factor i: (L, R) with L = grid[vec_mode[i]].
 
-Init scales follow the reference: 0.1·randn for planes and lines, and a
-bias-free linear basis with torch's default init.  Random init draws from
-a CPU generator, so a seed gives the same field on every device.
+Init scales follow the reference: 0.1·randn for VM planes and lines,
+0.2·randn for CP lines, and a bias-free linear basis with torch's default
+init.  Random init draws from a CPU generator, so a seed gives the same
+field on every device.
 """
 
 from __future__ import annotations
@@ -64,12 +65,88 @@ def _tv_2d(plane: torch.Tensor) -> torch.Tensor:
     return 2.0 * (h_tv / ((H - 1) * W * C) + w_tv / (H * (W - 1) * C))
 
 
+def _tv_1d(line: torch.Tensor) -> torch.Tensor:
+    """TV over the length axis of an (L, C) line: the reference's TVLoss on
+    a (1, R, L, 1) line, whose degenerate width term (0/0) is left out, as
+    the JAX package leaves it out."""
+    L, C = line.shape
+    return 2.0 * (torch.sum(torch.square(line[1:] - line[:-1])) / ((L - 1) * C))
+
+
 def _plane_shapes(ranks, grid_size):
     for i, (m0, m1) in enumerate(MAT_MODE):
         yield i, grid_size[m1], grid_size[m0], ranks[i]
 
 
-class TensorVMSplit(nn.Module):
+class _Field(nn.Module):
+    """What the factorizations share: the config checks, the factor lists
+    the schedule events act on (``PLANES`` and ``LINES``, ParameterLists of
+    three per axis), the grid size they span, upsample and shrink."""
+
+    name = "base"
+    PLANES: Tuple[str, ...] = ()
+    LINES: Tuple[str, ...] = ()
+
+    def _setup(self, cfg: ModelConfig, device, generator):
+        if cfg.model_name != self.name:
+            raise ValueError(f"a {cfg.model_name!r} config given to {self.name}")
+        if cfg.grid_dtype != "float32" or cfg.line_dtype != "float32":
+            raise NotImplementedError("factor grids and lines run in float32 only")
+        self.cfg = cfg
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        return resolve_device(device), generator
+
+    def _basis(self, fan_in: int, generator: torch.Generator) -> nn.Parameter:
+        bound = 1.0 / math.sqrt(fan_in)
+        return nn.Parameter(
+            (torch.rand((fan_in, self.cfg.app_dim), generator=generator) * 2.0 - 1.0) * bound
+        )
+
+    @property
+    def grid_size(self) -> Tuple[int, int, int]:
+        # line i spans grid axis VEC_MODE[i]; VEC_MODE = (2, 1, 0).
+        lines = getattr(self, self.LINES[0])
+        ls = [lines[i].shape[0] for i in range(3)]
+        return (ls[2], ls[1], ls[0])
+
+    # ---- shape-changing schedule events -----------------------------------
+    # Each replaces the factor Parameters with new ones (an optimizer built
+    # before the event holds the old ones and must be rebuilt).
+
+    def _replace_factors(self, make_plane, make_line) -> None:
+        for names, make in ((self.PLANES, make_plane), (self.LINES, make_line)):
+            for name in names:
+                factors = getattr(self, name)
+                for i in range(3):
+                    factors[i] = nn.Parameter(make(i, factors[i].detach()))
+
+    @torch.no_grad()
+    def upsample(self, grid_size) -> None:
+        """Bilinear align_corners resize of every factor to ``grid_size``
+        (X, Y, Z) (reference tensoRF.py:267-288)."""
+        g = tuple(int(v) for v in grid_size)
+        self._replace_factors(
+            lambda i, p: resize_bilinear_align_corners(p, g[MAT_MODE[i][1]], g[MAT_MODE[i][0]]),
+            lambda i, l: resize_linear_align_corners(l, g[VEC_MODE[i]]),
+        )
+
+    @torch.no_grad()
+    def shrink(self, t_l, b_r) -> None:
+        """Voxel-aligned crop of every factor to [t_l, b_r) per axis
+        (reference tensoRF.py:290-314)."""
+
+        def plane(i, p):
+            m0, m1 = MAT_MODE[i]
+            return p[t_l[m1] : b_r[m1], t_l[m0] : b_r[m0], :].clone()
+
+        def line(i, l):
+            return l[t_l[VEC_MODE[i]] : b_r[VEC_MODE[i]], :].clone()
+
+        self._replace_factors(plane, line)
+
+
+class TensorVMSplit(_Field):
     """Per-axis plane+line factors, separate density/appearance grids.
 
     Parameters (state-dict names match the JAX params' flat keys with
@@ -80,6 +157,8 @@ class TensorVMSplit(nn.Module):
 
     name = "TensorVMSplit"
     has_ortho = True
+    PLANES = ("density_plane", "app_plane")
+    LINES = ("density_line", "app_line")
 
     def __init__(
         self,
@@ -89,14 +168,7 @@ class TensorVMSplit(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        device = resolve_device(device)
-        if cfg.model_name != self.name:
-            raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet")
-        if cfg.grid_dtype != "float32" or cfg.line_dtype != "float32":
-            raise NotImplementedError("factor grids and lines run in float32 only")
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        self.cfg = cfg
+        device, generator = self._setup(cfg, device, generator)
         grid_size = tuple(int(g) for g in grid_size)
 
         def normal(*shape):
@@ -109,19 +181,9 @@ class TensorVMSplit(nn.Module):
                 lines.append(normal(grid_size[VEC_MODE[i]], R))
             setattr(self, f"{field}_plane", nn.ParameterList(planes))
             setattr(self, f"{field}_line", nn.ParameterList(lines))
-        fan_in = sum(cfg.app_n_comp)
-        bound = 1.0 / math.sqrt(fan_in)
-        self.basis = nn.Parameter(
-            (torch.rand((fan_in, cfg.app_dim), generator=generator) * 2.0 - 1.0) * bound
-        )
+        self.basis = self._basis(sum(cfg.app_n_comp), generator)
         self.render = init_shading(cfg, generator)
         self.to(device)
-
-    @property
-    def grid_size(self) -> Tuple[int, int, int]:
-        # line i spans grid axis VEC_MODE[i]; VEC_MODE = (2, 1, 0).
-        ls = [self.density_line[i].shape[0] for i in range(3)]
-        return (ls[2], ls[1], ls[0])
 
     # ---- features ---------------------------------------------------------
 
@@ -231,44 +293,211 @@ class TensorVMSplit(nn.Module):
     def tv_app(self) -> torch.Tensor:
         return sum(_tv_2d(p) * 1e-2 for p in self.app_plane)
 
-    # ---- shape-changing schedule events -----------------------------------
-    # Each replaces the factor Parameters with new ones (an optimizer built
-    # before the event holds the old ones and must be rebuilt).
 
-    def _replace_factors(self, make_plane, make_line) -> None:
-        for field in ("density", "app"):
-            planes = getattr(self, f"{field}_plane")
-            lines = getattr(self, f"{field}_line")
-            for i in range(3):
-                planes[i] = nn.Parameter(make_plane(i, planes[i].detach()))
-                lines[i] = nn.Parameter(make_line(i, lines[i].detach()))
+class TensorCP(_Field):
+    """Rank-R CP decomposition: three line factors per field (reference
+    tensoRF.py:330-484).
 
-    @torch.no_grad()
-    def upsample(self, grid_size) -> None:
-        """Bilinear align_corners resize of every factor to ``grid_size``
-        (X, Y, Z) (reference tensoRF.py:267-288)."""
-        g = tuple(int(v) for v in grid_size)
-        self._replace_factors(
-            lambda i, p: resize_bilinear_align_corners(p, g[MAT_MODE[i][1]], g[MAT_MODE[i][0]]),
-            lambda i, l: resize_linear_align_corners(l, g[VEC_MODE[i]]),
-        )
+    Parameters: ``density_line.i (L, R_den)``, ``app_line.i (L, R_app)``,
+    ``basis (R_app, app_dim)`` and the shading head under ``render``.  The
+    ranks are the first entries of the config's per-axis lists.
+    """
 
-    @torch.no_grad()
-    def shrink(self, t_l, b_r) -> None:
-        """Voxel-aligned crop of every factor to [t_l, b_r) per axis
-        (reference tensoRF.py:290-314)."""
+    name = "TensorCP"
+    has_ortho = False
+    LINES = ("density_line", "app_line")
 
-        def plane(i, p):
+    def __init__(self, cfg: ModelConfig, grid_size, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device, generator = self._setup(cfg, device, generator)
+        grid_size = tuple(int(g) for g in grid_size)
+        for field, r in (("density", cfg.density_n_comp[0]), ("app", cfg.app_n_comp[0])):
+            setattr(self, f"{field}_line", nn.ParameterList(
+                nn.Parameter(0.2 * torch.randn((grid_size[VEC_MODE[i]], r), generator=generator))
+                for i in range(3)))
+        self.basis = self._basis(cfg.app_n_comp[0], generator)
+        self.render = init_shading(cfg, generator)
+        self.to(device)
+
+    @staticmethod
+    def _line_product(lines, xyz: torch.Tensor) -> torch.Tensor:
+        prod = grid_sample_1d(lines[0], xyz[..., VEC_MODE[0]])
+        prod = prod * grid_sample_1d(lines[1], xyz[..., VEC_MODE[1]])
+        return prod * grid_sample_1d(lines[2], xyz[..., VEC_MODE[2]])  # (M, R)
+
+    @staticmethod
+    def _line_product_fused(lines, xyz: torch.Tensor) -> torch.Tensor:
+        prod = None
+        for i in range(3):
+            lv = _sample_line_packed(lines[i], xyz[..., VEC_MODE[i]])
+            prod = lv if prod is None else prod * lv
+        return prod
+
+    # The FreeNeRF rank mask applies once, its first axis's entry, to the
+    # product of the three lines (JAX tensorf.py:400-402, :430-433).
+
+    def density_feature(self, xyz: torch.Tensor, mask) -> torch.Tensor:
+        prod = self._line_product(self.density_line, xyz)
+        if mask is not None:
+            prod = prod * mask[0]
+        return torch.sum(prod, dim=-1)
+
+    def app_feature(self, xyz: torch.Tensor, mask) -> torch.Tensor:
+        prod = self._line_product(self.app_line, xyz)
+        if mask is not None:
+            prod = prod * mask[0]
+        return prod @ self.basis
+
+    def fused_features(self, xyz: torch.Tensor, den_mask, app_mask):
+        """One packed line matmul per axis -> (density (M,), appearance
+        (M, app_dim)): the density and appearance lines share each row."""
+        rd = self.cfg.density_n_comp[0]
+        lines = [torch.cat([self.density_line[i], self.app_line[i]], dim=-1) for i in range(3)]
+        prod = self._line_product_fused(lines, xyz)
+        dprod, aprod = prod[..., :rd], prod[..., rd:]
+        if den_mask is not None:
+            dprod = dprod * den_mask[0]
+        if app_mask is not None:
+            aprod = aprod * app_mask[0]
+        return torch.sum(dprod, dim=-1), aprod @ self.basis
+
+    def density_feature_fused(self, xyz: torch.Tensor, mask) -> torch.Tensor:
+        """Lines only: already the matmul path."""
+        prod = self._line_product_fused(self.density_line, xyz)
+        if mask is not None:
+            prod = prod * mask[0]
+        return torch.sum(prod, dim=-1)
+
+    def app_feature_fused(self, xyz: torch.Tensor, mask) -> torch.Tensor:
+        prod = self._line_product_fused(self.app_line, xyz)
+        if mask is not None:
+            prod = prod * mask[0]
+        return prod @ self.basis
+
+    def density_l1(self) -> torch.Tensor:
+        return sum(torch.mean(torch.abs(l)) for l in self.density_line)
+
+    def tv_density(self) -> torch.Tensor:
+        # CP's in-model factor is 1e-3 (reference tensoRF.py:474-478)
+        return sum(_tv_1d(l) * 1e-3 for l in self.density_line)
+
+    def tv_app(self) -> torch.Tensor:
+        return sum(_tv_1d(l) * 1e-3 for l in self.app_line)
+
+
+class TensorVM(_Field):
+    """The legacy shared-tensor VM variant (reference tensoRF.py:6-138):
+    one plane and one line per axis, each of ``R_app + R_den`` channels,
+    appearance in ``[:R_app]`` and density in ``[-R_den:]``.
+
+    Parameters: ``plane.i (H, W, R_app + R_den)``, ``line.i (L, R_app +
+    R_den)``, ``basis (3 R_app, app_dim)`` and the shading head under
+    ``render``.  Per-axis factors, as in the JAX package, so shrink crops
+    each axis on its own.
+
+    Its features ignore the FreeNeRF rank masks: the JAX package's
+    TensorVM never reads them (tensorf.py:554-628), and the port keeps
+    that.
+    """
+
+    name = "TensorVM"
+    has_ortho = True
+    PLANES = ("plane",)
+    LINES = ("line",)
+
+    def __init__(self, cfg: ModelConfig, grid_size, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device, generator = self._setup(cfg, device, generator)
+        grid_size = tuple(int(g) for g in grid_size)
+        r = cfg.app_n_comp[0] + cfg.density_n_comp[0]
+
+        def normal(*shape):
+            return nn.Parameter(0.1 * torch.randn(shape, generator=generator))
+
+        self.plane = nn.ParameterList(normal(H, W, r) for _, H, W, _ in
+                                      _plane_shapes((r,) * 3, grid_size))
+        self.line = nn.ParameterList(normal(grid_size[VEC_MODE[i]], r) for i in range(3))
+        self.basis = self._basis(3 * cfg.app_n_comp[0], generator)
+        self.render = init_shading(cfg, generator)
+        self.to(device)
+
+    # Every feature method below takes the rank masks and reads none, as
+    # the JAX package's TensorVM (tensorf.py:554-628).
+
+    def _gather(self, xyz: torch.Tensor, lo: int, hi: int):
+        for i in range(3):
             m0, m1 = MAT_MODE[i]
-            return p[t_l[m1] : b_r[m1], t_l[m0] : b_r[m0], :].clone()
+            p = grid_sample_2d(self.plane[i][:, :, lo:hi], xyz[..., [m0, m1]])
+            l = grid_sample_1d(self.line[i][:, lo:hi], xyz[..., VEC_MODE[i]])
+            yield p * l
 
-        def line(i, l):
-            return l[t_l[VEC_MODE[i]] : b_r[VEC_MODE[i]], :].clone()
+    def _fused(self, xyz: torch.Tensor, lo: int, hi: int):
+        for i in range(3):
+            m0, m1 = MAT_MODE[i]
+            plane = self.plane[i][:, :, lo:hi]
+            H, W, _ = plane.shape
+            p = footprint_sample_2d(make_footprint_2d(plane), H, W, xyz[..., [m0, m1]])
+            l = _sample_line_packed(self.line[i][:, lo:hi], xyz[..., VEC_MODE[i]])
+            yield p * l
 
-        self._replace_factors(plane, line)
+    def density_feature(self, xyz: torch.Tensor, mask) -> torch.Tensor:
+        r = self.plane[0].shape[-1]
+        feat = torch.zeros(xyz.shape[:-1], dtype=xyz.dtype, device=xyz.device)
+        for pl in self._gather(xyz, r - self.cfg.density_n_comp[0], r):
+            feat = feat + torch.sum(pl, dim=-1)
+        return feat
+
+    def app_feature(self, xyz: torch.Tensor, mask) -> torch.Tensor:
+        return torch.cat(list(self._gather(xyz, 0, self.cfg.app_n_comp[0])), dim=-1) @ self.basis
+
+    def fused_features(self, xyz: torch.Tensor, den_mask, app_mask):
+        """One footprint gather and one line matmul per axis serve both
+        fields: their channel ranges already share the rows."""
+        rd, ra = self.cfg.density_n_comp[0], self.cfg.app_n_comp[0]
+        den_feat = torch.zeros(xyz.shape[:-1], dtype=xyz.dtype, device=xyz.device)
+        app_coefs = []
+        for i in range(3):
+            m0, m1 = MAT_MODE[i]
+            plane = self.plane[i]
+            H, W, _ = plane.shape
+            pv = footprint_sample_2d(make_footprint_2d(plane), H, W, xyz[..., [m0, m1]])
+            lv = _sample_line_packed(self.line[i], xyz[..., VEC_MODE[i]])
+            den_feat = den_feat + torch.sum(pv[..., -rd:] * lv[..., -rd:], dim=-1)
+            app_coefs.append(pv[..., :ra] * lv[..., :ra])
+        return den_feat, torch.cat(app_coefs, dim=-1) @ self.basis
+
+    def density_feature_fused(self, xyz: torch.Tensor, mask) -> torch.Tensor:
+        """The density channel range's own footprint tables."""
+        r = self.plane[0].shape[-1]
+        feat = torch.zeros(xyz.shape[:-1], dtype=xyz.dtype, device=xyz.device)
+        for pl in self._fused(xyz, r - self.cfg.density_n_comp[0], r):
+            feat = feat + torch.sum(pl, dim=-1)
+        return feat
+
+    def app_feature_fused(self, xyz: torch.Tensor, mask) -> torch.Tensor:
+        return torch.cat(list(self._fused(xyz, 0, self.cfg.app_n_comp[0])), dim=-1) @ self.basis
+
+    def ortho_reg(self) -> torch.Tensor:
+        return sum(_off_diag_mean_abs(l) for l in self.line)
+
+    def density_l1(self) -> torch.Tensor:
+        # mean |.| over all plane entries plus over all line entries, whose
+        # per-axis shapes differ (JAX tensorf.py:638-646)
+        p_sum = sum(torch.sum(torch.abs(p)) for p in self.plane)
+        l_sum = sum(torch.sum(torch.abs(l)) for l in self.line)
+        return (p_sum / sum(p.numel() for p in self.plane)
+                + l_sum / sum(l.numel() for l in self.line))
+
+    def tv_density(self) -> torch.Tensor:
+        return sum(_tv_2d(p) * 1e-2 for p in self.plane)
+
+    def tv_app(self) -> torch.Tensor:
+        return torch.zeros((), device=self.basis.device)
 
 
-FIELD_MODELS = {TensorVMSplit.name: TensorVMSplit}
+FIELD_MODELS = {m.name: m for m in (TensorVMSplit, TensorCP, TensorVM)}
 
 
 def spatial_label_tree(field: nn.Module) -> Dict[str, str]:

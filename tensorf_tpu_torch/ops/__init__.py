@@ -13,3 +13,4 @@ from .rays import aabb_entry_exit, sample_along_rays
 from .render_math import exclusive_transmittance, raw2alpha
 from .resize import resize_bilinear_align_corners, resize_linear_align_corners
 from .scatter_add import scatter_add, scatter_add_reference
+from .sh import eval_sh, eval_sh_bases

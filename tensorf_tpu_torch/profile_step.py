@@ -1,19 +1,23 @@
 """Where a train step's or a served frame's device time goes: torch.profiler
 over a few steps, or over one frame.
 
-    python -m tensorf_tpu_torch.profile_step [--last_segment | --serve] [--unstratified]
+    python -m tensorf_tpu_torch.profile_step [--config configs/lego.txt]
+        [--last_segment | --serve] [--unstratified]
 
-Trains configs/synth_full.txt's model as the config is written (ray
-stratification, sample budgets and top-K shading on) on the in-memory
-composite scene (8 views, 200x200 px); ``--unstratified`` runs it with
-stratification and budgets off instead, as the port ran before it had
-them.  By default it takes WARMUP steps of the first (128^3) segment
+Trains a config's model as the config is written (ray stratification,
+sample budgets and top-K shading on) on its in-memory composite scene:
+configs/synth_full.txt (the default) on 8 views of 200x200 px, and
+configs/lego.txt on Blender's 100 train and 200 test views of 800x800 px
+(only the views its indices select are traced); ``--unstratified`` runs
+it with stratification and budgets off instead, as the port ran before
+it had them.  By default it takes WARMUP steps of the first (128^3) segment
 unprofiled, past the initial loss plateau, then profiles STEPS steps.
 With ``--last_segment`` it runs the cut schedule chip_smoke.py drives
-(CUT_SCHEDULE: 450 steps, both alpha-mask events, five upsamples to
-n_to_reso(300^3) on the shrunk bbox), profiles the last STEPS steps of
-every segment and prints each window's busy and idle share; the tables
-are the last segment's (masked, top-32, at the final grid).  It prints,
+(synth_full's CUT_SCHEDULE: 450 steps, both alpha-mask events, five
+upsamples to n_to_reso(300^3) on the shrunk bbox; lego's LEGO_CUT: 600
+steps, the upsample and alpha mask at 400), profiles the last STEPS steps
+of every segment and prints each window's busy and idle share; the tables
+are the last segment's.  It prints,
 per CUDA kernel, its device time per step and share, then the same time
 by the torch op (and input shapes) that launched it, the step's wall time,
 the device activities a step enqueues, and the device's busy and idle
@@ -23,8 +27,8 @@ The profiler slows the host, so the idle share is taken against the wall
 time of the STEPS unprofiled steps just before each profiled window (the
 profiled window's own wall time is printed beside it).  With ``--serve``
 it trains the cut schedule, then serves one 800x800 view of its final
-state (test pose 0, the focal scaled x4, rays built on the device by
-rays_from_pose) through the eval's handle (stratified serving): one
+state (test pose 0, the focal scaled to 800x800, rays built on the
+device by rays_from_pose) through the eval's handle (stratified serving): one
 warm frame, one timed frame, one profiled frame, and the same busy, idle
 and table rows per frame.  Needs a GPU.
 """
@@ -46,6 +50,7 @@ from .render.chunked import rays_from_pose
 from .train.loop import make_handle, reconstruction, train_steps
 
 CONFIG = "configs/synth_full.txt"
+LEGO = "configs/lego.txt"
 OVERRIDES = dict(progress_refresh_rate=10**9)
 # the port's drive before it had stratification and budgets
 UNSTRATIFIED = dict(stratify=0, sample_budget=0, prefilter_budget=0)
@@ -58,12 +63,45 @@ UNSTRATIFIED = dict(stratify=0, sample_budget=0, prefilter_budget=0)
 CUT_SCHEDULE = dict(n_iters=450, lr_decay_iters=30000, upsamp_list=[200, 250, 300, 350, 400],
                     update_AlphaMask_list=[200, 300], vis_every=200, save_ckpt_every=[],
                     progress_refresh_rate=25)
+# configs/lego.txt's 3000-step schedule cut to 600 steps as CUT_SCHEDULE
+# cuts synth_full's: its one event in reach (upsample and alpha mask at
+# 2000) moves to the same fraction of the run, 400, the later ones alike,
+# out of reach.  The LR decays over the config's 3000 steps.  The test set
+# is scored at 400 (vis_every 2000, cut alike) and after the last step
+# (render_test, which lego.txt leaves off).
+LEGO_CUT = dict(n_iters=600, lr_decay_iters=3000, upsamp_list=[400, 600, 800, 1100, 1400],
+                update_AlphaMask_list=[400, 800], vis_every=400, train_vis_every=400,
+                render_test=1)
+# each config's in-memory scene and cut schedule; lego's scene has
+# Blender's split sizes, so its train_idxs and test_idxs select as written
+PATHS = {
+    CONFIG: (dict(n_train=8, n_test=2, wh=(200, 200), scene="composite"), CUT_SCHEDULE),
+    LEGO: (dict(n_train=100, n_test=200, wh=(800, 800), scene="composite"), LEGO_CUT),
+}
 WARMUP = 160
 STEPS = 5
 TOP = 25
-# the served view: the scene's 200x200 test camera at 4x the resolution,
-# synth_full's (and Blender's) 800x800 test views
+# the served view: a test camera at synth_full's (and Blender's) 800x800
+# test resolution; synth_full's 200x200 scene scales its focal x4
+SERVE_WH = 800
 SERVE_SCALE = 4
+
+
+def path_scene(config: str, cfg):
+    """``config``'s in-memory scene (PATHS), tracing only the views that
+    ``cfg``'s train_idxs and test_idxs select, where it sets them."""
+    scene, _ = PATHS[config]
+    views = {split: idxs for split, idxs in (("train", cfg.train_idxs), ("test", cfg.test_idxs))
+             if idxs}
+    return make_synthetic_scene_arrays(**scene, views=views or None)
+
+
+def schedule_ends(cut) -> list:
+    """The last step of each segment of a cut schedule: the step before
+    each event in reach, and the run's last step."""
+    events = sorted(e for e in {*cut["upsamp_list"], *cut["update_AlphaMask_list"]}
+                    if e < cut["n_iters"])
+    return events + [cut["n_iters"] - 1]
 
 
 def serving_view(test_ds, scale: int, device):
@@ -105,6 +143,8 @@ def _busy_ms(events) -> float:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default=CONFIG, choices=sorted(PATHS),
+                        help="the config to train, on its in-memory scene")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--last_segment", action="store_true",
                       help="profile the end of every segment of the cut schedule, "
@@ -116,11 +156,11 @@ def main(argv=None) -> int:
                         help="stratification and sample budgets off")
     args = parser.parse_args(argv)
     overrides = dict(OVERRIDES, **(UNSTRATIFIED if args.unstratified else {}))
-    scene = make_synthetic_scene_arrays(n_train=8, n_test=2, wh=(200, 200), scene="composite")
+    cut = PATHS[args.config][1]
     # (first step, profiler, profiled wall s, wall s of the unprofiled steps before)
     windows = []
     if args.last_segment:
-        ends = sorted(CUT_SCHEDULE["upsamp_list"]) + [CUT_SCHEDULE["n_iters"] - 1]
+        ends = schedule_ends(cut)
     elif args.serve:
         ends = []
     else:
@@ -155,12 +195,13 @@ def main(argv=None) -> int:
 
     if args.last_segment or args.serve:
         with tempfile.TemporaryDirectory() as tmp:
-            cfg = load_config(CONFIG, dict(overrides, **CUT_SCHEDULE, basedir=tmp, render_test=0))
-            result = reconstruction(cfg, scene, "cuda", save_images=False, on_step=on_step,
-                                    log=lambda s: None)
+            cfg = load_config(args.config, {**overrides, **cut, "basedir": tmp, "render_test": 0})
+            result = reconstruction(cfg, path_scene(args.config, cfg), "cuda", save_images=False,
+                                    on_step=on_step, log=lambda s: None)
         last = result.segments[-1]
         where = (f"the last {STEPS} steps of the cut schedule: grid {last['grid']}, "
-                 f"{last['n_samples']} samples, alpha mask, top-{cfg.shade_top_k}, "
+                 f"{last['n_samples']} samples, alpha mask {last['masked']}, "
+                 f"top-{cfg.shade_top_k}, "
                  f"{last['strata']} strata, budgets {last['budgets']}, "
                  f"lattices {last['lattices']}")
         for seg, (first, prof, wall, plain) in zip(result.segments, windows):
@@ -168,14 +209,15 @@ def main(argv=None) -> int:
                   f"grid {seg['grid']} strata {seg['strata']} density samples/step "
                   f"{seg['samples_per_step']}: {summary(prof, wall, plain)}")
     else:
-        cfg = load_config(CONFIG, overrides)
-        train_steps(cfg, WARMUP + STEPS, device="cuda", scene=scene, on_step=on_step,
-                    log=lambda s: None)
+        cfg = load_config(args.config, overrides)
+        train_steps(cfg, WARMUP + STEPS, device="cuda", scene=path_scene(args.config, cfg),
+                    on_step=on_step, log=lambda s: None)
         where = f"{STEPS} profiled steps after {WARMUP}"
     if args.serve:
         state = result.state
         handle = make_handle(state)
-        directions, c2w = serving_view(state.test_ds, SERVE_SCALE, "cuda")
+        directions, c2w = serving_view(state.test_ds, SERVE_WH // state.test_ds.img_wh[0],
+                                       "cuda")
 
         def frame():  # the eval's render; returns host arrays
             return handle.render(rays_from_pose(directions, c2w))
@@ -204,8 +246,9 @@ def main(argv=None) -> int:
         and e.key not in annotations
     ]
     busy_ms = _busy_ms(prof.events()) / per
-    print(f"{torch.cuda.get_device_name(0)}; {'unstratified' if args.unstratified else 'as written'}; "
-          f"{where}")
+    print(f"{torch.cuda.get_device_name(0)}; {args.config} "
+          f"{'unstratified' if args.unstratified else 'as written'}; {cfg.model_name} "
+          f"{cfg.shadingMode}; {where}")
     print(f"{summary(prof, wall, plain)}; kernel rows sum to "
           f"{sum(ms for _, ms, _ in rows):.3f} ms/{unit}")
     print(f"{'ms/' + unit:>9} {'share':>6} {'calls':>6}  kernel")

@@ -212,8 +212,8 @@ def render_rays(
 ) -> RenderOutput:
     """Volume-render a batch of rays (B, 6) -> RenderOutput.
 
-    ``field`` is a TensorVMSplit; ``masks`` the per-step FreeNeRF bundle;
-    ``alpha_mask`` (or None) gates samples by occupancy.
+    ``field`` is a field of models/tensorf.py; ``masks`` the per-step
+    FreeNeRF bundle; ``alpha_mask`` (or None) gates samples by occupancy.
     Where the JAX version takes a key, this takes the noise itself: ``u``
     (B, 1) is the per-ray lattice jitter and ``flip`` (scalar 0/1) the
     train-time random white-background flip for datasets whose background

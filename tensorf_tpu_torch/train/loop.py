@@ -196,7 +196,7 @@ class TrainState:
                 resume_extra = ck_extra
         else:
             if cfg.model_name not in FIELD_MODELS:
-                raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet")
+                raise ValueError(f"unknown model {cfg.model_name!r}")
             model_cfg = model_config_from(cfg).replace(near_far=self.near_far)
             grid_size = n_to_reso(cfg.N_voxel_init, aabb)
             self.field = FIELD_MODELS[cfg.model_name](
@@ -1091,7 +1091,7 @@ def train_steps(
     scene: Optional[Dict[str, dict]] = None,
     chunk: int = 4096,
     log: Callable[[str], None] = print,
-    on_step: Optional[Callable[[int], None]] = None,
+    on_step: Optional[Callable[[int, TrainState], None]] = None,
 ) -> TrainResult:
     """Train ``n_steps`` steps of the first segment, then render test view 0.
 
@@ -1100,7 +1100,7 @@ def train_steps(
     ``cfg.datadir`` from disk.  With ``cfg.ckpt_path`` set the steps start
     from that checkpoint's field, grid and mask.  The store is stratified
     once, before the first step; budgets are not auto-raised here.
-    ``on_step(it)`` runs after each step is enqueued (profile_step.py
+    ``on_step(it, state)`` runs after each step is enqueued (profile_step.py
     brackets steps with it).
     """
     device = resolve_device(device)
@@ -1132,7 +1132,7 @@ def train_steps(
             _sync(device)
             t_first = time.perf_counter()
         if on_step is not None:
-            on_step(it)
+            on_step(it, state)
     _sync(device)
     step_ms = (
         (time.perf_counter() - t_first) * 1e3 / (n_steps - 1) if n_steps > 1 else math.nan

@@ -76,7 +76,7 @@ def load_checkpoint(path: str, device=None):
         k: (tuple(v) if isinstance(v, list) else v) for k, v in kwargs.items() if k in names
     })
     if cfg.model_name not in FIELD_MODELS:
-        raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet")
+        raise ValueError(f"unknown model {cfg.model_name!r}")
     field = FIELD_MODELS[cfg.model_name](cfg, grid_size, device)
     field.load_state_dict(params_from_jax({
         k[len("params/"):]: data[k] for k in data.files if k.startswith("params/")

@@ -131,6 +131,48 @@ def test_port_checkpoint_loads_and_renders_in_jax(rng, tmp_path):
         np.testing.assert_allclose(got, want, **FWD)
 
 
+# every model with an MLP head, SH (27 = 3 x 9 features) and RGB (3)
+CROSS_MODES = {"MLP": 6, "SH": 27, "RGB": 3}
+
+
+@pytest.mark.parametrize("mode", list(CROSS_MODES))
+@pytest.mark.parametrize("model", ["TensorVMSplit", "TensorCP", "TensorVM"])
+def test_every_model_and_mode_crosses_both_ways(rng, tmp_path, model, mode):
+    """A JAX checkpoint of each model and head loads in the port and renders
+    what JAX renders; the port's checkpoint of that field loads in JAX with
+    the same config and arrays (none under render/ for SH and RGB)."""
+    ranks = (2, 3, 4) if model == "TensorVMSplit" else (3,)
+    cfg = dataclasses.replace(CFG, model_name=model, shading_mode=mode,
+                              app_dim=CROSS_MODES[mode], density_n_comp=ranks,
+                              app_n_comp=ranks[::-1])
+    params = FIELD_MODELS[model].init(jax.random.PRNGKey(6), cfg, GRID)
+    vol = (rng.uniform(size=(9, 8, 7)) < 0.3).astype(np.float32)
+    mask = jam.with_dilation(jam.AlphaGridMask(aabb=jnp.asarray(AABB), volume=jnp.asarray(vol)))
+    jpath = str(tmp_path / "j.npz")
+    jckpt.save_checkpoint(jpath, cfg, params, AABB, GRID, mask)
+    tcfg, field, aabb, grid, pmask, _ = tckpt.load_checkpoint(jpath, device="cpu")
+    assert type(field).__name__ == model and dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
+    assert grid == GRID == field.grid_size
+    rays = _rays(rng, 24)
+    out = j_render(FIELD_MODELS[model], cfg, params, mask, jnp.asarray(rays), None, JMasks(),
+                   aabb=jnp.asarray(AABB), is_train=False, ndc_ray=False, **RENDER)
+    for got, want in zip(_port_render(field, pmask, aabb, rays, **RENDER),
+                         (np.asarray(out.rgb), np.asarray(out.depth))):
+        np.testing.assert_allclose(got, want, **FWD)
+
+    ppath = tckpt.save_checkpoint(str(tmp_path / "port"), field, aabb, pmask)
+    assert bool([k for k in np.load(ppath).files if k.startswith("params/render/")]) == (mode == "MLP")
+    cfg2, jparams, aabb2, grid2, jmask, _ = jckpt.load_checkpoint(ppath)
+    assert cfg2 == cfg and grid2 == GRID
+    np.testing.assert_array_equal(aabb2, AABB)
+    np.testing.assert_array_equal(np.asarray(jmask.volume), vol)
+    want = _flat(params)
+    got = _flat(jparams)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(np.asarray(got[k]), v)
+
+
 def test_metrics_match_jax(rng):
     a = rng.uniform(size=(20, 24, 3)).astype(np.float32)
     b = np.clip(a + 0.05 * rng.normal(size=a.shape), 0, 1).astype(np.float32)

@@ -185,6 +185,49 @@ def _rays(rng, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("model,mode,app_dim,scatters",
+                         [("TensorCP", "MLP", 9, 0), ("TensorVM", "SH", 27, 6)],
+                         ids=["TensorCP_MLP", "TensorVM_SH"])
+def test_cp_and_vm_steps_on_the_card_match_the_cpu(model, mode, app_dim, scatters):
+    """One top-K train step of TensorCP (no plane: no scatter-add) and of
+    TensorVM (its density and appearance plane tables: 6), card against
+    CPU: the same loss and every gradient."""
+    import copy
+
+    from tensorf_tpu_torch.models import FIELD_MODELS, ModelConfig
+    from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
+
+    _need_gpu()
+    cfg = ModelConfig(model_name=model, density_n_comp=(4,), app_n_comp=(6,), app_dim=app_dim,
+                      shading_mode=mode, pos_pe=2, view_pe=2, fea_pe=2, feature_c=32,
+                      density_shift=-3.0)
+    field = FIELD_MODELS[model](cfg, (20, 22, 24), "cpu", torch.Generator().manual_seed(3))
+    statics = TrainStatics(n_samples=96, step_size=0.05, white_bg=True, ndc_ray=False,
+                           total_steps=100, lr_factor=0.99, shade_top_k=16, fused=True,
+                           weights=LossWeights(ortho=0.01, l1=8e-5, tv_density=0.01,
+                                               tv_app=0.01))
+    rng = np.random.default_rng(4)
+    rays, rgbs = _rays(rng, 256), torch.from_numpy(rng.uniform(size=(256, 3)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=(256, 1)).astype(np.float32))
+    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        f = copy.deepcopy(field).to(dev)
+        before = scatter_add.launches
+        total, _ = loss_fn(f, statics, aabb.to(dev), rays.to(dev), rgbs.to(dev), 3, u.to(dev),
+                           torch.tensor(0.0, device=dev))
+        total.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert scatter_add.launches - before == scatters
+        out[dev] = (float(total.detach()),
+                    {n: p.grad.cpu().numpy() for n, p in f.named_parameters()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for name, g in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][name], g, err_msg=name, **TOL)
+
+
+@pytest.mark.cuda
 def test_masked_render_on_the_card_matches_the_cpu():
     """The masked render and its gradients, card (kernel backward) against
     CPU (plain backward): same field, mask, rays and jitter."""

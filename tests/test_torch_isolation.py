@@ -22,10 +22,10 @@ def test_port_imports_with_jax_blocked():
         "from tensorf_tpu_torch.train import loop\n"
         "from tensorf_tpu_torch.utils import ckpt, misc, watchdog\n"
         "from tensorf_tpu_torch.models import alpha_mask\n"
-        "from tensorf_tpu_torch.ops import resize\n"
+        "from tensorf_tpu_torch.ops import resize, sh\n"
         "from tensorf_tpu_torch.render import chunked, culling\n"
         "from tensorf_tpu_torch.eval import evaluation, mesh, metrics, vis\n"
-        "from tensorf_tpu_torch import profile_step\n"
+        "from tensorf_tpu_torch import profile_step, seed_spread\n"
         "assert not {'imageio', 'PIL', 'matplotlib', 'tensorboardX'} & set(sys.modules)\n"
         "bad = [m for m, mod in sys.modules.items()"
         " if mod is not None and m.split('.')[0] in ('jax', 'tensorf_tpu')]\n"

@@ -35,6 +35,7 @@ from tensorf_tpu_torch.config import TrainConfig
 from tensorf_tpu_torch.convert import optimizer_from_jax, optimizer_to_jax, params_from_jax
 from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
 from tensorf_tpu_torch.models import ModelConfig as TConfig
+from tensorf_tpu_torch.models import FIELD_MODELS as T_MODELS
 from tensorf_tpu_torch.models import TensorVMSplit
 from tensorf_tpu_torch.train import LossWeights as TWeights
 from tensorf_tpu_torch.train import TrainStatics as TStatics
@@ -365,6 +366,81 @@ def test_adam_update_from_carried_state_matches_jax(rng):
     for name, p in field.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), flat[name.replace(".", "/")], rtol=1e-5,
                                    atol=1e-5, err_msg=name)
+    for x, y in zip(optimizer_to_jax(opt, field), jax.tree_util.tree_leaves(opt_state)):
+        if x.ndim == 0:
+            assert int(x) == int(y) == 4
+        else:
+            np.testing.assert_allclose(x, np.asarray(y), rtol=1e-5, atol=1e-5)
+
+
+# TensorCP with an MLP head (configs/lego.txt's) and TensorVM with SH: their
+# Adam state in the optax layout (sorted keys: CP app_line, basis,
+# density_line, render; VM basis, line, plane) and one step from it
+OTHER = {
+    "TensorCP_MLP": dataclasses.replace(CFG, model_name="TensorCP", density_n_comp=(3,),
+                                        app_n_comp=(4,), shading_mode="MLP"),
+    "TensorVM_SH": dataclasses.replace(CFG, model_name="TensorVM", density_n_comp=(3,),
+                                       app_n_comp=(2,), app_dim=27, shading_mode="SH"),
+}
+
+
+@pytest.mark.parametrize("name", list(OTHER))
+def test_cp_and_vm_adam_state_crosses_by_value(rng, tmp_path, name):
+    cfg = OTHER[name]
+    JM = FIELD_MODELS[cfg.model_name]
+    grid = (12, 13, 14)
+    params = JM.init(jax.random.PRNGKey(5), cfg, grid)
+    tx, opt_state = j_make_optimizer(params, 0.02, 1e-3, 0.99)
+    for _ in range(3):
+        grads = jax.tree_util.tree_map(
+            lambda p: jnp.asarray(rng.normal(scale=1e-2, size=p.shape), jnp.float32), params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
+    flat = {}
+    jckpt._flatten("", params, flat)
+    field = T_MODELS[cfg.model_name](TConfig(**dataclasses.asdict(cfg)), grid, device="cpu")
+    field.load_state_dict(params_from_jax(flat))
+    opt = make_optimizer(field, 0.02, 1e-3, 0.99)
+    leaves = jax.tree_util.tree_leaves(opt_state)
+    optimizer_from_jax(opt, field, leaves)
+    # back out by value, leaf for leaf, in the optax order
+    back = optimizer_to_jax(opt, field)
+    assert [np.shape(x) for x in back] == [np.shape(y) for y in leaves]
+    for x, y in zip(back, leaves):
+        np.testing.assert_array_equal(x, np.asarray(y))
+    # a resumable port checkpoint's leaves rebuild the optax state in JAX
+    path = tckpt.save_checkpoint(str(tmp_path / "r"), field, AABB, opt_leaves=back,
+                                 extra={"iteration": 3})
+    rebuilt = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(opt_state),
+                                           [jnp.asarray(x) for x in jckpt.load_opt_leaves(path)])
+    for x, y in zip(jax.tree_util.tree_leaves(rebuilt), leaves):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+    # one step from the carried state in each package
+    o = rng.normal(size=(64, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True) + 0.1 * rng.normal(size=(64, 3))
+    rays = np.concatenate([o, d], -1).astype(np.float32)
+    rgbs = rng.uniform(size=(64, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(13)
+    weights = dict(WEIGHTS, ortho=WEIGHTS["ortho"] if "VM" in cfg.model_name else 0.0)
+    j_step = j_make_train_step(JM, cfg, JStatics(weights=JWeights(**weights), **STATICS), tx)
+    params, opt_state, _ = j_step(params, opt_state, None, jnp.asarray(AABB), jnp.asarray(rays),
+                                  jnp.asarray(rgbs), jnp.asarray(3), key)
+    k_strat, k_bg = jax.random.split(key)
+    u = torch.from_numpy(np.array(jax.random.uniform(k_strat, (64, 1), dtype=jnp.float32)))
+    flip = torch.tensor(float(jax.random.uniform(k_bg, ()) < 0.5))
+    opt.zero_grad()
+    total, _ = loss_fn(field, TStatics(weights=TWeights(**weights), **STATICS),
+                       torch.from_numpy(AABB), torch.from_numpy(rays), torch.from_numpy(rgbs), 3,
+                       u, flip)
+    total.backward()
+    opt.step()
+    flat = {}
+    jckpt._flatten("", params, flat)
+    for n, p in field.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), flat[n.replace(".", "/")], rtol=1e-5,
+                                   atol=1e-5, err_msg=n)
     for x, y in zip(optimizer_to_jax(opt, field), jax.tree_util.tree_leaves(opt_state)):
         if x.ndim == 0:
             assert int(x) == int(y) == 4

@@ -95,3 +95,52 @@ def test_same_render_tells_shading_flips_from_differences(scene, case):
     assert e_depth == pytest.approx(float(np.abs(got_depth - depth).max()))
     assert flips == int((np.abs(got_rgb - rgb) > 1e-5 + 1e-5 * np.abs(rgb)).any(-1).sum())
     assert flips == (1 if times or plus > 1e-5 else 0)
+
+
+@pytest.mark.parametrize("model", ["TensorVMSplit", "TensorCP", "TensorVM"])
+@pytest.mark.parametrize("fused,top_k", [(True, 16), (True, None), (False, 16)],
+                         ids=["fused_topk", "fused_all", "unfused"])
+def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_k):
+    """chip_smoke.py's expected launch count of a step equals the plane and
+    line row gathers the step's backward scatters, counted on the CPU, for
+    every model: with strata (one render each, one width under top-K and
+    one above it) and without."""
+    from unittest import mock
+
+    from tensorf_tpu_torch.models import FIELD_MODELS
+    from tensorf_tpu_torch.ops import grid_sample
+    from tensorf_tpu_torch.ops.scatter_add import scatter_add_reference
+    from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
+
+    ranks = (3, 3, 3) if model == "TensorVMSplit" else (3,)
+    cfg = ModelConfig(model_name=model, density_n_comp=ranks, app_n_comp=ranks, app_dim=6,
+                      shading_mode="MLP_Fea", feature_c=8, density_shift=-3.0)
+    field = FIELD_MODELS[model](cfg, (10, 11, 12), "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    o = rng.normal(size=(48, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True) + 0.1 * rng.normal(size=(48, 3))
+    rays = torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32))
+    rgbs = torch.rand((48, 3), generator=torch.Generator().manual_seed(2))
+    u = torch.rand((48, 1), generator=torch.Generator().manual_seed(3))
+    common = dict(n_samples=64, step_size=0.06, white_bg=True, ndc_ray=False, total_steps=10,
+                  lr_factor=1.0, weights=LossWeights(), shade_top_k=top_k, fused=fused)
+    cases = [
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0)),
+        (TrainStatics(**common, strata_budgets=(16, None), strata_n_samples=(64, 64),
+                      strata_loss_weights=(0.5, 0.5)),
+         (rays[:24], rays[24:]), (rgbs[:24], rgbs[24:]), (u[:24], u[24:]),
+         (torch.tensor(0.0), torch.tensor(0.0))),
+    ]
+    for statics, rays_, rgbs_, u_, flip in cases:
+        calls = []
+
+        def counting(idx, g, n_rows):
+            calls.append(g.shape[1])
+            return scatter_add_reference(idx, g, n_rows)
+
+        field.zero_grad(set_to_none=True)
+        with mock.patch.object(grid_sample, "scatter_add", counting):
+            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
+            total.backward()
+        assert len(calls) == chip_smoke.scatter_launches_per_step(statics, model)

@@ -10,6 +10,7 @@ ill-conditioned.
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,10 @@ from tensorf_tpu_torch.convert import params_from_jax
 from tensorf_tpu_torch.data.blender import BlenderDataset as TBlender
 from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
 from tensorf_tpu_torch.models import ModelConfig as TConfig
+from tensorf_tpu_torch.models import FIELD_MODELS as T_MODELS
 from tensorf_tpu_torch.models import TensorVMSplit
+from tensorf_tpu_torch.ops import grid_sample
+from tensorf_tpu_torch.ops.scatter_add import scatter_add_reference
 from tensorf_tpu_torch.train import LossWeights as TWeights
 from tensorf_tpu_torch.train import SimpleSampler
 from tensorf_tpu_torch.train import TrainStatics as TStatics
@@ -184,6 +188,93 @@ def test_loss_trajectory_follows_jax(rng):
         )
 
 
+# TensorCP with MLP shading (configs/lego.txt's pair) and TensorVM with SH
+OTHER_MODELS = {
+    "TensorCP_MLP": dataclasses.replace(CFG, model_name="TensorCP", density_n_comp=(3,),
+                                        app_n_comp=(5,), shading_mode="MLP"),
+    "TensorVM_SH": dataclasses.replace(CFG, model_name="TensorVM", density_n_comp=(3,),
+                                       app_n_comp=(4,), app_dim=27, shading_mode="SH"),
+}
+# scatter-adds of one fused top-K step: CP gathers no plane; TensorVM's
+# density and appearance channel ranges each gather their 3 plane tables
+OTHER_SCATTERS = {"TensorCP_MLP": 0, "TensorVM_SH": 6}
+
+
+def _other(name, seed):
+    cfg = OTHER_MODELS[name]
+    params = FIELD_MODELS[cfg.model_name].init(jax.random.PRNGKey(seed), cfg, GRID)
+    field = T_MODELS[cfg.model_name](TConfig(**dataclasses.asdict(cfg)), GRID, device="cpu")
+    field.load_state_dict(params_from_jax(_flat(params)))
+    return cfg, params, field
+
+
+def _weights(cfg):
+    # the loop's rule: the ortho weight applies to the VM models only
+    return dict(WEIGHTS, ortho=WEIGHTS["ortho"] if "VM" in cfg.model_name else 0.0)
+
+
+def _noise(key, n):
+    k_strat, k_bg = jax.random.split(key)
+    return (t(jax.random.uniform(k_strat, (n, 1), dtype=jnp.float32)),
+            t((jax.random.uniform(k_bg, ()) < 0.5).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("name", list(OTHER_MODELS))
+def test_one_step_gradients_match_jax_for_cp_and_vm(rng, name):
+    cfg, params, field = _other(name, 4)
+    rays, rgbs = _batch(rng, 64)
+    key = jax.random.PRNGKey(12)
+    weights = _weights(cfg)
+    tx = _capture_grads()
+    j_step = j_make_train_step(FIELD_MODELS[cfg.model_name], cfg,
+                               JStatics(weights=JWeights(**weights), **STATICS), tx)
+    _, opt_state, metrics = j_step(params, tx.init(params), None, jnp.asarray(AABB),
+                                   jnp.asarray(rays), jnp.asarray(rgbs), jnp.asarray(3), key)
+    j_grads = _flat(opt_state["g"])
+    calls = []
+
+    def counting(idx, g, n_rows):
+        calls.append(g.shape[1])
+        return scatter_add_reference(idx, g, n_rows)
+
+    with mock.patch.object(grid_sample, "scatter_add", counting):
+        total, t_metrics = loss_fn(field, TStatics(weights=TWeights(**weights), **STATICS),
+                                   t(AABB), t(rays), t(rgbs), 3, *_noise(key, 64))
+        total.backward()
+    np.testing.assert_allclose(float(total.detach()), float(metrics["total_loss"]), rtol=1e-5,
+                               atol=1e-6)
+    assert ("reg_ortho" in t_metrics) == ("reg_ortho" in metrics) == (cfg.model_name == "TensorVM")
+    grads = {n: p.grad for n, p in field.named_parameters()}
+    assert set(grads) == set(j_grads)
+    for n, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), j_grads[n], err_msg=n, **GRAD)
+    assert len(calls) == OTHER_SCATTERS[name]
+
+
+def test_loss_trajectory_follows_jax_for_cp_mlp(rng):
+    """configs/lego.txt's TensorCP + MLP over 25 steps from the same params,
+    batches and noise: the same loss curve (1e-3 relative per step)."""
+    cfg, params, field = _other("TensorCP_MLP", 5)
+    weights = _weights(cfg)
+    statics = dict(STATICS, lr_factor=0.999)
+    tx, state = j_make_optimizer(params, 0.02, 1e-3, 0.999)
+    j_step = j_make_train_step(FIELD_MODELS["TensorCP"], cfg,
+                               JStatics(weights=JWeights(**weights), **statics), tx)
+    opt = make_optimizer(field, 0.02, 1e-3, 0.999)
+    t_statics = TStatics(weights=TWeights(**weights), **statics)
+    for it in range(25):
+        rays, rgbs = _batch(rng, 64)
+        key = jax.random.PRNGKey(200 + it)
+        params, state, metrics = j_step(params, state, None, jnp.asarray(AABB), jnp.asarray(rays),
+                                        jnp.asarray(rgbs), jnp.asarray(it), key)
+        opt.zero_grad()
+        total, _ = loss_fn(field, t_statics, t(AABB), t(rays), t(rgbs), it, *_noise(key, 64))
+        total.backward()
+        opt.step()
+        np.testing.assert_allclose(float(total.detach()), float(metrics["total_loss"]), rtol=1e-3,
+                                   err_msg=f"step {it}")
+
+
 def test_make_train_step_updates_the_field(rng):
     params = JM.init(jax.random.PRNGKey(2), CFG, GRID)
     field = _field(params)
@@ -207,7 +298,7 @@ def test_simple_sampler_covers_the_store():
 
 
 def test_config_copy_parses_like_jax():
-    for path in ("configs/synth_full.txt", "configs/synth_sphere.txt"):
+    for path in ("configs/synth_full.txt", "configs/synth_sphere.txt", "configs/lego.txt"):
         assert dataclasses.asdict(t_load_config(path)) == dataclasses.asdict(j_load_config(path))
 
 
@@ -222,6 +313,21 @@ def test_in_memory_scene_equals_jax_scene_on_disk(tmp_path):
         for got in (from_disk, in_memory):
             np.testing.assert_array_equal(got.all_rays, want.all_rays)
             np.testing.assert_array_equal(got.all_rgbs, want.all_rgbs)
+
+
+def test_scene_views_trace_only_the_named_frames():
+    """``views`` traces the frames it names, and only those of the splits
+    it names: every camera and every traced image is the full scene's."""
+    kw = dict(n_train=5, n_test=3, wh=(12, 12), scene="composite")
+    full = make_synthetic_scene_arrays(**kw)
+    some = make_synthetic_scene_arrays(**kw, views={"train": [0, 3]})
+    for split in ("train", "test"):
+        for k, (a, b) in enumerate(zip(full[split]["frames"], some[split]["frames"])):
+            assert a["transform_matrix"] == b["transform_matrix"]
+            if split == "test" or k in (0, 3):
+                np.testing.assert_array_equal(a["image"], b["image"])
+            else:
+                assert not b["image"].any()
 
 
 def test_train_steps_runs_end_to_end_on_cpu():
