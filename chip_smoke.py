@@ -86,9 +86,10 @@ each prints its seconds):
      on this scene, in both packages), every eval overflow 0.0, the final
      checkpoint re-rendered through render_test on the selected test views
      within 1e-4 dB; then its mesh export (as phase 10, an empty mesh
-     allowed).  Then lego_l1_off: the same first segment with the L1
-     weights at 0, whose loss must fall to LEGO_L1_OFF_LOSS_RATIO and
-     whose test view must beat the untrained field's.  Prints its
+     allowed).  Then lego_l1_off: the first LEGO_L1_OFF_STEPS steps of the
+     same segment with the L1 weights at 0, whose loss must fall to
+     LEGO_L1_OFF_LOSS_RATIO and whose test view must beat the untrained
+     field's.  Prints its
      segments' ms/step and peak GiB;
  13. tensorvm: configs/synth_full.txt with ``model_name`` TensorVM over the
      main path's first segment (200 steps at 128^3, full width: 64-channel
@@ -97,9 +98,28 @@ each prints its seconds):
      version on the index streams its last step hands it (the packed
      128^3 table and the top-K path's density and appearance tables);
  14. shading: SH, RGB, MLP_PE and MLP heads on configs/synth_sphere.txt's
-     first segment (150 steps): for each, one step's gradients kernel vs
-     plain, launches equal to the per-stratum sum, a falling loss, and a
-     test PSNR above the untrained field's.
+     first segment (its first SHADING_STEPS steps): for each, one step's
+     gradients kernel vs plain, launches equal to the per-stratum sum, a
+     falling loss, and a test PSNR above the untrained field's;
+ 15. flower: configs/flower.txt (LLFF, NDC rays) at full width
+     (TensorVMSplit [16,4,4]/[48,12,12], app_dim 27, MLP_Fea, batch 4096) on
+     an in-memory forward-facing capture of 34 views at 1008x756 (flower's
+     images_4 size: 29 train, 5 test), its schedule cut to 450 steps
+     (profile_step.FLOWER_CUT: four upsamples to n_to_reso(640^3), the mask
+     at 250).  flower_parity: one first-segment step kernel vs plain (the
+     same 1e-4-of-max rule, launches per scatter_launches_per_step) and
+     card vs CPU (rtol/atol 1e-4).  flower_path: every segment's grid,
+     samples a step, line implementation (one-hot matmul or footprint
+     gather, models/tensorf.py::line_uses_matmul), ms/step and peak GiB;
+     the last segment's lines must take the footprint; the loss must fall
+     to FLOWER_LOSS_RATIO by 200.  flower_serving: the test views served
+     uniform through the eval's handle on render-only's lattice (the
+     geometry's; the run's differs by a few samples, which moves every NDC
+     sample), ms per frame, their PSNR above the untrained field's and
+     FLOWER_MIN_PSNR; FLOWER_SPIRAL spiral poses; render-only of the final
+     checkpoint within 1e-4 dB of the served views.  Then the kernel
+     against its plain version on the last segment's plane and line
+     footprint streams.
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
@@ -108,7 +128,10 @@ Cuts (each is printed): 8 train and 2 test views instead of 40 and 8,
 to 450 steps with its events at 200-400, the LR decay of the 30000 and a
 progress read every 25 steps (profile_step.CUT_SCHEDULE); lego's
 3000-step schedule cut to 600 with its event at 400, the LR decay of the
-3000, and its final state scored (profile_step.LEGO_CUT).
+3000, and its final state scored (profile_step.LEGO_CUT); flower's 25000
+steps cut to 450 (profile_step.FLOWER_CUT), its final render and its
+render_path moved to flower_serving (the spiral cut to FLOWER_SPIRAL of 120
+poses).
 
 Without a GPU, or outside a checkout of the repo, it exits non-zero and
 prints no result.  The last line of stdout is
@@ -159,8 +182,12 @@ RESUME_MAX_DPSNR = 0.5
 # port's CPU drives of the same path (PERF.md §6 PR 7): as written the loss
 # stays on its initial plateau (ratio 1.096), so it may not rise past
 # LEGO_LOSS_RATIO; with the L1 weights at 0 it falls (ratio
-# 0.112) and must reach LEGO_L1_OFF_LOSS_RATIO
+# 0.112) and must reach LEGO_L1_OFF_LOSS_RATIO.  lego_l1_off runs the first
+# LEGO_L1_OFF_STEPS of those steps: its loss leaves the plateau by step ~60
+# (the card read 0.0136 at step 160 against 0.098 at the start; PERF.md
+# §6), and the time goes to flower
 LEGO_FIRST_SEGMENT = 400
+LEGO_L1_OFF_STEPS = 200
 LEGO_LOSS_RATIO = 1.25
 LEGO_L1_OFF_LOSS_RATIO = 0.5
 # configs/synth_full.txt with --model_name TensorVM over the first segment
@@ -169,13 +196,29 @@ LEGO_L1_OFF_LOSS_RATIO = 0.5
 TENSORVM_LOSS_RATIO = 0.5
 # the shading modes of the shading phase, each with the data_dim_color it
 # needs (SH 3 x 9 coefficients, RGB the colour itself; the MLP heads take
-# synth_sphere's 9), over synth_sphere's first segment
+# synth_sphere's 9), over the first SHADING_STEPS of synth_sphere's first
+# segment (150 steps): every head's loss had fallen by 150 to 0.02–0.05 of
+# its start (PERF.md §6), and the time goes to flower
 SHADING_MODES = {"SH": 27, "RGB": 3, "MLP_PE": None, "MLP": None}
-SPHERE_FIRST_SEGMENT = 150
+SHADING_STEPS = 100
+# configs/flower.txt's path (profile_step.FLOWER_CUT): its first segment
+# runs to the upsample at 200.  The bars come from the port's CPU drive of
+# the same path at a reduced size (PERF.md §6): the loss over the first
+# segment must fall to FLOWER_LOSS_RATIO of its start, and the final test
+# PSNR reach FLOWER_MIN_PSNR
+FLOWER_FIRST_SEGMENT = 200
+FLOWER_LOSS_RATIO = 0.5
+FLOWER_MIN_PSNR = 26.0
+# spiral render_path poses flower_serving renders, of the loader's 120
+FLOWER_SPIRAL = 2
 # the keys of each kernel case in the kernels line
 CASE_KEYS = ("case", "M", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 # scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
 STREAM_KINDS = {64: "density", 192: "appearance", 256: "fused"}
+# flower's fused step (ranks [16,4,4]/[48,12,12] packed per axis): the plane
+# footprint tables, 4 taps x 64 (axis 0) and x 16 (axes 1, 2), and the line
+# footprint tables, 2 taps x the same
+FLOWER_STREAMS = {256: "plane0", 64: "plane12", 128: "line0", 32: "line12"}
 # the eval's chunk (tensorf_tpu evaluation's default), and the uniform
 # render's: the unbudgeted ~1048-sample lattice of 4096 rays is the
 # unstratified train step's width
@@ -253,6 +296,7 @@ def kernel_case(torch, name, idx, g, n_rows):
     times, its bound and its index stream's run structure."""
     from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
 
+    idx, g = idx.cuda(), g.cuda()
     M, C = g.shape
     dev = g.device
     got = scatter_add(idx, g, n_rows)
@@ -339,24 +383,28 @@ def step_inputs(torch, dev, cfg, scene, grid):
 
     ds = _dataset(cfg, scene, "train", num_images=cfg.resolved_train_images())
     aabb_np = ds.scene_bbox
+    n_samples = min(int(cfg.nSamples), cal_n_samples(grid, cfg.step_ratio))
     statics = TrainStatics(
-        n_samples=cal_n_samples(grid, cfg.step_ratio),
+        n_samples=n_samples,
         step_size=GridGeometry.create(aabb_np, grid, cfg.step_ratio).step_size,
-        white_bg=True, ndc_ray=False, total_steps=cfg.n_iters, lr_factor=0.9999,
+        white_bg=ds.white_bg, ndc_ray=bool(cfg.ndc_ray), total_steps=cfg.n_iters,
+        lr_factor=0.9999,
         # the loop's weights: ortho for the VM models only
         weights=LossWeights(ortho=cfg.Ortho_weight if "VM" in cfg.model_name else 0.0,
                             l1=cfg.L1_weight_inital, tv_density=cfg.TV_weight_density,
                             tv_app=cfg.TV_weight_app, occ=cfg.occ_reg_loss_mult,
                             occ_range=cfg.occ_reg_range, occ_wb_range=cfg.occ_wb_range,
                             occ_wb_prior=bool(cfg.occ_wb_prior)),
-        free_reg=True, free_decomp=True, freq_reg_ratio=cfg.freq_reg_ratio,
-        shade_top_k=cfg.prefilter_shade_top_k,
+        free_reg=bool(cfg.free_reg), free_decomp=bool(cfg.free_decomp),
+        freq_reg_ratio=cfg.freq_reg_ratio, shade_top_k=cfg.prefilter_shade_top_k,
     )
     sel = np.random.default_rng(0).choice(ds.all_rays.shape[0], cfg.batch_size, replace=False)
     rays = torch.as_tensor(ds.all_rays[sel], device=dev)
     rgbs = torch.as_tensor(ds.all_rgbs[sel], device=dev)
     aabb = torch.as_tensor(aabb_np, device=dev)
-    u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), cfg.batch_size, dev)
+    # NDC rays jitter each sample
+    u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), cfg.batch_size, dev,
+                         n_samples if cfg.ndc_ray else 1)
     return statics, aabb, rays, rgbs, u, flip
 
 
@@ -368,9 +416,11 @@ def path_field(torch, dev, cfg, scene, seed=1):
     from tensorf_tpu_torch.models.config import n_to_reso
     from tensorf_tpu_torch.train.loop import _dataset
 
-    aabb = _dataset(cfg, scene, "test", num_images=[0]).scene_bbox
-    grid = n_to_reso(cfg.N_voxel_init, aabb)
-    field = FIELD_MODELS[cfg.model_name](model_config_from(cfg), grid, dev,
+    ds = _dataset(cfg, scene, "test", num_images=[0])
+    grid = n_to_reso(cfg.N_voxel_init, ds.scene_bbox)
+    # the dataset's near/far, as the loop sets it
+    model_cfg = model_config_from(cfg).replace(near_far=tuple(float(v) for v in ds.near_far))
+    field = FIELD_MODELS[cfg.model_name](model_cfg, grid, dev,
                                          torch.Generator().manual_seed(seed))
     return field, grid
 
@@ -401,8 +451,8 @@ def step_parity_phase(torch, dev, cfg, scene, label="step_parity"):
 
     before = scatter_add.launches
     loss_k, g_kernel = step_grads(torch, field, *inputs)
-    want = scatter_launches_per_step(statics, cfg.model_name)
-    check(scatter_add.launches - before == want, f"{label}: the kernel step did not launch "
+    want = scatter_launches_per_step(statics, cfg.model_name, [cfg.batch_size], grid)
+    check(scatter_add.launches - before == want, f"{label}: the kernel step launched {scatter_add.launches - before}, not "
           f"scatter_add {want} times")
     before = scatter_add.launches
     with mock.patch.object(grid_sample, "scatter_add", scatter_add_reference):
@@ -452,12 +502,13 @@ def device_parity_phase(torch, cfg, scene, label):
           f"1e-4 elementwise (closest: {worst_name}, {worst:.3g} below the bound)", flush=True)
 
 
-def capture_streams(torch, state, suffix, stratum=None, **statics_over):
+def capture_streams(torch, state, suffix, stratum=None, kinds=STREAM_KINDS, **statics_over):
     """The index streams of the field in ``state``: the (idx, g, n_rows)
     that the first scatter-add of each width (density, appearance, or both
-    fused) of one more train step (the segment's statics, its mask)
-    receives, by case name.  With ``stratum`` the step is that stratum's
-    sub-batch alone, at its quota, budget and lattice; ``statics_over``
+    fused; ``kinds`` names them by width) of one more train step (the
+    segment's statics, its mask) receives, by case name, on the host.  With
+    ``stratum`` the step is that stratum's sub-batch alone, at its quota,
+    budget and lattice; ``statics_over``
     replaces fields of the step's statics.  The step's backward runs the
     plain version, so capturing launches no kernel."""
     from unittest import mock
@@ -472,7 +523,8 @@ def capture_streams(torch, state, suffix, stratum=None, **statics_over):
     gen = torch.Generator().manual_seed(0)
     if stratum is None:
         ids = torch.randperm(state.rays.shape[0], generator=gen)[: cfg.batch_size].to(dev)
-        u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), cfg.batch_size, dev)
+        u, flip = draw_noise(torch.Generator(device=dev).manual_seed(2), cfg.batch_size, dev,
+                             statics.n_samples if statics.ndc_ray else 1)
         batch = (state.rays[ids], state.rgbs[ids], u, flip)
     else:
         def one(field):
@@ -492,7 +544,9 @@ def capture_streams(torch, state, suffix, stratum=None, **statics_over):
     seen = {}
 
     def recorder(idx, g, n_rows):
-        seen.setdefault(g.shape[1], (idx.clone(), g.clone(), n_rows))
+        # kept on the host: the 640^3-era streams are ~10 GB beside the step
+        if g.shape[1] not in seen:
+            seen[g.shape[1]] = (idx.cpu(), g.cpu(), n_rows)
         return scatter_add_reference(idx, g, n_rows)
 
     field = state.field
@@ -503,8 +557,8 @@ def capture_streams(torch, state, suffix, stratum=None, **statics_over):
         total.backward()
     torch.cuda.synchronize()
     field.zero_grad(set_to_none=True)
-    check(seen and set(seen) <= set(STREAM_KINDS), f"recorded scatter widths {sorted(seen)}")
-    return {f"{STREAM_KINDS[C]}_{suffix}": stream for C, stream in seen.items()}
+    check(seen and set(seen) <= set(kinds), f"recorded scatter widths {sorted(seen)}")
+    return {f"{kinds[C]}_{suffix}": stream for C, stream in seen.items()}
 
 
 def check_schedule(result, cfg):
@@ -534,23 +588,43 @@ def check_schedule(result, cfg):
     check(any(e.get("refiltered") for e in result.events), "no alpha ray re-filtering")
 
 
-def scatter_launches_per_step(statics, model_name: str) -> int:
+def scatter_launches_per_step(statics, model_name: str, batches, grid) -> int:
     """The scatter-adds one train step of ``model_name`` launches under
-    ``statics``: one per gathered plane table, in each stratum's render.
+    ``statics`` with ``batches`` rays in each render (the strata's quotas,
+    or the batch) on a ``grid`` (X, Y, Z): one per gathered table.  The
+    fused path gathers each feature pass's three plane tables (TensorCP has
+    none) and samples its three lines by the one-hot matmul, which
+    scatters nothing, except a line that models/tensorf.py's
+    line_uses_matmul sends to the footprint gather at that pass's points.
     TensorVMSplit's and TensorVM's fused path packs density and appearance
-    into one table per plane (3) unless top-K shading below the render's
-    width gathers them apart (6); TensorCP has no plane, and its fused path
-    samples lines by matmul (0).  Unfused, every plane and line is a row
-    gather of its own: 12 for the VM models, CP's 6 lines."""
+    into one pass unless top-K shading below the render's width gathers
+    them apart (a density pass over the width, an appearance pass over the
+    top K).  Unfused, every plane and line is a row gather of its own: 12
+    for the VM models, CP's 6 lines."""
+    from tensorf_tpu_torch.models.config import VEC_MODE
+    from tensorf_tpu_torch.models.tensorf import line_uses_matmul
     from tensorf_tpu_torch.train.step import render_widths
 
     widths = render_widths(statics)
     if not statics.fused:
         return (6 if model_name == "TensorCP" else 12) * len(widths)
-    if model_name == "TensorCP":
-        return 0
+    planes = 0 if model_name == "TensorCP" else 3
+
+    def feature_pass(points):
+        return planes + sum(not line_uses_matmul(points, grid[v]) for v in VEC_MODE)
+
     k = statics.shade_top_k
-    return sum(6 if k is not None and k < w else 3 for w in widths)
+    return sum(feature_pass(b * w) + feature_pass(b * k) if k is not None and k < w
+               else feature_pass(b * w) for b, w in zip(batches, widths))
+
+
+def launches_of_step(state) -> int:
+    """scatter_launches_per_step of the step the loop's ``state`` takes."""
+    from tensorf_tpu_torch.train.loop import build_statics
+
+    return scatter_launches_per_step(build_statics(state), state.cfg.model_name,
+                                     state.quotas or [state.cfg.batch_size],
+                                     state.geometry.grid_size)
 
 
 def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
@@ -560,12 +634,12 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     whose steps call for none, such as TensorCP's, no time at all)."""
     import numpy as np
 
-    from tensorf_tpu_torch.train.loop import build_statics, reconstruction
+    from tensorf_tpu_torch.train.loop import reconstruction
 
     want = {"scatter_add": 0}
 
     def count(it, state):  # runs after step ``it``, whose statics the state still holds
-        want["scatter_add"] += scatter_launches_per_step(build_statics(state), cfg.model_name)
+        want["scatter_add"] += launches_of_step(state)
         if on_step is not None:
             on_step(it, state)
 
@@ -584,7 +658,9 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
               f"in {steps} steps, want {n}")
     losses = np.asarray(result.total_loss)
     check(losses.shape == (steps,) and np.all(np.isfinite(losses)), f"{name}: non-finite loss")
-    check(len(result.final_psnrs) == len(result.state.test_ds.all_rays)
+    # (a path that scores its final state itself renders no test split here)
+    check(len(result.final_psnrs) == (len(result.state.test_ds.all_rays) if cfg.render_test
+                                      else 0)
           and np.all(np.isfinite(result.final_psnrs)), f"{name}: non-finite test render")
     print(f"{name}: largest eval overflow by iteration {result.eval_overflow} (stratify_render "
           f"{cfg.stratify_render}; must be 0.0)", flush=True)
@@ -1126,8 +1202,8 @@ def lego_phase(torch, np, kernels, workdir):
 
     l1_off = dataclasses.replace(cfg, L1_weight_inital=0.0, L1_weight_rest=0.0)
     res, off_launches, untrained = first_segment(torch, np, "lego_l1_off", l1_off, scene,
-                                                 kernels, LEGO_FIRST_SEGMENT)
-    first, last = loss_fall(np, res.total_loss, LEGO_FIRST_SEGMENT)
+                                                 kernels, LEGO_L1_OFF_STEPS)
+    first, last = loss_fall(np, res.total_loss, LEGO_L1_OFF_STEPS)
     print(f"lego_l1_off: loss first-5 mean {first:.6f} -> last-5 mean {last:.6f} (ratio "
           f"{last / first:.4f}, bar {LEGO_L1_OFF_LOSS_RATIO}); test view 0 {res.test_psnr:.4f} dB "
           f"against {untrained:.4f} untrained", flush=True)
@@ -1144,13 +1220,13 @@ def first_segment(torch, np, name, cfg, scene, kernels, steps, capture=None):
     after (each step's statics say how many it calls for); ``capture(it,
     state)`` runs after each step.  Returns (result, launches, untrained
     test PSNR), the untrained field's PSNR on the same test view."""
-    from tensorf_tpu_torch.train.loop import build_statics, train_steps
+    from tensorf_tpu_torch.train.loop import train_steps
 
     untrained = train_steps(cfg, 0, device="cuda", scene=scene, log=lambda m: None).test_psnr
     want = {"scatter_add": 0}
 
     def count(it, state):
-        want["scatter_add"] += scatter_launches_per_step(build_statics(state), cfg.model_name)
+        want["scatter_add"] += launches_of_step(state)
         if capture is not None:
             capture(it, state)
 
@@ -1224,9 +1300,9 @@ def shading_phase(torch, np, kernels, workdir, scene):
         cfg = load_config("configs/synth_sphere.txt", over)
         step_parity_phase(torch, dev, cfg, scene, f"shading_{mode}_parity")
         result, launches, untrained = first_segment(torch, np, f"shading_{mode}", cfg, scene,
-                                                    kernels, SPHERE_FIRST_SEGMENT)
+                                                    kernels, SHADING_STEPS)
         check(launches["scatter_add"] > 0, f"shading_{mode}: the kernel never launched")
-        first, last = loss_fall(np, result.total_loss, SPHERE_FIRST_SEGMENT)
+        first, last = loss_fall(np, result.total_loss, SHADING_STEPS)
         print(f"shading_{mode}: app_dim {cfg.data_dim_color}; loss first-5 mean {first:.6f} -> "
               f"last-5 mean {last:.6f}; test psnr {result.test_psnr:.4f} dB against "
               f"{untrained:.4f} untrained", flush=True)
@@ -1237,6 +1313,138 @@ def shading_phase(torch, np, kernels, workdir, scene):
         torch.cuda.empty_cache()
     phase_done("shading", t0)
     return out
+
+
+def line_impls(grid, points):
+    """Which implementation samples each of the three lines (VEC_MODE
+    order) at ``points`` points: "matmul" (the one-hot) or "footprint"."""
+    from tensorf_tpu_torch.models.config import VEC_MODE
+    from tensorf_tpu_torch.models.tensorf import line_uses_matmul
+
+    return ["matmul" if line_uses_matmul(points, grid[v]) else "footprint" for v in VEC_MODE]
+
+
+def flower_phase(torch, np, kernels, workdir):
+    """configs/flower.txt (NDC rays, LLFF) through its phases: flower_parity
+    (one first-segment step kernel vs plain and card vs CPU), flower_path
+    (``reconstruction`` as written but for FLOWER_CUT, on the forward-facing
+    capture: every segment up to n_to_reso(640^3) at batch 4096, the loss
+    bar), flower_serving (the test views served uniform through the eval's
+    handle with ms per frame, their PSNR over the untrained field's and
+    FLOWER_MIN_PSNR, FLOWER_SPIRAL spiral poses, render-only of the final
+    checkpoint within 1e-4 dB) and the kernel against its plain version on
+    the last segment's plane and line footprint streams.  Returns (launches
+    of the path, kernel case rows)."""
+    import dataclasses
+
+    from tensorf_tpu_torch.config import load_config
+    from tensorf_tpu_torch.eval.evaluation import evaluation_path
+    from tensorf_tpu_torch.eval.metrics import psnr
+    from tensorf_tpu_torch.profile_step import FLOWER, FLOWER_CUT, PATHS, path_scene
+    from tensorf_tpu_torch.train.loop import make_handle, render_test, train_steps
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    # the final renders move to flower_serving, which times them
+    cfg = load_config(FLOWER, dict(FLOWER_CUT, basedir=workdir, render_test=0))
+    scene = path_scene(FLOWER, cfg)
+    views = PATHS[FLOWER][0]
+    print(f"cuts: flower_path: {cfg.n_iters} of 25000 steps with upsamples at {cfg.upsamp_list} "
+          f"and the alpha mask at {cfg.update_AlphaMask_list} (config: [2000, 3000, 4000, "
+          f"5500], [2500]), LR decay over {cfg.lr_decay_iters}, render_test {cfg.render_test} "
+          f"and render_path {cfg.render_path} (config 1, 1: flower_serving renders the test "
+          f"views through the eval's handle and {FLOWER_SPIRAL} spiral poses of 120); "
+          f"the forward-facing capture has {views['n_views']} views at {views['wh'][0]}x"
+          f"{views['wh'][1]} (flower's images_4; traced in {time.perf_counter() - t0:.1f} s); "
+          f"{cfg.model_name} ranks {cfg.n_lamb_sigma}/{cfg.n_lamb_sh}, app_dim "
+          f"{cfg.data_dim_color}, {cfg.shadingMode}, batch {cfg.batch_size}, ndc_ray "
+          f"{cfg.ndc_ray}, N_voxel {cfg.N_voxel_init} -> {cfg.N_voxel_final} as written",
+          flush=True)
+    step_parity_phase(torch, dev, cfg, scene, "flower_parity")
+    torch.cuda.empty_cache()
+    device_parity_phase(torch, cfg, scene, "flower_card_vs_cpu")
+    torch.cuda.empty_cache()
+    phase_done("flower_parity", t0)
+
+    t0 = time.perf_counter()
+    untrained = train_steps(cfg, 0, device="cuda", scene=scene, log=lambda m: None).test_psnr
+    torch.cuda.empty_cache()
+    result, launches = drive(torch, "flower_path", cfg, scene, kernels, cfg.n_iters)
+    check(launches["scatter_add"] > 0, "flower_path: the kernel never launched")
+    check(not any(seg["strata"] for seg in result.segments),
+          "flower_path: NDC rays ran stratified")
+    for e in result.events:
+        print("flower_path: event " + json.dumps(e), flush=True)
+    for seg in result.segments:
+        print(f"flower_path: segment {seg['start']}..{seg['end']}: grid {seg['grid']}, n_samples "
+              f"{seg['n_samples']}, samples/step {seg['samples_per_step']}, lines (density pass) "
+              f"{line_impls(seg['grid'], seg['samples_per_step'])}, masked {seg['masked']}, "
+              f"{seg['ms_per_step']:.3f} ms/step, peak {seg['peak_gib']:.2f} GiB", flush=True)
+    check(len(result.segments) == 6, f"flower_path: {len(result.segments)} segments, want 6")
+    final = result.segments[-1]
+    check(line_impls(final["grid"], final["samples_per_step"]) == ["footprint"] * 3,
+          "flower_path: the last segment's lines did not take the footprint gather")
+    first, last = loss_fall(np, result.total_loss, FLOWER_FIRST_SEGMENT)
+    print(f"flower_path: loss first-5 mean {first:.6f} -> mean of steps "
+          f"{FLOWER_FIRST_SEGMENT - 5}..{FLOWER_FIRST_SEGMENT - 1} {last:.6f} (ratio "
+          f"{last / first:.4f}, bar {FLOWER_LOSS_RATIO})", flush=True)
+    check(last <= FLOWER_LOSS_RATIO * first, f"flower_path: the loss fell to {last / first:.4f} "
+          f"of its start, above the bar {FLOWER_LOSS_RATIO}")
+    phase_done("flower_path", t0)
+
+    t0 = time.perf_counter()
+    state = result.state
+    # served on the lattice render-only builds from a checkpoint, the
+    # geometry's diag / step + 1 samples, as both packages' render-only
+    # entries do; the run itself samples cal_n_samples(grid), which for NDC
+    # rays moves every sample (ROADMAP queue 3 item 7), so this is the
+    # lattice on which render-only can reproduce the PSNR exactly
+    lattice = min(int(cfg.nSamples), state.geometry.n_samples)
+    handle = dataclasses.replace(make_handle(state), n_samples=lattice)
+    check(handle.ndc_ray and not handle.stratified, "flower: the eval handle does not serve NDC "
+          "rays uniform")
+    test_ds = state.test_ds
+    W, H = test_ds.img_wh
+    frame_ms, served = [], []
+    for k in range(test_ds.all_rays.shape[0]):
+        rays = torch.as_tensor(test_ds.all_rays[k].reshape(-1, 6), device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rgb, _, _ = handle.render(rays)  # host arrays: the frame is done
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        served.append(psnr(np.clip(rgb, 0, 1), test_ds.all_rgbs[k].reshape(-1, 3)))
+    psnr_final = float(np.mean(served))
+    print(f"flower_serving: {len(frame_ms)} test views of {W}x{H} served uniform (lattice "
+          f"{handle.n_samples}, the run's {state.n_samples}; chunk 8192): ms per frame "
+          f"{[round(m, 1) for m in frame_ms]}, "
+          f"psnr {[round(p, 4) for p in served]}; final test psnr {psnr_final:.4f} dB (bar "
+          f"{FLOWER_MIN_PSNR}), view 0 against {untrained:.4f} untrained", flush=True)
+    check(served[0] > untrained and psnr_final >= FLOWER_MIN_PSNR,
+          f"flower: final test psnr {psnr_final} (view 0 {served[0]}, untrained {untrained}), "
+          f"bar {FLOWER_MIN_PSNR}")
+    poses = test_ds.render_path[:: 120 // FLOWER_SPIRAL][:FLOWER_SPIRAL]
+    t1 = time.perf_counter()
+    evaluation_path(test_ds, handle, poses)
+    print(f"flower_serving: spiral poses {list(range(0, 120, 120 // FLOWER_SPIRAL))} of 120 in "
+          f"{(time.perf_counter() - t1) * 1e3 / len(poses):.1f} ms per frame", flush=True)
+    reloaded = render_test(dataclasses.replace(cfg, ckpt=result.final_path, render_test=1),
+                           scene, "cuda", save_images=False, log=lambda m: None)
+    delta = abs(float(np.mean(reloaded)) - psnr_final)
+    print(f"render_only: flower_path's final checkpoint: test psnr {float(np.mean(reloaded)):.6f} "
+          f"dB, |delta| {delta:.3g} (tol 1e-4) against the served views on its lattice", flush=True)
+    check(delta <= 1e-4, f"flower: the final checkpoint renders {np.mean(reloaded)}, not "
+          f"{psnr_final}")
+    del handle
+    phase_done("flower_serving", t0)
+
+    t0 = time.perf_counter()
+    streams = capture_streams(torch, state, "flower_640", kinds=FLOWER_STREAMS)
+    del result, state
+    torch.cuda.empty_cache()
+    cases = [kernel_case(torch, name, *stream) for name, stream in streams.items()]
+    check({c["C"] for c in cases} == set(FLOWER_STREAMS), f"flower streams {sorted(streams)}")
+    phase_done("flower_streams", t0)
+    return launches["scatter_add"], cases
 
 
 def run_paths(torch, np, kernels, workdir) -> None:
@@ -1381,6 +1589,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
     phase_done("tensorvm_streams", t0)
     for mode, n in shading_phase(torch, np, kernels, workdir, sphere_scene).items():
         by_path[f"shading_{mode}"] = n
+    by_path["flower_path"], flower_cases = flower_phase(torch, np, kernels, workdir)
 
     # the headline numbers are density_128's, the widest scatter of the
     # unstratified first segment; "shapes" carries every main-path shape
@@ -1408,6 +1617,8 @@ def run_paths(torch, np, kernels, workdir) -> None:
         # (lego_path) gathers no plane, so none
         "launches_by_path": by_path,
         "tensorvm_shapes": [{k: c[k] for k in CASE_KEYS} for c in vm_cases],
+        # flower's last segment: the packed plane and the line footprint tables
+        "flower_shapes": [{k: c[k] for k in CASE_KEYS} for c in flower_cases],
     } for name, (_, src, replaces, grids) in kernels.items()]}
     print(json.dumps(line), flush=True)
 

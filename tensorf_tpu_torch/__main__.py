@@ -17,10 +17,12 @@ only together with a render flag (and trains otherwise), and
 ``export_mesh`` after training exports the final checkpoint.  Each result
 is one JSON line.  Runs on the GPU unless ``--device cpu`` is given, and
 fails when no GPU is present.  ``--synthetic`` builds a procedural scene in
-memory (no files, no PIL) in place of reading ``datadir``; a training run
-traces only the views the config's ``train_idxs`` and ``test_idxs``
-select.  A config runs as written; only ``ndc_ray`` and the bf16 dtypes
-are refused (not ported yet).
+memory (no files, no PIL) in place of reading ``datadir``: for an ``llff``
+config a forward-facing capture in LLFF's layout (``--synthetic_views N``
+views, every 8th held out for test, at ``--synthetic_wh`` x 3/4 of it
+pixels), else the blender-layout scene, of which a training run traces only
+the views the config's ``train_idxs`` and ``test_idxs`` select.  A config
+runs as written; only the bf16 dtypes are refused (not ported yet).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import sys
 import numpy as np
 
 from .config import add_config_args, config_from_args
-from .data.synthetic import make_synthetic_scene_arrays
+from .data.synthetic import make_forward_facing_scene, make_synthetic_scene_arrays
 from .train.loop import export_mesh, reconstruction, render_test, train_steps
 from .utils.watchdog import EXIT_WEDGED
 
@@ -79,9 +81,11 @@ def main(argv=None) -> int:
     parser.add_argument("--synthetic_scene", choices=("composite", "sphere"), default="composite",
                         help="which procedural scene --synthetic builds")
     parser.add_argument("--synthetic_views", type=str, default="8,2",
-                        help="train,test view counts of the in-memory scene")
+                        help="train,test view counts of the in-memory scene (llff: the views "
+                             "of the capture, the first number)")
     parser.add_argument("--synthetic_wh", type=int, default=200,
-                        help="width = height of the in-memory scene's images")
+                        help="width = height of the in-memory scene's images (llff: the "
+                             "width, the height 3/4 of it)")
     parser.add_argument("--save_images", type=int, default=1,
                         help="write the evaluations' images, videos and mean.txt, the progress "
                              "figures and their GIF (needs imageio and matplotlib)")
@@ -96,7 +100,11 @@ def main(argv=None) -> int:
 
     render_only = cfg.render_only and (cfg.render_test or cfg.render_path or cfg.render_train)
     scene = None
-    if args.synthetic:
+    if args.synthetic and cfg.dataset_name == "llff":
+        scene = make_forward_facing_scene(
+            n_views=int(args.synthetic_views.split(",")[0]),
+            wh=(args.synthetic_wh, args.synthetic_wh * 3 // 4))
+    elif args.synthetic:
         n_train, n_test = (int(v) for v in args.synthetic_views.split(","))
         views = None
         if not (render_only or cfg.render_train):  # those read whole splits

@@ -89,7 +89,9 @@ def image_to_rows(img, img_wh, downsample: float) -> np.ndarray:
     LANCZOS-resized to ``img_wh`` on downsample (an array without PIL)."""
     if downsample != 1.0:
         if isinstance(img, np.ndarray):
-            img = resize_lanczos(img, img_wh)
+            # PIL returns a copy when the size already matches
+            if img.shape[1::-1] != tuple(img_wh):
+                img = resize_lanczos(img, img_wh)
         else:
             from PIL import Image
 

@@ -1,10 +1,14 @@
-"""Procedural synthetic scenes in the blender layout (the scenes of
-tensorf_tpu/data/synthetic.py, built in memory).
+"""Procedural synthetic scenes, built in memory.
 
-``make_synthetic_scene_arrays`` ray-traces the scene analytically and
-returns, per split, the ``transforms_{split}.json`` dict with each frame's
-uint8 RGBA image inlined — the pixels the JAX package's on-disk writer
-stores as PNGs — so BlenderDataset loads it with no files and no PIL.
+``make_synthetic_scene_arrays`` ray-traces the blender-layout scenes of
+tensorf_tpu/data/synthetic.py analytically and returns, per split, the
+``transforms_{split}.json`` dict with each frame's uint8 RGBA image
+inlined — the pixels the JAX package's on-disk writer stores as PNGs — so
+BlenderDataset loads it with no files and no PIL.
+``make_forward_facing_scene`` traces a forward-facing capture in LLFF's
+layout (``poses_bounds`` and images_4-sized images) for LLFFDataset;
+``write_forward_facing_scene`` writes it as an LLFF directory for a reader
+of files, such as the JAX package.
 """
 
 from __future__ import annotations
@@ -166,3 +170,109 @@ def make_synthetic_scene_arrays(
         out[split] = {"camera_angle_x": camera_angle_x, "frames": frames}
     return out
 
+
+
+# A forward-facing capture in LLFF's layout: a textured backdrop plane
+# behind a few textured spheres, seen from a small rig of cameras that all
+# look down -z (world: x right, y up, z back).
+FORWARD_SPHERES = (
+    # (center, radius, base_rgb_a, base_rgb_b, checker_freq)
+    ((0.0, 0.0, -4.0), 0.9, (0.9, 0.3, 0.25), (0.95, 0.85, 0.6), 10),
+    ((1.3, 0.6, -5.0), 0.6, (0.2, 0.5, 0.9), (0.9, 0.9, 0.35), 8),
+    ((-1.2, -0.5, -3.4), 0.5, (0.25, 0.75, 0.35), (0.2, 0.2, 0.55), 12),
+    ((-0.6, 1.0, -5.6), 0.55, (0.85, 0.55, 0.2), (0.35, 0.1, 0.45), 6),
+)
+FORWARD_PLANE_Z = -8.0
+
+
+def _trace_forward(c2w: np.ndarray, wh: Tuple[int, int], focal: float) -> np.ndarray:
+    """Nearest-hit analytic render (H, W, 3) float32 and the (H, W) hit
+    depths along the camera's -z, of the forward-facing scene."""
+    W, H = wh
+    i, j = np.meshgrid(np.arange(W, dtype=np.float32) + 0.5,
+                       np.arange(H, dtype=np.float32) + 0.5, indexing="xy")
+    dirs = np.stack([(i - W / 2) / focal, -(j - H / 2) / focal, -np.ones_like(i)], -1)
+    rd = (dirs @ c2w[:3, :3].T.astype(np.float32)).reshape(-1, 3)
+    ro = c2w[:3, 3].astype(np.float32)
+    light = np.array([0.4, 0.5, 0.77], np.float32)
+    light /= np.linalg.norm(light)
+    # the backdrop: a plane z = FORWARD_PLANE_Z with a coloured checker
+    t_best = (FORWARD_PLANE_Z - ro[2]) / rd[:, 2]
+    p = ro + rd * t_best[:, None]
+    cell = (np.floor(p[:, 0] * 1.5) + np.floor(p[:, 1] * 1.5)) % 2.0
+    stripe = 0.5 + 0.5 * np.sin(p[:, 0] * 0.9)
+    rgb = np.where(cell[:, None] > 0.5, np.array([0.3, 0.35, 0.3], np.float32),
+                   np.array([0.75, 0.7, 0.55], np.float32)) * (0.7 + 0.3 * stripe[:, None])
+    for center, radius, col_a, col_b, freq in FORWARD_SPHERES:
+        oc = ro - np.asarray(center, np.float32)
+        dd = np.sum(rd * rd, axis=-1)
+        b = np.sum(rd * oc, axis=-1) / dd
+        disc = b * b - (np.sum(oc * oc) - radius**2) / dd
+        t = -b - np.sqrt(np.maximum(disc, 0))
+        hit = np.nonzero((disc > 0) & (t > 1e-6) & (t < t_best))[0]
+        n = (ro + rd[hit] * t[hit, None] - np.asarray(center, np.float32)) / radius
+        theta = np.arccos(np.clip(n[:, 1], -1, 1))
+        phi = np.arctan2(n[:, 2], n[:, 0])
+        checker = (np.floor(theta / np.pi * freq)
+                   + np.floor((phi + np.pi) / (2 * np.pi) * freq)) % 2.0
+        albedo = np.where(checker[:, None] > 0.5, np.asarray(col_a, np.float32),
+                          np.asarray(col_b, np.float32))
+        lambert = np.clip(n @ light, 0, 1)
+        rgb[hit] = albedo * (0.3 + 0.7 * lambert[:, None])
+        t_best[hit] = t[hit]
+    return np.clip(rgb, 0, 1).reshape(H, W, 3), t_best.reshape(H, W)
+
+
+def make_forward_facing_scene(
+    n_views: int = 34,
+    wh: Tuple[int, int] = (1008, 756),
+    focal: Optional[float] = None,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """An LLFF capture in memory: {"poses_bounds": (N, 17) float64,
+    "images": uint8 (N, H, W, 3)}, the layout of ``poses_bounds.npy`` and
+    ``images_4/`` (data/llff.py reads either).  Each pose row holds the
+    camera's "down right back" axes and position, then (H, W, focal) at 4x
+    the images' resolution, as LLFF stores the full-size camera the
+    downsampled images_4 come from; the last two columns are the view's
+    near and far depth bounds.  The cameras sit on a jittered spiral in the
+    z = 0 plane, each looking at a point on the -z axis; ``focal`` (pixels)
+    defaults to 820 at a width of 1008 (a 63-degree field of view)."""
+    rng = np.random.default_rng(seed)
+    W, H = wh
+    focal = 820.0 * W / 1008 if focal is None else focal
+    rows, images = [], []
+    for k in range(n_views):
+        a = 2 * np.pi * 2 * k / n_views
+        r = 0.35 * (0.4 + 0.6 * k / max(n_views - 1, 1))
+        pos = np.array([r * np.cos(a), 0.75 * r * np.sin(a), 0.0]) + 0.02 * rng.standard_normal(3)
+        target = np.array([0.0, 0.0, -5.0]) + 0.1 * rng.standard_normal(3)
+        back = pos - target
+        back /= np.linalg.norm(back)
+        right = np.cross(np.array([0.0, 1.0, 0.0]), back)
+        right /= np.linalg.norm(right)
+        up = np.cross(back, right)
+        c2w = np.stack([right, up, back, pos], 1)  # (3, 4) right up back
+        rgb, depth = _trace_forward(c2w, wh, focal)
+        images.append((rgb * 255).astype(np.uint8))
+        # the camera-space directions have z = -1: t is the depth
+        near, far = 0.9 * float(depth.min()), 1.1 * float(depth.max())
+        m = np.concatenate([-c2w[:, 1:2], c2w[:, 0:1], c2w[:, 2:4]], 1)  # down right back
+        hwf = np.array([[H * 4.0], [W * 4.0], [focal * 4.0]])
+        rows.append(np.concatenate([np.concatenate([m, hwf], 1).reshape(-1), [near, far]]))
+    return {"poses_bounds": np.stack(rows), "images": np.stack(images)}
+
+
+def write_forward_facing_scene(root: str, scene: Dict[str, np.ndarray]) -> str:
+    """Write ``scene`` (make_forward_facing_scene) as an LLFF directory:
+    ``poses_bounds.npy`` and ``images_4/<k>.png`` (needs PIL).  Returns
+    ``root``."""
+    import os
+
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images_4"), exist_ok=True)
+    np.save(os.path.join(root, "poses_bounds.npy"), scene["poses_bounds"])
+    for k, img in enumerate(scene["images"]):
+        Image.fromarray(img).save(os.path.join(root, "images_4", f"{k:03d}.png"))
+    return root

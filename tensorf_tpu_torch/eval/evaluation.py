@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..models.alpha_mask import AlphaGridMask
-from ..ops.rays import get_rays
+from ..ops.rays import get_rays, ndc_rays_blender
 from ..render.chunked import render_chunked, render_chunked_stratified
 from ..utils.misc import visualize_depth_numpy
 from .metrics import psnr as psnr_fn
@@ -38,13 +38,14 @@ class RendererHandle:
     step_size: float
     n_samples: int
     white_bg: bool
+    ndc_ray: bool = False
     shade_top_k: Optional[int] = None
     fused: bool = True
     # the uniform render's budget ("alive" mode); None = every sample
     sample_budget: Optional[int] = None
     use_coarse_gate: bool = True
     # candidate-count-stratified serving with per-bucket budgets whenever
-    # there is a mask (the uniform path without one)
+    # there is a mask (the uniform path without one, and for NDC rays)
     stratified: bool = False
     # the largest budget overflow fraction of a chunk over this handle's
     # renders so far (0.0: nothing under-integrated)
@@ -55,8 +56,8 @@ class RendererHandle:
         numpy, shaded samples.  ``log`` receives the stratified path's count
         and bucket lines (render_chunked_stratified)."""
         kw = dict(step_size=float(self.step_size), n_samples=int(self.n_samples),
-                  white_bg=self.white_bg, shade_top_k=self.shade_top_k, fused=self.fused,
-                  use_coarse_gate=self.use_coarse_gate)
+                  white_bg=self.white_bg, ndc_ray=self.ndc_ray, shade_top_k=self.shade_top_k,
+                  fused=self.fused, use_coarse_gate=self.use_coarse_gate)
         if self.stratified and self.alpha_mask is not None:
             rgb, depth, n_valid, overflow = render_chunked_stratified(
                 self.field, self.alpha_mask, rays, self.aabb, chunk=chunk, log=log, **kw)
@@ -157,7 +158,8 @@ def evaluation_path(
     heartbeat: Optional[Callable[[], None]] = None,
 ) -> List[float]:
     """Render a camera trajectory (reference renderer.py:227-282): the rays
-    of each pose from the dataset's directions; with ``savePath`` each
+    of each pose from the dataset's directions (projected to NDC for an
+    NDC handle, with the dataset's focal); with ``savePath`` each
     frame's prediction PNG and the rgb and depth videos.  ``heartbeat``
     runs once per frame.  Returns []."""
     W, H = test_dataset.img_wh
@@ -172,6 +174,8 @@ def evaluation_path(
         if heartbeat is not None:
             heartbeat()
         rays_o, rays_d = get_rays(test_dataset.directions, c2w[:3, :4])
+        if handle.ndc_ray:
+            rays_o, rays_d = ndc_rays_blender(H, W, test_dataset.focal[0], 1.0, rays_o, rays_d)
         rays = np.concatenate([rays_o, rays_d], axis=1).astype(np.float32)
         rgb_map, depth_map, _ = handle.render(rays, chunk=chunk)
         rgb8 = (np.clip(rgb_map, 0, 1).reshape(H, W, 3) * 255).astype(np.uint8)

@@ -22,10 +22,12 @@ import torch
 from torch import nn
 
 from ..ops.grid_sample import (
+    footprint_sample_1d,
     footprint_sample_2d,
     grid_sample_1d,
     grid_sample_2d,
     line_sample_matmul,
+    make_footprint_1d,
     make_footprint_2d,
 )
 from ..ops.resize import resize_bilinear_align_corners, resize_linear_align_corners
@@ -33,18 +35,31 @@ from ..utils.device import resolve_device
 from .config import MAT_MODE, VEC_MODE, ModelConfig
 from .shading import init_shading
 
-# Lines up to this length sample as a one-hot-lerp matmul, as in the JAX
-# package; longer lines take a footprint gather there, not ported yet.
+# A line samples as a one-hot-lerp matmul, as the JAX package samples
+# lines up to _LINE_MATMUL_MAX_LEN, while its (M, L) float32 one-hot
+# matrix stays within _ONE_HOT_MAX_BYTES: eager PyTorch materializes that
+# matrix (and about twice it again while building it) and keeps it for the
+# backward.  Above either bound the line takes the 2-tap footprint gather,
+# whose backward is the row scatter-add.  6 GiB is above every one-hot the
+# synth_full, synth_sphere and lego paths build (the largest: the
+# unstratified last segment's 4,292,608 samples x 345 x 4 B = 5.92e9 B) and
+# below the ones of flower's last two segments (6,336,512 x 315 x 4 B =
+# 7.98e9 B and up).
 _LINE_MATMUL_MAX_LEN = 1024
+_ONE_HOT_MAX_BYTES = 6 * 2**30
+
+
+def line_uses_matmul(n_points: int, length: int) -> bool:
+    """Whether sampling a line of ``length`` at ``n_points`` points takes
+    the one-hot matmul (else the footprint gather)."""
+    return length <= _LINE_MATMUL_MAX_LEN and n_points * length * 4 <= _ONE_HOT_MAX_BYTES
 
 
 def _sample_line_packed(lpacked: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
-    if lpacked.shape[0] > _LINE_MATMUL_MAX_LEN:
-        raise NotImplementedError(
-            f"lines longer than {_LINE_MATMUL_MAX_LEN} (footprint_sample_1d) "
-            "are not ported yet"
-        )
-    return line_sample_matmul(lpacked, coord)
+    L = lpacked.shape[0]
+    if line_uses_matmul(coord.numel(), L):
+        return line_sample_matmul(lpacked, coord)
+    return footprint_sample_1d(make_footprint_1d(lpacked), L, coord)
 
 
 def _off_diag_mean_abs(line: torch.Tensor) -> torch.Tensor:

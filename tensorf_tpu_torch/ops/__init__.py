@@ -1,12 +1,14 @@
 from .encoding import positional_encoding
 from .freq_mask import FreeMasks, free_masks, freq_reg_mask
 from .grid_sample import (
+    footprint_sample_1d,
     footprint_sample_2d,
     gather_rows,
     grid_sample_1d,
     grid_sample_2d,
     grid_sample_3d,
     line_sample_matmul,
+    make_footprint_1d,
     make_footprint_2d,
 )
 from .rays import aabb_entry_exit, sample_along_rays

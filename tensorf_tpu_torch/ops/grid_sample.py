@@ -113,6 +113,14 @@ def make_footprint_2d(plane: torch.Tensor) -> torch.Tensor:
     )
 
 
+def make_footprint_1d(line: torch.Tensor) -> torch.Tensor:
+    """(L, C) -> (L, 2C), each row holding texels (l, l+1); the last row's
+    upper tap is zero (an in-range coordinate gives it weight 0)."""
+    L, _ = line.shape
+    p = F.pad(line, (0, 0, 0, 1))
+    return torch.cat([p[:L], p[1 : L + 1]], dim=-1)
+
+
 def footprint_sample_2d(
     fp: torch.Tensor, H: int, W: int, coords: torch.Tensor
 ) -> torch.Tensor:
@@ -135,6 +143,21 @@ def footprint_sample_2d(
     idx = y0f.to(torch.int32) * W + x0f.to(torch.int32)
     taps = gather_rows(fp.reshape(H * W, C4), idx).reshape(-1, 4, C)
     w = torch.stack([(1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx], dim=-1)
+    return _tap_lerp(w, taps).reshape(*shape, C)
+
+
+def footprint_sample_1d(fp: torch.Tensor, L: int, coord: torch.Tensor) -> torch.Tensor:
+    """Linear sample from a 1-D footprint table (L, 2C); one gathered row
+    per point, whose backward is the row scatter-add.  Same edge-clamp
+    contract as footprint_sample_2d.  Returns (..., C)."""
+    C = fp.shape[-1] // 2
+    shape = coord.shape
+    coord = torch.clamp(coord.reshape(-1), -1.0, 1.0)
+    pos = (coord + 1.0) * 0.5 * (L - 1)
+    i0f = torch.floor(pos)
+    w1 = pos - i0f
+    taps = gather_rows(fp, i0f.to(torch.int32)).reshape(-1, 2, C)
+    w = torch.stack([1 - w1, w1], dim=-1)
     return _tap_lerp(w, taps).reshape(*shape, C)
 
 

@@ -1,10 +1,12 @@
-"""Ray generation, AABB tests and ray sampling (counterpart of
-tensorf_tpu/ops/rays.py).
+"""Ray generation, NDC projection, AABB tests and ray sampling
+(counterpart of tensorf_tpu/ops/rays.py).
 
 Pixel-grid directions and world rays stay host-side numpy, computed once
-per dataset.  The samplers are torch.  Where the JAX version takes a PRNG
-key, these take the jitter itself — ``u`` (B, 1), one uniform per ray, or
-None for the deterministic eval lattice — so tests can inject JAX's draw.
+per dataset; the NDC projections take numpy arrays or tensors.  The
+samplers are torch.  Where the JAX version takes a PRNG key, these take
+the jitter itself — ``u`` (B, 1), one uniform per ray, or for NDC rays
+``jitter`` (B, N), one per sample; None for the deterministic eval
+lattice — so tests can inject JAX's draw.
 """
 
 from __future__ import annotations
@@ -58,6 +60,63 @@ def get_rays(directions, c2w) -> Tuple[np.ndarray, np.ndarray]:
     return rays_o.reshape(-1, 3).copy(), rays_d.reshape(-1, 3)
 
 
+def _stack(parts):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.stack(parts, -1)
+    return np.stack(parts, -1)
+
+
+def ndc_rays_blender(H, W, focal, near, rays_o, rays_d):
+    """Blender-convention NDC projection of (..., 3) rays (numpy or torch):
+    the origins moved onto the near plane z = -near, then projected."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2]
+    )
+    d1 = -1.0 / (H / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2]
+    )
+    d2 = -2.0 * near / rays_o[..., 2]
+    return _stack([o0, o1, o2]), _stack([d0, d1, d2])
+
+
+def ndc_rays(H, W, focal, near, rays_o, rays_d):
+    """OpenCV-convention NDC projection of (..., 3) rays (numpy or torch)."""
+    t = (near - rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = 1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = 1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 - 2.0 * near / rays_o[..., 2]
+
+    d0 = 1.0 / (W / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2]
+    )
+    d1 = 1.0 / (H / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2]
+    )
+    d2 = 2.0 * near / rays_o[..., 2]
+    return _stack([o0, o1, o2]), _stack([d0, d1, d2])
+
+
+def ndc_bbox(all_rays) -> np.ndarray:
+    """Tight (2, 3) bbox over the NDC rays' extents: each ray from its
+    origin to origin + direction."""
+    rays = np.asarray(all_rays).reshape(-1, all_rays.shape[-1])
+    near = rays[:, :3]
+    far = rays[:, :3] + rays[:, 3:6]
+    lo = np.minimum(near.min(0), far.min(0))
+    hi = np.maximum(near.max(0), far.max(0))
+    print(f"===> ndc bbox near/far extents: {lo} {hi}")
+    return np.stack([lo, hi])
+
+
 def aabb_entry_exit(
     rays_o: torch.Tensor, rays_d: torch.Tensor, aabb: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,6 +131,12 @@ def aabb_entry_exit(
     t_min = torch.amax(torch.minimum(rate_a, rate_b), dim=-1)
     t_max = torch.amin(torch.maximum(rate_a, rate_b), dim=-1)
     return t_min, t_max
+
+
+def aabb_intersect(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: whether each ray's infinite line meets the box."""
+    t_min, t_max = aabb_entry_exit(rays_o, rays_d, aabb)
+    return t_max > t_min
 
 
 def sample_lattice(
@@ -150,3 +215,40 @@ def sample_along_rays(
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     outside = torch.any((xyz < aabb[0]) | (xyz > aabb[1]), dim=-1)
     return xyz, z_vals.expand(B, n_samples), ~outside
+
+
+def linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
+    """n float32 points from start to stop as jnp.linspace computes them:
+    start (1 - s) + stop s, s = iota times the float32 reciprocal of
+    n - 1, the last point exactly stop."""
+    if n == 1:
+        return torch.full((1,), float(start), device=device)
+    s = torch.arange(n - 1, dtype=torch.float32, device=device) * float(
+        np.float32(1) / np.float32(n - 1)
+    )
+    out = float(np.float32(start)) * (1 - s) + float(np.float32(stop)) * s
+    return torch.cat([out, torch.full((1,), float(np.float32(stop)), device=device)])
+
+
+def sample_along_rays_ndc(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    aabb: torch.Tensor,
+    near: float,
+    far: float,
+    n_samples: int,
+    jitter: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """linspace(near, far, n_samples) depths, each moved at train time by
+    its own uniform ``jitter`` (B, N) times (far - near) / n_samples (None
+    at eval); per-sample validity = point inside the aabb.
+
+    Returns (xyz (B, N, 3), z_vals (B, N), ray_valid (B, N) bool).
+    """
+    B = rays_o.shape[0]
+    interpx = linspace(near, far, n_samples, rays_o.device)[None, :]
+    if jitter is not None:
+        interpx = interpx + jitter * ((far - near) / n_samples)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+    outside = torch.any((xyz < aabb[0]) | (xyz > aabb[1]), dim=-1)
+    return xyz, interpx.expand(B, n_samples), ~outside

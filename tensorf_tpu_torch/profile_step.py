@@ -1,21 +1,25 @@
 """Where a train step's or a served frame's device time goes: torch.profiler
 over a few steps, or over one frame.
 
-    python -m tensorf_tpu_torch.profile_step [--config configs/lego.txt]
-        [--last_segment | --serve] [--unstratified]
+    python -m tensorf_tpu_torch.profile_step [--config configs/lego.txt |
+        --config configs/flower.txt] [--last_segment | --serve] [--unstratified]
 
 Trains a config's model as the config is written (ray stratification,
 sample budgets and top-K shading on) on its in-memory composite scene:
 configs/synth_full.txt (the default) on 8 views of 200x200 px, and
 configs/lego.txt on Blender's 100 train and 200 test views of 800x800 px
-(only the views its indices select are traced); ``--unstratified`` runs
+(only the views its indices select are traced), configs/flower.txt on the
+in-memory forward-facing capture of 34 views at 1008x756 (flower's
+images_4 size; 29 train, 5 test); ``--unstratified`` runs
 it with stratification and budgets off instead, as the port ran before
 it had them.  By default it takes WARMUP steps of the first (128^3) segment
 unprofiled, past the initial loss plateau, then profiles STEPS steps.
 With ``--last_segment`` it runs the cut schedule chip_smoke.py drives
 (synth_full's CUT_SCHEDULE: 450 steps, both alpha-mask events, five
 upsamples to n_to_reso(300^3) on the shrunk bbox; lego's LEGO_CUT: 600
-steps, the upsample and alpha mask at 400), profiles the last STEPS steps
+steps, the upsample and alpha mask at 400; flower's FLOWER_CUT: 450 steps,
+four upsamples to n_to_reso(640^3), the alpha mask at 250), profiles the
+last STEPS steps
 of every segment and prints each window's busy and idle share; the tables
 are the last segment's.  It prints,
 per CUDA kernel, its device time per step and share, then the same time
@@ -28,7 +32,8 @@ time of the STEPS unprofiled steps just before each profiled window (the
 profiled window's own wall time is printed beside it).  With ``--serve``
 it trains the cut schedule, then serves one 800x800 view of its final
 state (test pose 0, the focal scaled to 800x800, rays built on the
-device by rays_from_pose) through the eval's handle (stratified serving): one
+device by rays_from_pose; flower: test view 0 at 1008x756, uniform, as
+NDC rays serve) through the eval's handle (stratified serving): one
 warm frame, one timed frame, one profiled frame, and the same busy, idle
 and table rows per frame.  Needs a GPU.
 """
@@ -44,13 +49,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .config import load_config
-from .data.synthetic import make_synthetic_scene_arrays
+from .data.synthetic import make_forward_facing_scene, make_synthetic_scene_arrays
 from .ops.rays import get_ray_directions
 from .render.chunked import rays_from_pose
 from .train.loop import make_handle, reconstruction, train_steps
 
 CONFIG = "configs/synth_full.txt"
 LEGO = "configs/lego.txt"
+FLOWER = "configs/flower.txt"
 OVERRIDES = dict(progress_refresh_rate=10**9)
 # the port's drive before it had stratification and budgets
 UNSTRATIFIED = dict(stratify=0, sample_budget=0, prefilter_budget=0)
@@ -72,11 +78,23 @@ CUT_SCHEDULE = dict(n_iters=450, lr_decay_iters=30000, upsamp_list=[200, 250, 30
 LEGO_CUT = dict(n_iters=600, lr_decay_iters=3000, upsamp_list=[400, 600, 800, 1100, 1400],
                 update_AlphaMask_list=[400, 800], vis_every=400, train_vis_every=400,
                 render_test=1)
+# configs/flower.txt's 25000-step schedule cut to 450 steps as
+# CUT_SCHEDULE cuts synth_full's: the first segment keeps 200 steps (the
+# loss bar reads its end), then every event 50 steps apart in the config's
+# order — upsample, alpha mask (shrink), three upsamples — so the last 49
+# steps run at n_to_reso(640^3).  The LR decays over the config's 25000
+# steps; progress every 10 steps as written; no evaluation before the end
+# (vis_every 1000 as written lies past it); the spiral render_path is left
+# to the caller.
+FLOWER_CUT = dict(n_iters=450, lr_decay_iters=25000, upsamp_list=[200, 300, 350, 400],
+                  update_AlphaMask_list=[250], render_path=0)
 # each config's in-memory scene and cut schedule; lego's scene has
-# Blender's split sizes, so its train_idxs and test_idxs select as written
+# Blender's split sizes, so its train_idxs and test_idxs select as written;
+# flower's is an LLFF capture (make_forward_facing_scene's arguments)
 PATHS = {
     CONFIG: (dict(n_train=8, n_test=2, wh=(200, 200), scene="composite"), CUT_SCHEDULE),
     LEGO: (dict(n_train=100, n_test=200, wh=(800, 800), scene="composite"), LEGO_CUT),
+    FLOWER: (dict(n_views=34, wh=(1008, 756)), FLOWER_CUT),
 }
 WARMUP = 160
 STEPS = 5
@@ -91,6 +109,8 @@ def path_scene(config: str, cfg):
     """``config``'s in-memory scene (PATHS), tracing only the views that
     ``cfg``'s train_idxs and test_idxs select, where it sets them."""
     scene, _ = PATHS[config]
+    if cfg.dataset_name == "llff":
+        return make_forward_facing_scene(**scene)
     views = {split: idxs for split, idxs in (("train", cfg.train_idxs), ("test", cfg.test_idxs))
              if idxs}
     return make_synthetic_scene_arrays(**scene, views=views or None)
@@ -216,11 +236,20 @@ def main(argv=None) -> int:
     if args.serve:
         state = result.state
         handle = make_handle(state)
-        directions, c2w = serving_view(state.test_ds, SERVE_WH // state.test_ds.img_wh[0],
-                                       "cuda")
+        if state.ndc_ray:
+            # an NDC frame is test view 0 as the dataset projected it
+            view = torch.as_tensor(state.test_ds.all_rays[0].reshape(-1, 6), device="cuda")
 
-        def frame():  # the eval's render; returns host arrays
-            return handle.render(rays_from_pose(directions, c2w))
+            def frame():
+                return handle.render(view)
+            n_rays = view.shape[0]
+        else:
+            directions, c2w = serving_view(state.test_ds, SERVE_WH // state.test_ds.img_wh[0],
+                                           "cuda")
+
+            def frame():  # the eval's render; returns host arrays
+                return handle.render(rays_from_pose(directions, c2w))
+            n_rays = directions.shape[0]
 
         frame()  # warm
         torch.cuda.synchronize()
@@ -233,7 +262,7 @@ def main(argv=None) -> int:
             frame()
             wall = time.perf_counter() - t0
         windows.append([0, prof, wall, plain])
-        where = (f"one {directions.shape[0]}-ray {'stratified' if handle.stratified else 'uniform'} "
+        where = (f"one {n_rays}-ray {'stratified' if handle.stratified else 'uniform'} "
                  f"frame of the final state: grid {state.geometry.grid_size}, {state.n_samples} "
                  f"samples, top-{cfg.shade_top_k}, {n_valid} shaded samples, overflow "
                  f"{handle.max_overflow}")

@@ -86,7 +86,7 @@ def render_chunked(
     device; returns (rgb (M, 3), depth (M,)) tensors there, the number of
     shaded samples and the largest budget overflow fraction of a chunk.
     ``render_kw`` are render_rays' keywords (step_size, n_samples,
-    white_bg, shade_top_k, fused, sample_budget, budget_mode,
+    white_bg, ndc_ray, shade_top_k, fused, sample_budget, budget_mode,
     use_coarse_gate)."""
     rays = torch.as_tensor(rays, dtype=torch.float32, device=aabb.device)
     rgb, depth, n_valid, overflow = _render_chunks(field, alpha_mask, rays, aabb, chunk, masks,
@@ -237,13 +237,20 @@ def render_chunked_stratified(
     count snaps to a tier below its candidate tier compacts to that tier
     once more.  ``log`` receives the count pass's line and one line per
     bucket, on the resident path per bucket chunk (tier, budget K, rays,
-    chunk, lattice)."""
+    chunk, lattice).
+
+    NDC rays render uniform and unbudgeted, without the coarse gate: the
+    count passes march the non-NDC slab and would miscount them.  A lattice
+    above 512 samples caps the chunk at 8192 rays."""
+    common = dict(step_size=step_size, white_bg=white_bg, shade_top_k=shade_top_k, fused=fused)
     if ndc_ray:
-        raise NotImplementedError("NDC rays are not ported yet")
+        rgb, depth, n_valid, overflow = render_chunked(
+            field, alpha_mask, rays, aabb, chunk=min(chunk, 8192) if n_samples > 512 else chunk,
+            masks=masks, n_samples=n_samples, ndc_ray=True, use_coarse_gate=False, **common)
+        return rgb.cpu().numpy(), depth.cpu().numpy(), n_valid, overflow
     from .culling import count_ray_candidates, count_ray_candidates_and_alive
 
     near_far = tuple(float(v) for v in field.cfg.near_far)
-    common = dict(step_size=step_size, white_bg=white_bg, shade_top_k=shade_top_k, fused=fused)
     if use_coarse_gate and not alive_stage:
         return _render_stratified_resident(field, alpha_mask, rays, aabb, n_samples=n_samples,
                                            chunk=chunk, masks=masks, near_far=near_far, log=log,

@@ -27,7 +27,7 @@ from ..models.alpha_mask import (
     sample_alpha_gate_coarse,
     with_dilation,
 )
-from ..ops.rays import aabb_entry_exit, inbbox_chord, sample_along_rays
+from ..ops.rays import aabb_entry_exit, inbbox_chord, linspace, sample_along_rays
 from .volume import feature2density, normalize_coord, pack_window_bits
 
 
@@ -58,17 +58,6 @@ def filter_rays_bbox(
     return rays[mask], rgbs[mask]
 
 
-def _linspace01(n: int, device) -> torch.Tensor:
-    """n points from 0 to 1 as jnp.linspace computes them in float32
-    (iota times the reciprocal of n - 1, the last point exactly 1)."""
-    if n == 1:
-        return torch.zeros(1, device=device)
-    step = torch.arange(n - 1, dtype=torch.float32, device=device) * float(
-        np.float32(1) / np.float32(n - 1)
-    )
-    return torch.cat([step, torch.ones(1, device=device)])
-
-
 def _alpha_at(field, alpha_mask, xyz, aabb, den_mask, length: float) -> torch.Tensor:
     """alpha = 1 - exp(-sigma * length) at world points (M, 3), with the
     alpha-mask gate (reference compute_alpha, tensorBase.py:298-318)."""
@@ -97,8 +86,8 @@ def compute_alpha_grid(
     gx, gy, gz = (int(g) for g in grid_size)
     aabb_t = torch.as_tensor(np.asarray(aabb, np.float32).reshape(2, 3), device=dev)
     samples = torch.stack(
-        torch.meshgrid(_linspace01(gx, dev), _linspace01(gy, dev), _linspace01(gz, dev),
-                       indexing="ij"),
+        torch.meshgrid(linspace(0.0, 1.0, gx, dev), linspace(0.0, 1.0, gy, dev),
+                       linspace(0.0, 1.0, gz, dev), indexing="ij"),
         dim=-1,
     )
     dense_xyz = aabb_t[0] * (1 - samples) + aabb_t[1] * samples

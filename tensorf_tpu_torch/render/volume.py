@@ -1,5 +1,5 @@
 """Fixed-shape masked volume renderer (counterpart of
-tensorf_tpu/render/volume.py), for non-NDC rays.
+tensorf_tpu/render/volume.py).
 
 Dead samples contribute exactly zero density / radiance through ``where``
 gates.  With an alpha mask, a sample lives only where the mask's
@@ -11,7 +11,9 @@ the rays where it does not.  Shading runs where the weight passes
 ``ray_march_weight_thres`` — over every kept sample, or (``shade_top_k``)
 over the top-K weights per ray only.  Serving renders take their candidate
 windows from the count pass's packed window bits (``cand_window_bits``)
-and build no sample lattice.  NDC rays are not ported yet and raise.
+and build no sample lattice.  NDC rays (forward-facing scenes) sample
+linspace(near, far) with per-sample jitter, scale each distance by the
+ray's direction norm and shade with the normalized direction.
 
 Every top-k selection here ranks with distinct scores: kept entries
 nearest first, then dead entries by ascending index.  That is the order
@@ -35,7 +37,13 @@ from ..models.alpha_mask import (
 from ..models.config import ModelConfig
 from ..models.shading import apply_shading
 from ..ops.freq_mask import FreeMasks
-from ..ops.rays import inbbox_chord, lattice_z, sample_along_rays, sample_lattice
+from ..ops.rays import (
+    inbbox_chord,
+    lattice_z,
+    sample_along_rays,
+    sample_along_rays_ndc,
+    sample_lattice,
+)
 from ..ops.render_math import raw2alpha
 
 # Re-derive z/xyz/dists from the selected lattice indices instead of
@@ -209,15 +217,17 @@ def render_rays(
     cand_window_bits=None,
     u: Optional[torch.Tensor] = None,
     flip: Optional[torch.Tensor] = None,
+    jitter: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     """Volume-render a batch of rays (B, 6) -> RenderOutput.
 
     ``field`` is a field of models/tensorf.py; ``masks`` the per-step
     FreeNeRF bundle; ``alpha_mask`` (or None) gates samples by occupancy.
     Where the JAX version takes a key, this takes the noise itself: ``u``
-    (B, 1) is the per-ray lattice jitter and ``flip`` (scalar 0/1) the
-    train-time random white-background flip for datasets whose background
-    is not white.  Both None give the deterministic eval render.
+    (B, 1) is the per-ray lattice jitter, ``jitter`` (B, n_samples) the
+    per-sample jitter of NDC rays (``ndc_ray``), and ``flip`` (scalar 0/1)
+    the train-time random white-background flip for datasets whose
+    background is not white.  All None give the deterministic eval render.
 
     A ``sample_budget`` K < ``n_samples`` compacts each ray before the
     field runs, by the first rule that applies:
@@ -229,6 +239,9 @@ def render_rays(
     - ``"alive"`` with a mask: K1 = min(n_samples, K + 224) coarse
       candidates, exact-gated, then the K nearest alive ones;
     - no mask (the prefilter budget): the K nearest in-bbox samples.
+    The stride-window selections re-derive the kept samples from the affine
+    lattice; NDC rays gather them instead (whole windows in "cand" mode,
+    single samples without a mask), as the JAX renderer does.
     ``cand_window_bits`` (B, Gb) uint8, the packed per-window probe hits of
     render/culling.py::count_ray_candidates_chord_bits, replaces the
     lattice and its coarse gate: the K // COARSE_STRIDE nearest hit windows
@@ -243,9 +256,6 @@ def render_rays(
             "cand_window_bits requires non-NDC cand-mode budget rendering with an alpha "
             "mask and a COARSE_STRIDE-multiple budget <= n_samples"
         )
-    if ndc_ray:
-        raise NotImplementedError("NDC rays are not ported yet")
-
     cfg = field.cfg
     B = rays.shape[0]
     rays_o, viewdirs = rays[:, :3], rays[:, 3:6]
@@ -276,16 +286,25 @@ def render_rays(
         n_eff = K
         use_budget = False
     else:
-        xyz, z_vals, ray_valid = sample_along_rays(
-            rays_o, viewdirs, aabb, near, far, step_size, n_samples, u
-        )
+        if ndc_ray:
+            xyz, z_vals, ray_valid = sample_along_rays_ndc(
+                rays_o, viewdirs, aabb, near, far, n_samples, jitter
+            )
+        else:
+            xyz, z_vals, ray_valid = sample_along_rays(
+                rays_o, viewdirs, aabb, near, far, step_size, n_samples, u
+            )
         dists = torch.cat(
             [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
         )
+        if ndc_ray:
+            rays_norm = torch.linalg.norm(viewdirs, dim=-1, keepdim=True)
+            dists = dists * rays_norm
+            viewdirs = viewdirs / rays_norm
         use_budget = sample_budget is not None and sample_budget < n_samples
 
     def compact_windows(keep, K):
-        if _DERIVED_COMPACTION:
+        if _DERIVED_COMPACTION and not ndc_ray:
             sel, win_alive, pc = _select_windows(keep, K)
             return (*_derive_at(rays_o, viewdirs, aabb, near, far, u, step_size,
                                 n_samples, sel, win_alive), pc)
@@ -325,7 +344,7 @@ def render_rays(
             overflow = torch.mean((over1 | _over(alive, K)).to(torch.float32))
             xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, alive, K)
             exact_gated = True
-        elif K % COARSE_STRIDE == 0:
+        elif K % COARSE_STRIDE == 0 and not ndc_ray:
             # mask-free: the candidates are the contiguous in-bbox run
             xyz, z_vals, dists, ray_valid, pc = compact_windows(ray_valid, K)
             overflow = torch.mean((pc > K).to(torch.float32))

@@ -31,8 +31,10 @@ armed before any device work exits the process resumable (code 17) when
 the run stops making progress.  The run writes ``history.npz`` (a row
 every ``train_vis_every`` steps), tensorboard scalars when tensorboardX
 imports, and with ``save_images`` the progress figures and their GIF.
-NDC rays are not ported yet: a config that asks for them raises
-NotImplementedError.
+A config with ``ndc_ray`` (the forward-facing LLFF scenes) trains as the
+JAX loop trains it: its ray store is neither bbox-filtered nor re-filtered
+by the mask, it is never stratified, its mask gates exactly (no coarse
+pre-gate), and it serves uniform.
 """
 
 from __future__ import annotations
@@ -82,22 +84,9 @@ from .optim import make_optimizer
 from .sampler import SimpleSampler, StratifiedSampler, allocate_quotas
 from .step import TrainStatics, make_train_step, render_widths
 
-# knobs of the JAX trainer that the port does not honour yet: a run that
-# sets them would compute something else than its config states
-_UNPORTED_SCHEDULE = ("ndc_ray",)
 # per-stratum quotas are multiples of this (the JAX loop's rounding on one
 # device: the smallest multiple of the device count that is >= 8)
 QUOTA_ROUND = 8
-
-
-def _refuse_unported(cfg: TrainConfig, keys) -> None:
-    unported = [k for k in keys if getattr(cfg, k)]
-    if unported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unported)}; set "
-            + ", ".join(f"{k}=0" for k in unported)
-            + " to run without"
-        )
 
 
 def step_seed(seed: int, iteration: int) -> int:
@@ -118,11 +107,16 @@ def first_segment_end(cfg: TrainConfig) -> int:
     return int(min(events)) if events else int(cfg.n_iters)
 
 
-def _dataset(cfg: TrainConfig, scene: Optional[Dict[str, dict]], split: str, **kw):
+def _dataset(cfg: TrainConfig, scene: Optional[dict], split: str, **kw):
+    """``split`` of the config's dataset: read from ``cfg.datadir``, or from
+    the in-memory ``scene`` — blender-layout splits ({split: transforms
+    dict}) or an LLFF capture ({"poses_bounds", "images"})."""
     if cfg.dataset_name not in dataset_dict:
-        raise NotImplementedError(f"dataset {cfg.dataset_name!r} is not ported yet")
+        raise ValueError(f"unknown dataset {cfg.dataset_name!r}")
     extra = {}
-    if scene is not None:
+    if scene is not None and "poses_bounds" in scene:
+        extra = {"meta": scene}
+    elif scene is not None:
         h, w = scene["train"]["frames"][0]["image"].shape[:2]
         extra = {"wh": (w, h), "meta": scene[split]}
     return dataset_dict[cfg.dataset_name](cfg.datadir, split=split,
@@ -179,6 +173,7 @@ class TrainState:
         ``restore_sampling_state``)."""
         self.cfg = cfg
         self.device = device
+        self.ndc_ray = bool(cfg.ndc_ray)
         self.train_ds, self.test_ds = _datasets(cfg, scene)
         self.white_bg = self.train_ds.white_bg
         self.near_far = tuple(float(v) for v in self.train_ds.near_far)
@@ -221,13 +216,21 @@ class TrainState:
         self.l1_weight = float(extra.get("l1_weight", cfg.L1_weight_inital))
         self.ratio = float(extra.get("ratio", cfg.mask_ratio_list[0] if cfg.mask_ratio_list
                                      else 1.0))
-        # a resume filters on the dataset's bbox, as the run did before any
-        # shrink; a ckpt_path restart filters on the checkpoint's
-        self.rays, self.rgbs = filter_rays_bbox(
-            self.train_ds.all_rays, self.train_ds.all_rgbs,
-            scene_aabb if resume_extra is not None else aabb, device
-        )
-        if (resume_extra is not None and self.alpha_mask is not None
+        if self.ndc_ray:
+            # NDC rays start on the near plane, inside the box: the JAX
+            # loop keeps the whole split
+            self.rays = torch.as_tensor(np.asarray(self.train_ds.all_rays, np.float32),
+                                        device=device)
+            self.rgbs = torch.as_tensor(np.asarray(self.train_ds.all_rgbs, np.float32),
+                                        device=device)
+        else:
+            # a resume filters on the dataset's bbox, as the run did before
+            # any shrink; a ckpt_path restart filters on the checkpoint's
+            self.rays, self.rgbs = filter_rays_bbox(
+                self.train_ds.all_rays, self.train_ds.all_rgbs,
+                scene_aabb if resume_extra is not None else aabb, device
+            )
+        if (resume_extra is not None and not self.ndc_ray and self.alpha_mask is not None
                 and len(cfg.update_AlphaMask_list) > 1
                 and self.start_iter > cfg.update_AlphaMask_list[1]):
             # the run re-filtered its store at the second mask event
@@ -256,7 +259,7 @@ class TrainState:
         return torch.as_tensor(self.geometry.aabb_np, device=self.device)
 
     def coarse_ok(self) -> bool:
-        return coarse_gate_valid(self.alpha_mask, self.geometry.step_size, False)
+        return coarse_gate_valid(self.alpha_mask, self.geometry.step_size, self.ndc_ray)
 
     def active_budget(self) -> Optional[int]:
         """The unstratified budget of the current phase: sample_budget once
@@ -359,7 +362,7 @@ def build_statics(state: TrainState) -> TrainStatics:
         n_samples=state.n_samples,
         step_size=state.geometry.step_size,
         white_bg=state.white_bg,
-        ndc_ray=False,
+        ndc_ray=state.ndc_ray,
         total_steps=cfg.n_iters,
         lr_factor=state.lr_factor,
         weights=LossWeights(
@@ -398,13 +401,15 @@ def make_handle(state: TrainState) -> RendererHandle:
         step_size=state.geometry.step_size,
         n_samples=state.n_samples,
         white_bg=state.white_bg,
+        ndc_ray=state.ndc_ray,
         shade_top_k=cfg.shade_top_k if cfg.shade_top_k > 0 else None,
         fused=bool(cfg.fused_gathers),
         # the uniform eval path renders at the mask era's budget; stratified
         # serving has its own per-bucket budgets
         sample_budget=state.active_budget() if state.alpha_mask is not None else None,
         use_coarse_gate=state.coarse_ok(),
-        stratified=bool(cfg.stratify_render),
+        # NDC rays serve uniform: the count passes march the non-NDC slab
+        stratified=bool(cfg.stratify_render) and not state.ndc_ray,
     )
 
 
@@ -428,7 +433,7 @@ def restratify(state: TrainState, iteration: int, log: Callable[[str], None] = p
                                           cfg.seed + iteration)
         return None
 
-    if not cfg.stratify:
+    if not cfg.stratify or state.ndc_ray:
         return deactivate()
     alive_counts = None
     if state.alpha_mask is None:
@@ -588,7 +593,8 @@ def alpha_mask_event(state: TrainState, iteration: int) -> dict:
         state.geometry = GridGeometry.create(corrected, new_size, cfg.step_ratio)
         state.reset_optimizer(1.0)
         record.update(shrink_grid=new_size)
-    if len(cfg.update_AlphaMask_list) > 1 and iteration == cfg.update_AlphaMask_list[1]:
+    if (not state.ndc_ray and len(cfg.update_AlphaMask_list) > 1
+            and iteration == cfg.update_AlphaMask_list[1]):
         # n_samples 256, the reference's default, not the step's lattice
         state.rays, state.rgbs = filter_rays_alpha(
             state.rays, state.rgbs, state.alpha_mask, state.geometry.aabb_np,
@@ -763,7 +769,6 @@ def reconstruction(
     fresh start without one); a finished run then only renders.
     """
     device = resolve_device(device)
-    _refuse_unported(cfg, _UNPORTED_SCHEDULE)
     # armed before any device work; setup milestones and every step beat
     # it, and writes under the build directory count as progress
     watchdog = Watchdog(cfg.wedge_timeout_s, tag=cfg.expname,
@@ -1011,7 +1016,6 @@ def render_test(
     entry, the whole test split renders (no few-shot selection) and the
     train split loads only for ``render_train``."""
     device = resolve_device(device)
-    _refuse_unported(cfg, _UNPORTED_SCHEDULE)
     ckpt = cfg.ckpt or cfg.ckpt_path
     if not ckpt or not os.path.exists(ckpt):
         log("the ckpt path does not exists!!")
@@ -1026,12 +1030,13 @@ def render_test(
         step_size=geometry.step_size,
         n_samples=min(int(cfg.nSamples), geometry.n_samples),
         white_bg=test_ds.white_bg,
+        ndc_ray=bool(cfg.ndc_ray),
         shade_top_k=cfg.shade_top_k if cfg.shade_top_k > 0 else None,
         fused=bool(cfg.fused_gathers),
         # the configured budget, as the JAX render-only entry takes it
         sample_budget=cfg.sample_budget if alpha_mask is not None and cfg.sample_budget > 0 else None,
-        use_coarse_gate=coarse_gate_valid(alpha_mask, geometry.step_size, False),
-        stratified=bool(cfg.stratify_render),
+        use_coarse_gate=coarse_gate_valid(alpha_mask, geometry.step_size, bool(cfg.ndc_ray)),
+        stratified=bool(cfg.stratify_render) and not cfg.ndc_ray,
     )
     return _render_after_training(cfg, scene, handle, test_ds, os.path.dirname(ckpt),
                                   save_images, log)
@@ -1104,8 +1109,6 @@ def train_steps(
     brackets steps with it).
     """
     device = resolve_device(device)
-    if cfg.ndc_ray:
-        raise NotImplementedError("NDC rays are not ported yet")
     end = first_segment_end(cfg)
     if n_steps > end:
         raise ValueError(

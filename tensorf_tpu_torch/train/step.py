@@ -3,9 +3,9 @@ tensorf_tpu/train/step.py).
 
 PyTorch runs it eagerly; there is no jit counterpart.  Where the JAX step
 splits a key, this step draws the same noise from a torch.Generator on the
-device: the per-ray lattice jitter ``u`` (B, 1) and the background flip,
-and with strata one of each per stratum and the noise-matched stratum
-shares.  ``loss_fn`` takes them explicitly so tests can feed JAX's own
+device: the per-ray lattice jitter ``u`` (B, 1) — for NDC rays the
+per-sample jitter (B, n_samples) — and the background flip, and with strata
+one of each per stratum and the noise-matched stratum shares.  ``loss_fn`` takes them explicitly so tests can feed JAX's own
 draws.  The alpha mask rides along as an argument, as in the JAX step;
 the per-segment statics (lattice, budgets, strata, top-K, L1 weight) come
 from the training loop.
@@ -156,7 +156,8 @@ def loss_fn(
     With ``statics.strata_budgets`` set, ``rays``, ``rgbs``, ``u`` and
     ``flip`` are sequences with one entry per stratum, and ``shares`` (S,)
     are the per-step loss weights of a noise-matched step (None: the fixed
-    ones of strata_loss_shares)."""
+    ones of strata_loss_shares).  With ``statics.ndc_ray``, ``u`` is the
+    per-sample jitter (B, n_samples); NDC rays are never stratified."""
     cfg = field.cfg
     lw = statics.weights
     occ_on = lw.occ > 0 and lw.occ_range > 0
@@ -173,12 +174,15 @@ def loss_fn(
             fused=statics.fused,
             use_coarse_gate=statics.use_coarse_gate,
             alpha_mask=alpha_mask,
-            u=u_b,
+            u=None if statics.ndc_ray else u_b,
+            jitter=u_b if statics.ndc_ray else None,
             flip=flip_b,
             **budget,
         )
 
     if statics.strata_budgets is not None:
+        if statics.ndc_ray:
+            raise ValueError("NDC rays are not stratified")
         masks = _build_masks(cfg, statics, step, aabb.device)
         S = len(statics.strata_budgets)
         assert len(rays) == len(rgbs) == len(u) == len(flip) == S
@@ -251,10 +255,12 @@ def loss_fn(
 
 
 def draw_noise(
-    generator: torch.Generator, batch: int, device
+    generator: torch.Generator, batch: int, device, width: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(u (B, 1) lattice jitter, flip scalar 0/1) for one train step."""
-    u = torch.rand((batch, 1), generator=generator, device=device)
+    """(u (B, width) jitter, flip scalar 0/1) for one train step: width 1
+    for the per-ray lattice jitter, n_samples for NDC rays' per-sample
+    jitter."""
+    u = torch.rand((batch, width), generator=generator, device=device)
     flip = (torch.rand((), generator=generator, device=device) < 0.5).to(torch.float32)
     return u, flip
 
@@ -293,7 +299,8 @@ def make_train_step(field, statics: TrainStatics, optimizer):
         else:
             if ids is not None:
                 rays, rgbs = rays[ids], rgbs[ids]
-            u, flip = draw_noise(generator, rays.shape[0], rays.device)
+            u, flip = draw_noise(generator, rays.shape[0], rays.device,
+                                 statics.n_samples if statics.ndc_ray else 1)
         optimizer.zero_grad()
         total, metrics = loss_fn(field, statics, aabb, rays, rgbs, step, u, flip, alpha_mask,
                                  shares)

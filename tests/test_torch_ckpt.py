@@ -238,8 +238,10 @@ def test_tiny_reconstruction_end_to_end(tmp_path):
 
 
 def test_schedule_refuses_what_is_not_ported(tmp_path):
+    """The bf16 dtypes are all the schedule still refuses (resume and NDC
+    rays are ported: tests/test_torch_resume.py, tests/test_torch_ndc.py)."""
     cfg = load_config("configs/synth_sphere.txt", dict(TINY, basedir=str(tmp_path)))
     scene = make_synthetic_scene_arrays(n_train=2, n_test=1, wh=(16, 16), scene="sphere")
-    for knob in ("ndc_ray",):  # resume is ported (tests/test_torch_resume.py)
-        with pytest.raises(NotImplementedError, match=knob):
-            reconstruction(dataclasses.replace(cfg, **{knob: 1}), scene, "cpu")
+    for knob in ("compute_dtype", "grid_dtype", "line_dtype"):
+        with pytest.raises(NotImplementedError, match="float32"):
+            reconstruction(dataclasses.replace(cfg, **{knob: "bfloat16"}), scene, "cpu")

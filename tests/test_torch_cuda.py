@@ -165,6 +165,39 @@ def test_gather_backward_launches_the_kernel():
     )
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,C", [(786, 64), (471, 16), (1100, 8)],
+                         ids=["flower_axis0", "flower_axis2", "over_1024"])
+def test_line_footprint_backward_kernel_matches_plain(L, C):
+    """The 1-D footprint gather of a long line (flower's 640^3-era lines,
+    and one past the one-hot's 1024 rows): forward equal to the CPU's, its
+    backward one kernel launch into the (L, 2C) table, held to the plain
+    scatter and to the CPU's gradient.  The points march along rays, so the
+    index stream comes in long sorted runs, as NDC samples give it."""
+    from tensorf_tpu_torch.ops.grid_sample import footprint_sample_1d, make_footprint_1d
+
+    _need_gpu()
+    gen = torch.Generator().manual_seed(0)
+    n_rays, n_samples = 512, 400
+    start = torch.rand((n_rays, 1), generator=gen) * 2 - 1
+    slope = (torch.rand((n_rays, 1), generator=gen) - 0.5) * 0.4
+    coord = (start + slope * torch.linspace(0, 1, n_samples)).clamp(-1, 1).reshape(-1)
+    line = torch.randn((L, C), generator=gen)
+    cot = torch.randn((coord.numel(), C), generator=gen)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        table = line.to(dev, copy=True).requires_grad_()
+        out = footprint_sample_1d(make_footprint_1d(table), L, coord.to(dev))
+        before = scatter_add.launches
+        out.backward(cot.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert scatter_add.launches == before + 1
+        grads[dev] = (out.detach().cpu().numpy(), table.grad.cpu().numpy())
+    np.testing.assert_allclose(grads["cuda"][0], grads["cpu"][0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(grads["cuda"][1], grads["cpu"][1], **TOL)
+
+
 def _small_field(seed, grid=(20, 22, 24), density_shift=-3.0, density_scale=1.0):
     from tensorf_tpu_torch.models import ModelConfig, TensorVMSplit
 

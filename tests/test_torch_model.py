@@ -157,15 +157,25 @@ def test_render_rays_matches_jax(rng, fused, top_k, keyed, white_bg):
 
 
 def test_render_rays_raises_on_what_is_not_ported():
-    _, field = jax_and_port(4)
-    rays = t(_rays(np.random.default_rng(0), 4))
+    """NDC rays, once refused, render as JAX renders them (with and without
+    a budget; tests/test_torch_ndc.py pins every NDC mode and gradient);
+    what JAX refuses stays refused."""
+    params, field = jax_and_port(4)
+    rays_np = _rays(np.random.default_rng(0), 4)
+    rays = t(rays_np)
     kw = dict(aabb=t(AABB), step_size=0.06, n_samples=40, is_train=False, white_bg=True)
     # sample budgets are ported: the mask-free budget compacts to its width
     out = t_render(field, rays, TMasks(), sample_budget=16, **kw)
     assert out.z_vals.shape == (4, 16)
+    ndc_cfg = dataclasses.replace(CFG, near_far=(0.0, 1.0))
+    field.cfg = TConfig(**dataclasses.asdict(ndc_cfg))
     for extra in (dict(sample_budget=16, ndc_ray=True), dict(ndc_ray=True)):
-        with pytest.raises(NotImplementedError):
-            t_render(field, rays, TMasks(), **kw, **extra)
+        got = t_render(field, rays, TMasks(), **kw, **extra)
+        want = j_render(JM, ndc_cfg, params, None, jnp.asarray(rays_np), None, JMasks(),
+                        aabb=jnp.asarray(AABB), **{k: v for k, v in kw.items() if k != "aabb"},
+                        **extra)
+        for name in ("rgb", "depth", "weights", "z_vals"):
+            close(getattr(got, name), getattr(want, name))
     # serving window bits are ported; without an alpha mask they are refused,
     # as the JAX renderer refuses them
     with pytest.raises(ValueError, match="cand_window_bits"):

@@ -97,17 +97,22 @@ def test_same_render_tells_shading_flips_from_differences(scene, case):
     assert flips == (1 if times or plus > 1e-5 else 0)
 
 
+@pytest.mark.parametrize("one_hot_bytes", [None, 30_000], ids=["one_hot", "footprint_lines"])
 @pytest.mark.parametrize("model", ["TensorVMSplit", "TensorCP", "TensorVM"])
 @pytest.mark.parametrize("fused,top_k", [(True, 16), (True, None), (False, 16)],
                          ids=["fused_topk", "fused_all", "unfused"])
-def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_k):
+def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_k,
+                                                              one_hot_bytes, monkeypatch):
     """chip_smoke.py's expected launch count of a step equals the plane and
     line row gathers the step's backward scatters, counted on the CPU, for
     every model: with strata (one render each, one width under top-K and
-    one above it) and without."""
+    one above it) and without; with every fused line on the one-hot matmul,
+    and with a byte bound that sends the wide passes' lines to the
+    footprint gather and keeps some top-K passes' on the matmul."""
     from unittest import mock
 
     from tensorf_tpu_torch.models import FIELD_MODELS
+    from tensorf_tpu_torch.models import tensorf
     from tensorf_tpu_torch.ops import grid_sample
     from tensorf_tpu_torch.ops.scatter_add import scatter_add_reference
     from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
@@ -132,6 +137,8 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
          (rays[:24], rays[24:]), (rgbs[:24], rgbs[24:]), (u[:24], u[24:]),
          (torch.tensor(0.0), torch.tensor(0.0))),
     ]
+    if one_hot_bytes is not None:
+        monkeypatch.setattr(tensorf, "_ONE_HOT_MAX_BYTES", one_hot_bytes)
     for statics, rays_, rgbs_, u_, flip in cases:
         calls = []
 
@@ -143,4 +150,6 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
         with mock.patch.object(grid_sample, "scatter_add", counting):
             total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
             total.backward()
-        assert len(calls) == chip_smoke.scatter_launches_per_step(statics, model)
+        batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
+        assert len(calls) == chip_smoke.scatter_launches_per_step(statics, model, batches,
+                                                                  (10, 11, 12))

@@ -10,6 +10,7 @@ ill-conditioned.
 """
 
 import dataclasses
+import glob
 from unittest import mock
 
 import jax
@@ -298,7 +299,9 @@ def test_simple_sampler_covers_the_store():
 
 
 def test_config_copy_parses_like_jax():
-    for path in ("configs/synth_full.txt", "configs/synth_sphere.txt", "configs/lego.txt"):
+    paths = sorted(glob.glob("configs/*.txt"))
+    assert "configs/flower.txt" in paths
+    for path in paths:
         assert dataclasses.asdict(t_load_config(path)) == dataclasses.asdict(j_load_config(path))
 
 
