@@ -32,7 +32,9 @@ each prints its seconds):
      rays the eval budget covers rendered in "alive" mode at it, against
      the unbudgeted masked render (depth 1e-4, rgb 1e-5 but for shading
      flips: see same_render); the masked render against the CPU path; the
-     final checkpoint re-rendered through the render-only entry;
+     final checkpoint re-rendered through the render-only entry; the same
+     rays rendered with every dtype option at bfloat16 against float32,
+     within BF16_RENDER_BAR (bf16_render);
   6. serving at full width: one 800x800 view of the final state (test pose
      0 with the focal scaled x4: the synth_full/Blender test resolution,
      640,000 rays built on the card by rays_from_pose) served by
@@ -53,8 +55,10 @@ each prints its seconds):
      smallest stratum (by samples a step) of the main path's final plan;
   9. a second path: configs/synth_sphere.txt's schedule as written (300
      steps, events at 150/200/260, stratified serving) on the in-memory
-     sphere scene at 800x800 with downsample 8; its test PSNR must reach
-     30 dB and no evaluation may overflow;
+     sphere scene at 800x800 with downsample 8, at each of the five seeds
+     of seed_spread.SEEDS (the config's first, which feeds phases 10 and
+     11); each seed's test PSNR is printed, their mean must reach 30 dB
+     (sphere_seed_mean) and no evaluation may overflow;
  10. mesh: the CLI's mesh export (``--export_mesh 1 --ckpt``) of the main
      path's final checkpoint (its n_to_reso(300^3) grid, before the
      unstratified drive replaces that logfolder) and of synth_sphere's: each
@@ -62,7 +66,10 @@ each prints its seconds):
      and runs the native marching library; the sphere's mean vertex radius
      about its centre must lie within 0.05 of 0.8.  Prints vertex and face
      counts, the alpha grid's ms (host clock, device synchronised) and the
-     host ms of marching;
+     host ms of marching.  th_import: the main path's final field written
+     in the reference's .th layout (write_reference_th); render-only of the
+     .th through the CLI must read the .npz's PSNR within 1e-4 dB, and its
+     mesh export as many vertices as mesh_main's;
  11. resume: synth_sphere as written again, killed after step 251 (its
      checkpoint at 250 written), then ``resume`` in the same logfolder: the
      resumed run must log that it continues at 251 with the optimizer and
@@ -119,7 +126,21 @@ each prints its seconds):
      FLOWER_MIN_PSNR; FLOWER_SPIRAL spiral poses; render-only of the final
      checkpoint within 1e-4 dB of the served views.  Then the kernel
      against its plain version on the last segment's plane and line
-     footprint streams.
+     footprint streams;
+ 16. bf16: configs/synth_full.txt as written but with grid_dtype,
+     line_dtype and compute_dtype bfloat16 (profile_step.BF16) over the
+     main path's first segment (BF16_STEPS at 128^3): one step's gradients
+     kernel vs plain (2^-6 of each leaf's largest: bf16 rounding of the
+     summed rows), launches of scatter_add and of its bf16 entry point
+     (scatter_add_bf16) equal to the per-stratum sums, the main path's loss
+     bar, its segment's ms/step and peak GiB; then the bf16 entry point
+     against its plain version on the density and appearance streams of
+     the last step's largest stratum, beside the float32 entry point on
+     the same values widened;
+ 17. lpips: AlexNet and VGG LPIPS (eval/lpips.py) with seeded random
+     weights in a temporary TENSORF_LPIPS_DIR on an 800x800 view (the
+     sphere scene's test view 0 against a noisy copy), the card against
+     the CPU within LPIPS_RTOL, with ms per call.
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
@@ -164,9 +185,14 @@ UNSTRATIFIED_LAUNCHES_PER_STEP = 6
 # the synthetic cases of the main path's shapes; the real streams join them
 SYNTHETIC_MAIN_SHAPES = ("density_128", "appearance_128", "density_300", "appearance_300")
 # the JAX package's drive of synth_sphere is held to >= 30 dB (its verify
-# notes), and read 32.496 dB on the CPU (PERF.md)
+# notes); one run's PSNR spreads across that bar with the seed (29.59-32.50
+# dB for JAX's CPU drive, 27.79-31.90 for the port's) and, on the card,
+# from call to call (29.86-30.22 dB at one seed; ROADMAP queue 3 item 6),
+# so the bar holds the mean over seed_spread.SEEDS, which both packages'
+# CPU drives meet (PERF.md §6: JAX 30.78, the port 30.59 dB)
 SPHERE_MIN_PSNR = 30.0
-SPHERE_JAX_PSNR = 32.496
+SPHERE_JAX_MEAN = 30.78
+SPHERE_PORT_CPU_MEAN = 30.59
 # a stratum whose last overflow read is above this fails the main path
 MAX_FINAL_OVERFLOW = 0.01
 # data/synthetic.py's sphere: radius 0.8 about the origin
@@ -211,8 +237,17 @@ FLOWER_LOSS_RATIO = 0.5
 FLOWER_MIN_PSNR = 26.0
 # spiral render_path poses flower_serving renders, of the loader's 120
 FLOWER_SPIRAL = 2
+# the bf16 path: synth_full with every dtype option at bfloat16 over the
+# main path's first segment, held to its loss bar; a bf16 render of the
+# main path's final state within JAX's bar for a bf16 grid against the
+# float32 render (tests/test_render.py)
+BF16_STEPS = FIRST_SEGMENT
+BF16_RENDER_BAR = 0.03
+# LPIPS on the card against the CPU: float32 convolutions in both, summed
+# in other orders
+LPIPS_RTOL = 1e-4
 # the keys of each kernel case in the kernels line
-CASE_KEYS = ("case", "M", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
+CASE_KEYS = ("case", "M", "dtype", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 # scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
 STREAM_KINDS = {64: "density", 192: "appearance", 256: "fused"}
 # flower's fused step (ranks [16,4,4]/[48,12,12] packed per axis): the plane
@@ -292,8 +327,9 @@ def stream_stats(torch, idx, tile=64):
 
 
 def kernel_case(torch, name, idx, g, n_rows):
-    """scatter_add against scatter_add_reference on one (idx, g), with its
-    times, its bound and its index stream's run structure."""
+    """scatter_add against scatter_add_reference on one (idx, g), float32
+    or bf16 (the bf16 entry point), with its times, its bound and its index
+    stream's run structure."""
     from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
 
     idx, g = idx.cuda(), g.cuda()
@@ -309,18 +345,22 @@ def kernel_case(torch, name, idx, g, n_rows):
     tol = 1e-4 + 1e-6 * float(abs_sum.max())
     del got, want, abs_sum
     lib_out = torch.zeros((n_rows, C), device=dev)
+    # index_add_ takes a source of its table's dtype: a bf16 g widened once,
+    # outside the timed call
+    lib_g = g.float()
     reps = 10 if M * C > 50_000_000 else 30
     kernel_ms = time_ms(torch, lambda: scatter_add(idx, g, n_rows), reps)
     plain_ms = time_ms(torch, lambda: scatter_add_reference(idx, g, n_rows), reps)
-    library_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, g), reps)
-    del lib_out
-    # g and idx read once, the output written once
-    nbytes = M * C * 4 + M * 4 + n_rows * C * 4
+    library_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, lib_g), reps)
+    del lib_out, lib_g
+    # g (4 or 2 bytes a value) and idx read once, the fp32 output written once
+    nbytes = M * C * g.element_size() + M * 4 + n_rows * C * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = M * C / FP32_OPS_PER_S * 1e3
     mean_run, distinct64 = stream_stats(torch, idx)
     row = dict(
-        case=name, M=M, n_rows=n_rows, C=C, max_abs_err=err, tol=tol,
+        case=name, M=M, n_rows=n_rows, C=C, dtype=str(g.dtype).replace("torch.", ""),
+        max_abs_err=err, tol=tol,
         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -437,23 +477,28 @@ def step_grads(torch, field, statics, aabb, rays, rgbs, u, flip):
     return total.item(), {n: p.grad.clone() for n, p in field.named_parameters()}
 
 
-def step_parity_phase(torch, dev, cfg, scene, label="step_parity"):
+def step_parity_phase(torch, dev, cfg, scene, label="step_parity", rel=1e-4):
     """One first-segment step's gradients of ``cfg``'s model, kernel vs
-    plain, same inputs."""
+    plain, same inputs: each leaf within ``rel`` of its largest plain
+    gradient."""
     from unittest import mock
 
     from tensorf_tpu_torch.ops import grid_sample
-    from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
+    from tensorf_tpu_torch.ops.scatter_add import (scatter_add, scatter_add_bf16,
+                                                   scatter_add_reference)
 
     field, grid = path_field(torch, dev, cfg, scene)
     statics, aabb, rays, rgbs, u, flip = step_inputs(torch, dev, cfg, scene, grid)
     inputs = (statics, aabb, rays, rgbs, u, flip)
 
-    before = scatter_add.launches
+    before = (scatter_add.launches, scatter_add_bf16.launches)
     loss_k, g_kernel = step_grads(torch, field, *inputs)
-    want = scatter_launches_per_step(statics, cfg.model_name, [cfg.batch_size], grid)
-    check(scatter_add.launches - before == want, f"{label}: the kernel step launched {scatter_add.launches - before}, not "
-          f"scatter_add {want} times")
+    want = (scatter_launches_per_step(statics, cfg.model_name, [cfg.batch_size], grid,
+                                      field.line_a_dtype),
+            bf16_launches_per_step(statics, cfg.model_name, [cfg.batch_size], field.grid_dtype))
+    got = (scatter_add.launches - before[0], scatter_add_bf16.launches - before[1])
+    check(got == want, f"{label}: the kernel step launched (scatter_add, scatter_add_bf16) "
+          f"{got} times, not {want}")
     before = scatter_add.launches
     with mock.patch.object(grid_sample, "scatter_add", scatter_add_reference):
         loss_p, g_plain = step_grads(torch, field, *inputs)
@@ -465,13 +510,13 @@ def step_parity_phase(torch, dev, cfg, scene, label="step_parity"):
     for name, gk in g_kernel.items():
         gp = g_plain[name]
         err = float((gk - gp).abs().max())
-        # atomics sum in another order: 1e-4 of the leaf's largest gradient
-        tol = 1e-4 * float(gp.abs().max()) + 1e-12
+        # atomics sum in another order: ``rel`` of the leaf's largest gradient
+        tol = rel * float(gp.abs().max()) + 1e-12
         check(err <= tol, f"{label} gradient {name}: max |kernel - plain| {err} > {tol}")
         worst = max(worst, err / tol)
-    print(f"{label}: {cfg.model_name} {cfg.shadingMode}, {want} scatter-adds a step, loss "
-          f"{loss_k:.6f}, {len(g_kernel)} leaves, max err/tol {worst:.3g} (tol = 1e-4 x "
-          f"max|grad| per leaf)", flush=True)
+    print(f"{label}: {cfg.model_name} {cfg.shadingMode}, (scatter_add, scatter_add_bf16) "
+          f"{want} launches a step, loss {loss_k:.6f}, {len(g_kernel)} leaves, max err/tol "
+          f"{worst:.3g} (tol = {rel:g} x max|grad| per leaf)", flush=True)
 
 
 def device_parity_phase(torch, cfg, scene, label):
@@ -588,7 +633,7 @@ def check_schedule(result, cfg):
     check(any(e.get("refiltered") for e in result.events), "no alpha ray re-filtering")
 
 
-def scatter_launches_per_step(statics, model_name: str, batches, grid) -> int:
+def scatter_launches_per_step(statics, model_name: str, batches, grid, a_dtype=None) -> int:
     """The scatter-adds one train step of ``model_name`` launches under
     ``statics`` with ``batches`` rays in each render (the strata's quotas,
     or the batch) on a ``grid`` (X, Y, Z): one per gathered table.  The
@@ -600,7 +645,8 @@ def scatter_launches_per_step(statics, model_name: str, batches, grid) -> int:
     into one pass unless top-K shading below the render's width gathers
     them apart (a density pass over the width, an appearance pass over the
     top K).  Unfused, every plane and line is a row gather of its own: 12
-    for the VM models, CP's 6 lines."""
+    for the VM models, CP's 6 lines.  ``a_dtype`` is the field's line
+    one-hot dtype (a bf16 one-hot keeps twice the points)."""
     from tensorf_tpu_torch.models.config import VEC_MODE
     from tensorf_tpu_torch.models.tensorf import line_uses_matmul
     from tensorf_tpu_torch.train.step import render_widths
@@ -611,20 +657,43 @@ def scatter_launches_per_step(statics, model_name: str, batches, grid) -> int:
     planes = 0 if model_name == "TensorCP" else 3
 
     def feature_pass(points):
-        return planes + sum(not line_uses_matmul(points, grid[v]) for v in VEC_MODE)
+        return planes + sum(not line_uses_matmul(points, grid[v], a_dtype) for v in VEC_MODE)
 
     k = statics.shade_top_k
     return sum(feature_pass(b * w) + feature_pass(b * k) if k is not None and k < w
                else feature_pass(b * w) for b, w in zip(batches, widths))
 
 
-def launches_of_step(state) -> int:
-    """scatter_launches_per_step of the step the loop's ``state`` takes."""
+def bf16_launches_per_step(statics, model_name: str, batches, grid_dtype) -> int:
+    """The scatter-adds of bf16 rows one train step launches: the fused
+    path's plane tables, which TensorVMSplit alone casts to ``grid_dtype``
+    (as JAX), three per feature pass; the lines' footprint tables stay
+    float32."""
+    import torch
+
+    from tensorf_tpu_torch.train.step import render_widths
+
+    if not statics.fused or model_name != "TensorVMSplit" or grid_dtype != torch.bfloat16:
+        return 0
+    k = statics.shade_top_k
+    return sum(6 if k is not None and k < w else 3
+               for _, w in zip(batches, render_widths(statics)))
+
+
+def launches_of_step(state) -> dict:
+    """The launches of each kernel that the step the loop's ``state`` takes
+    calls for: scatter_add counts both entry points, scatter_add_bf16 the
+    bf16 one."""
     from tensorf_tpu_torch.train.loop import build_statics
 
-    return scatter_launches_per_step(build_statics(state), state.cfg.model_name,
-                                     state.quotas or [state.cfg.batch_size],
-                                     state.geometry.grid_size)
+    statics, field = build_statics(state), state.field
+    batches = state.quotas or [state.cfg.batch_size]
+    return {
+        "scatter_add": scatter_launches_per_step(statics, state.cfg.model_name, batches,
+                                                 state.geometry.grid_size, field.line_a_dtype),
+        "scatter_add_bf16": bf16_launches_per_step(statics, state.cfg.model_name, batches,
+                                                   field.grid_dtype),
+    }
 
 
 def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
@@ -636,10 +705,11 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
 
     from tensorf_tpu_torch.train.loop import reconstruction
 
-    want = {"scatter_add": 0}
+    want = dict.fromkeys(kernels, 0)
 
     def count(it, state):  # runs after step ``it``, whose statics the state still holds
-        want["scatter_add"] += launches_of_step(state)
+        for kernel, n in launches_of_step(state).items():
+            want[kernel] += n
         if on_step is not None:
             on_step(it, state)
 
@@ -675,7 +745,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script needs one NVIDIA GPU")
     try:
-        from tensorf_tpu_torch.ops.scatter_add import KERNEL_NAME, KERNEL_SOURCE, scatter_add
+        from tensorf_tpu_torch.ops.scatter_add import (KERNEL_NAME, KERNEL_SOURCE, scatter_add,
+                                                       scatter_add_bf16)
         from tensorf_tpu_torch.utils.cuda_build import build
     except ImportError as exc:
         fail(f"run from the root of a tensorf_tpu checkout ({exc})")
@@ -691,15 +762,19 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # name: (wrapper, source, TPU kernel replaced, grids each call enqueues)
-    kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, "tensorf_tpu/ops/pallas/scatter_add2.py:156",
-                             ["zero_fill_kernel", "scatter_add_runs_kernel"])}
+    # name: (wrapper, source, TPU kernel replaced, grids each call enqueues).
+    # Both are entry points of csrc/scatter_add.cu: scatter_add counts every
+    # launch, scatter_add_bf16 those of the bf16 entry point (a bf16 g)
+    replaces = "tensorf_tpu/ops/pallas/scatter_add2.py:156"
+    grids = ["zero_fill_kernel", "scatter_add_runs_kernel"]
+    kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, replaces, grids),
+               "scatter_add_bf16": (scatter_add_bf16, KERNEL_SOURCE, replaces, grids)}
     t0 = time.perf_counter()
-    # the kernels (nvcc, sm_90a) and the host marching library (g++) of
-    # mesh export, all at once
-    built = build([*kernels, "marching"], force=True)
-    print(f"build: {len(kernels)} kernel(s) with nvcc sm_90a and the marching library with "
-          f"g++ in {time.perf_counter() - t0:.2f} s", flush=True)
+    # the kernels' library (nvcc, sm_90a) and the host marching library
+    # (g++) of mesh export, all at once
+    built = build([KERNEL_NAME, "marching"], force=True)
+    print(f"build: {len(kernels)} kernel entry points in csrc/scatter_add.cu with nvcc sm_90a "
+          f"and the marching library with g++ in {time.perf_counter() - t0:.2f} s", flush=True)
     for res in built.values():
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -726,7 +801,7 @@ def full_path(torch, np, name, cfg, scene, kernels, on_step=None):
     FIRST_SEGMENT.  Prints its events, plans and segments."""
     t0 = time.perf_counter()
     result, launches = drive(torch, name, cfg, scene, kernels, cfg.n_iters, on_step)
-    check(all(launches.values()), f"{name}: a kernel of the path never launched: {launches}")
+    check(launches["scatter_add"] > 0, f"{name}: the kernel never launched: {launches}")
     losses = np.asarray(result.total_loss)
     first, last = float(losses[:5].mean()), float(losses[FIRST_SEGMENT - 5:FIRST_SEGMENT].mean())
     print(f"{name}: loss first-5 mean {first:.6f} -> mean of steps {FIRST_SEGMENT - 5}.."
@@ -1223,10 +1298,11 @@ def first_segment(torch, np, name, cfg, scene, kernels, steps, capture=None):
     from tensorf_tpu_torch.train.loop import train_steps
 
     untrained = train_steps(cfg, 0, device="cuda", scene=scene, log=lambda m: None).test_psnr
-    want = {"scatter_add": 0}
+    want = dict.fromkeys(kernels, 0)
 
     def count(it, state):
-        want["scatter_add"] += launches_of_step(state)
+        for kernel, n in launches_of_step(state).items():
+            want[kernel] += n
         if capture is not None:
             capture(it, state)
 
@@ -1447,11 +1523,281 @@ def flower_phase(torch, np, kernels, workdir):
     return launches["scatter_add"], cases
 
 
+def write_reference_th(torch, np, path, field, aabb, alpha_mask=None) -> None:
+    """Write ``field`` (with ``aabb`` and its alpha mask) as the reference
+    saves a model (models/tensorBase.py:160-168): ``torch.save`` of its
+    get_kwargs dict, its state dict (planes (1, R, H, W), lines (1, R, L,
+    1), ``basis_mat.weight`` (out, in), ``renderModule.mlp.{0,2,4}``; the
+    legacy TensorVM's stacked ``plane_coef``/``line_coef``) and the
+    bit-packed mask.  Neither package has an exporter; this is the
+    th_import check's own writer."""
+    cfg = field.cfg
+    p = {n: v.detach().cpu() for n, v in field.named_parameters()}
+
+    def plane(x):  # (H, W, R) -> (1, R, H, W)
+        return x.permute(2, 0, 1)[None].contiguous()
+
+    def line(x):  # (L, R) -> (1, R, L, 1)
+        return x.T[None, :, :, None].contiguous()
+
+    sd = {}
+    if cfg.model_name == "TensorVM":
+        den, app = cfg.density_n_comp[0], cfg.app_n_comp[0]
+        sd["plane_coef"] = torch.stack([p[f"plane.{i}"].permute(2, 0, 1) for i in range(3)])
+        sd["line_coef"] = torch.stack([p[f"line.{i}"].T[:, :, None] for i in range(3)])
+    else:
+        den, app = list(cfg.density_n_comp), list(cfg.app_n_comp)
+        for name in ("density", "app"):
+            for i in range(3):
+                if cfg.model_name == "TensorVMSplit":
+                    sd[f"{name}_plane.{i}"] = plane(p[f"{name}_plane.{i}"])
+                sd[f"{name}_line.{i}"] = line(p[f"{name}_line.{i}"])
+    sd["basis_mat.weight"] = p["basis"].T.contiguous()
+    for slot, layer in ((0, "l1"), (2, "l2"), (4, "l3")):
+        if f"render.{layer}.w" in p:
+            sd[f"renderModule.mlp.{slot}.weight"] = p[f"render.{layer}.w"].T.contiguous()
+            sd[f"renderModule.mlp.{slot}.bias"] = p[f"render.{layer}.b"].clone()
+    kwargs = {
+        "aabb": torch.as_tensor(np.asarray(aabb, np.float32).reshape(2, 3)),
+        "gridSize": [int(g) for g in field.grid_size], "density_n_comp": den,
+        "appearance_n_comp": app, "app_dim": cfg.app_dim, "density_shift": cfg.density_shift,
+        "alphaMask_thres": cfg.alpha_mask_thres, "distance_scale": cfg.distance_scale,
+        "rayMarch_weight_thres": cfg.ray_march_weight_thres, "fea2denseAct": cfg.fea2dense_act,
+        "near_far": [float(v) for v in cfg.near_far], "step_ratio": cfg.step_ratio,
+        "shadingMode": cfg.shading_mode, "pos_pe": cfg.pos_pe, "view_pe": cfg.view_pe,
+        "fea_pe": cfg.fea_pe, "featureC": cfg.feature_c,
+    }
+    ckpt = {"kwargs": kwargs, "state_dict": sd}
+    if alpha_mask is not None:
+        vol = alpha_mask.volume.detach().cpu().numpy() > 0.5
+        ckpt["alphaMask.shape"] = (1, 1, *vol.shape)
+        ckpt["alphaMask.mask"] = np.packbits(vol.reshape(-1))
+        ckpt["alphaMask.aabb"] = alpha_mask.aabb.detach().cpu()
+    torch.save(ckpt, path)
+
+
+def cli_line(argv):
+    """Run the port's CLI on ``argv`` with its stdout captured; returns
+    (exit code, its last JSON line)."""
+    import contextlib
+    import io
+
+    from tensorf_tpu_torch import __main__ as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    lines = out.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None)
+
+
+def th_import_phase(torch, np, kernels, workdir, config, scene_kw, npz_path, npz_verts) -> None:
+    """A path's final field (``config``'s, on the in-memory scene
+    ``scene_kw``) written in the reference's ``.th`` layout: render-only of
+    it through the CLI reads the PSNR of the ``.npz``'s render-only within
+    1e-4 dB, and its mesh export writes as many vertices as the
+    ``.npz``'s."""
+    import os
+
+    from tensorf_tpu_torch.utils.ckpt import load_checkpoint
+
+    t0 = time.perf_counter()
+    folder = os.path.join(workdir, "th_import")
+    os.makedirs(folder)
+    _, field, aabb, grid, mask, _ = load_checkpoint(npz_path, "cuda")
+    th = os.path.join(folder, os.path.basename(npz_path)[: -len(".npz")] + ".th")
+    write_reference_th(torch, np, th, field, aabb, mask)
+    del field, mask
+    print(f"th_import: {os.path.basename(npz_path)} (grid {grid}) written in the reference's "
+          f".th layout, {os.path.getsize(th) / 2**20:.1f} MiB", flush=True)
+    psnrs = {}
+    for tag, ckpt in (("npz", npz_path), ("th", th)):
+        rc, row = cli_line(["--config", config, "--render_only", "1", "--render_test", "1",
+                            "--ckpt", ckpt, "--synthetic", "--synthetic_scene",
+                            scene_kw["scene"], "--synthetic_wh", str(scene_kw["wh"][0]),
+                            "--synthetic_views", f"{scene_kw['n_train']},{scene_kw['n_test']}",
+                            "--save_images", "0", "--basedir", folder])
+        check(rc == 0 and row is not None, f"th_import: render-only of the {tag} exited {rc}")
+        psnrs[tag] = float(row["test_psnr"])
+    delta = abs(psnrs["th"] - psnrs["npz"])
+    print(f"th_import: CLI render-only test psnr from the .th {psnrs['th']:.6f} dB, from the "
+          f".npz {psnrs['npz']:.6f} dB, |delta| {delta:.3g} (tol 1e-4)", flush=True)
+    check(delta <= 1e-4, f"th_import: the .th renders {psnrs['th']}, the .npz {psnrs['npz']}")
+    row, _ = mesh_export(torch, np, kernels, "th_mesh", config, th)
+    check(row["verts"] == npz_verts, f"th_import: the .th's mesh has {row['verts']} vertices, "
+          f"the .npz's {npz_verts}")
+    print(f"th_import: mesh export of the .th: {row['verts']} vertices, as the .npz's",
+          flush=True)
+    phase_done("th_import", t0)
+
+
+def bf16_render_phase(torch, np, state) -> None:
+    """The main path's final state rendered with every dtype option at
+    bfloat16 against its float32 render, on the reference phase's 256 test
+    rays at the eval budget: within BF16_RENDER_BAR, JAX's bar for a bf16
+    grid (tests/test_render.py)."""
+    from tensorf_tpu_torch.render.chunked import render_chunked
+    from tensorf_tpu_torch.train.loop import make_handle
+
+    handle = make_handle(state)
+    rays = torch.as_tensor(state.test_ds.all_rays[0][::156][:256])
+    kw = dict(chunk=256, step_size=handle.step_size, n_samples=handle.n_samples,
+              white_bg=True, shade_top_k=handle.shade_top_k, fused=True,
+              sample_budget=handle.sample_budget, use_coarse_gate=handle.use_coarse_gate)
+    field = state.field
+    f32 = render_chunked(field, state.alpha_mask, rays, handle.aabb, **kw)[0].cpu()
+    cfg = field.cfg
+    field.cfg = cfg.replace(**{k: "bfloat16" for k in ("grid_dtype", "line_dtype", "dtype")})
+    try:
+        bf16 = render_chunked(field, state.alpha_mask, rays, handle.aabb, **kw)[0].cpu()
+    finally:
+        field.cfg = cfg
+    diff = (bf16 - f32).abs()
+    print(f"bf16_render: {rays.shape[0]} test rays of the main path's final state, every dtype "
+          f"bfloat16 against float32: |rgb diff| max {float(diff.max()):.4g} mean "
+          f"{float(diff.mean()):.4g} (bar {BF16_RENDER_BAR})", flush=True)
+    check(float(diff.max()) < BF16_RENDER_BAR, f"bf16_render: the bf16 render differs from the "
+          f"float32 one by {float(diff.max())}")
+
+
+def bf16_phase(torch, np, kernels, workdir, scene):
+    """configs/synth_full.txt as written (stratified, full width) with
+    grid_dtype, line_dtype and compute_dtype bfloat16 (profile_step.BF16)
+    over the main path's first segment: one step's gradients kernel vs
+    plain, launches of both entry points equal to the per-stratum sums, the
+    main path's loss bar, each segment's ms/step and peak GiB; then the
+    bf16 entry point against its plain version on the density and
+    appearance streams of the last step's largest stratum, beside the
+    float32 entry point on the same streams widened.  Returns (launches,
+    kernel case rows)."""
+    from tensorf_tpu_torch.config import load_config
+    from tensorf_tpu_torch.profile_step import BF16, CUT_SCHEDULE, OVERRIDES
+    from tensorf_tpu_torch.train.loop import build_statics
+    from tensorf_tpu_torch.train.step import render_widths
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = load_config("configs/synth_full.txt", {**OVERRIDES, **CUT_SCHEDULE, **BF16,
+                                                 "n_iters": BF16_STEPS, "basedir": workdir})
+    print(f"cuts: bf16_path: the main path's first {cfg.n_iters} steps (128^3, no event), "
+          f"grid_dtype {cfg.grid_dtype}, line_dtype {cfg.line_dtype}, compute_dtype "
+          f"{cfg.compute_dtype}; otherwise as the main path", flush=True)
+    # bf16 rounding of the summed plane rows: a sum within float32
+    # rounding of its plain twin may round to the next bf16 value, and the
+    # footprint's fold adds four such terms in bf16
+    step_parity_phase(torch, dev, cfg, scene, "bf16_parity", rel=2.0 ** -6)
+    torch.cuda.empty_cache()
+    phase_done("bf16_parity", t0)
+
+    t0 = time.perf_counter()
+    streams = {}
+
+    def capture(it, state):
+        if it == cfg.n_iters - 1:
+            rows = [q * w for q, w in zip(state.quotas, render_widths(build_statics(state)))]
+            streams.update(capture_streams(torch, state, "bf16_128", int(np.argmax(rows))))
+
+    result, launches = drive(torch, "bf16_path", cfg, scene, kernels, cfg.n_iters, capture)
+    check(launches["scatter_add_bf16"] > 0, f"bf16_path: the bf16 entry point never launched: "
+          f"{launches}")
+    check(all(seg["strata"] > 0 for seg in result.segments), "bf16_path: a segment ran "
+          "unstratified")
+    for seg in result.segments:
+        print("bf16_path: segment " + json.dumps(seg), flush=True)
+    first, last = loss_fall(np, result.total_loss, FIRST_SEGMENT)
+    psnr = float(np.mean(result.final_psnrs))
+    print(f"bf16_path: loss first-5 mean {first:.6f} -> mean of steps {FIRST_SEGMENT - 5}.."
+          f"{FIRST_SEGMENT - 1} {last:.6f} (ratio {last / first:.4f}, bar 0.5); test psnr at "
+          f"{cfg.n_iters} {psnr:.4f} dB", flush=True)
+    check(last < 0.5 * first, f"bf16_path: the training loss did not fall to half its start in "
+          f"{FIRST_SEGMENT} steps")
+    del result
+    torch.cuda.empty_cache()
+    phase_done("bf16_path", t0)
+
+    t0 = time.perf_counter()
+    cases = []
+    for name, (idx, g, n_rows) in streams.items():
+        check(g.dtype == torch.bfloat16, f"bf16_path: the {name} stream carries {g.dtype}")
+        cases.append(kernel_case(torch, name, idx, g, n_rows))
+        cases.append(kernel_case(torch, f"{name}_as_f32", idx, g.float(), n_rows))
+    del streams
+    torch.cuda.empty_cache()
+    phase_done("bf16_streams", t0)
+    return launches, cases
+
+
+def write_lpips_weights(np, folder, net, arch) -> None:
+    """Seeded random weights of one LPIPS net in the .npz layout both
+    packages read (conv{i}.w HWIO, conv{i}.b, lin{k}.w)."""
+    import os
+
+    rng = np.random.default_rng(0)
+    out, in_ch = {}, 3
+    for i, (out_ch, k, _, _) in enumerate(arch["convs"]):
+        out[f"conv{i}.w"] = (rng.standard_normal((k, k, in_ch, out_ch))
+                             * np.sqrt(2.0 / (k * k * in_ch))).astype(np.float32)
+        out[f"conv{i}.b"] = (0.01 * rng.standard_normal(out_ch)).astype(np.float32)
+        in_ch = out_ch
+    for t, ci in enumerate(arch["taps"]):
+        out[f"lin{t}.w"] = rng.uniform(0, 1, size=arch["convs"][ci][0]).astype(np.float32)
+    np.savez(os.path.join(folder, f"lpips_{net}.npz"), **out)
+
+
+def lpips_phase(torch, np, workdir, image) -> None:
+    """AlexNet and VGG LPIPS (eval/lpips.py) with seeded random weights
+    from a temporary TENSORF_LPIPS_DIR, on an 800x800 view against a
+    perturbed copy: the card against the CPU within LPIPS_RTOL, with the
+    card's ms per call."""
+    import os
+
+    from tensorf_tpu_torch.eval import lpips
+
+    t0 = time.perf_counter()
+    folder = os.path.join(workdir, "lpips")
+    os.makedirs(folder)
+    for net, arch in lpips.ARCHS.items():
+        write_lpips_weights(np, folder, net, arch)
+    os.environ["TENSORF_LPIPS_DIR"] = folder
+    lpips.clear_cache()
+    a = np.ascontiguousarray(image, np.float32)
+    b = np.clip(a + 0.05 * np.random.default_rng(1).standard_normal(a.shape), 0, 1).astype(
+        np.float32)
+    for net in lpips.ARCHS:
+        card = lpips.lpips(a, b, net, device="cuda")
+        host = lpips.lpips(a, b, net, device="cpu")
+        ms = time_ms(torch, lambda: lpips.lpips(a, b, net, device="cuda"), 5)
+        rel = abs(card - host) / abs(host)
+        print(f"lpips: {net} on a {a.shape[1]}x{a.shape[0]} view: card {card:.7f}, cpu "
+              f"{host:.7f}, relative difference {rel:.3g} (tol {LPIPS_RTOL}); {ms:.2f} ms a "
+              f"call on the card (host to device copy of both images included)", flush=True)
+        check(np.isfinite(card) and card > 0 and rel <= LPIPS_RTOL,
+              f"lpips {net}: card {card}, cpu {host}")
+    del os.environ["TENSORF_LPIPS_DIR"]
+    lpips.clear_cache()
+    phase_done("lpips", t0)
+
+
+def sphere_seed_mean(np, psnrs) -> float:
+    """The mean test PSNR of synth_sphere's runs over the seeds, held to
+    SPHERE_MIN_PSNR: a single run's PSNR spreads across that bar from seed
+    to seed and from card to card, the mean over seed_spread.SEEDS is what the
+    JAX package's drive meets (ROADMAP queue 3 item 6)."""
+    mean = float(np.mean(list(psnrs.values())))
+    print(f"sphere_path: test psnr by seed {json.dumps(psnrs)}; mean {mean:.4f} dB over "
+          f"{len(psnrs)} seeds (min {SPHERE_MIN_PSNR}; the CPU drives' means over the same "
+          f"seeds: JAX {SPHERE_JAX_MEAN}, the port {SPHERE_PORT_CPU_MEAN})", flush=True)
+    check(mean >= SPHERE_MIN_PSNR, f"synth_sphere's mean test psnr over seeds {sorted(psnrs)} "
+          f"is {mean}, under {SPHERE_MIN_PSNR}")
+    return mean
+
+
 def run_paths(torch, np, kernels, workdir) -> None:
-    """Phases 2-14; prints the kernels line."""
+    """Phases 2-17; prints the kernels line."""
     from tensorf_tpu_torch.config import load_config
     from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
     from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES, UNSTRATIFIED
+    from tensorf_tpu_torch.seed_spread import SEEDS
     from tensorf_tpu_torch.train.loop import build_statics
     from tensorf_tpu_torch.train.step import render_widths
 
@@ -1468,8 +1814,13 @@ def run_paths(torch, np, kernels, workdir) -> None:
     scene = make_synthetic_scene_arrays(**SCENE)
 
     t0 = time.perf_counter()
-    cases = [kernel_case(torch, *case)
-             for case in synthetic_streams(torch, dev, kernel_rays(torch, dev, scene))]
+    cases, bf16_synthetic = [], []
+    for name, idx, g, n_rows in synthetic_streams(torch, dev, kernel_rays(torch, dev, scene)):
+        cases.append(kernel_case(torch, name, idx, g, n_rows))
+        if name in SYNTHETIC_MAIN_SHAPES:  # the same values in bf16: the bf16 entry point
+            bf16_synthetic.append(kernel_case(torch, f"{name}_bf16", idx, g.to(torch.bfloat16),
+                                              n_rows))
+        del idx, g
     torch.cuda.empty_cache()
     phase_done("kernels", t0)
 
@@ -1495,12 +1846,16 @@ def run_paths(torch, np, kernels, workdir) -> None:
     grid = tuple(result.state.geometry.grid_size)
     print(f"mesh_main: final checkpoint of the main path, grid {grid} "
           f"({int(np.prod(grid))} cells)", flush=True)
-    mesh_export(torch, np, kernels, "mesh_main", "configs/synth_full.txt", result.final_path)
+    main_mesh, _ = mesh_export(torch, np, kernels, "mesh_main", "configs/synth_full.txt",
+                               result.final_path)
     phase_done("mesh_main", t0)
+    th_import_phase(torch, np, kernels, workdir, "configs/synth_full.txt", SCENE,
+                    result.final_path, main_mesh["verts"])
 
     t0 = time.perf_counter()
     exactness_phase(torch, np, result.state)
     reference_phase(torch, np, cfg, scene, result)
+    bf16_render_phase(torch, np, result.state)
     phase_done("exactness", t0)
     t0 = time.perf_counter()
     serving_phase(torch, np, result.state)
@@ -1540,24 +1895,36 @@ def run_paths(torch, np, kernels, workdir) -> None:
     torch.cuda.empty_cache()
     phase_done("real_streams", t0)
 
-    # ---- the second path: synth_sphere as written, counts to 0 again ----
+    # ---- the second path: synth_sphere as written at each seed of
+    # seed_spread.SEEDS, counts to 0 again before each; the config's seed
+    # (the first) feeds mesh_sphere and resume ----
     t0 = time.perf_counter()
-    sphere_cfg = load_config("configs/synth_sphere.txt", dict(basedir=workdir))
     sphere_scene = make_synthetic_scene_arrays(**SPHERE)
-    sphere, sphere_launches = drive(torch, "sphere_path", sphere_cfg, sphere_scene, kernels,
-                                    sphere_cfg.n_iters)
-    check(all(sphere_launches.values()), f"sphere_path: a kernel never launched: {sphere_launches}")
-    for plan in sphere.plans:
-        print("sphere_path: plan " + json.dumps(plan), flush=True)
-    check(all(seg["strata"] > 0 for seg in sphere.segments), "sphere_path: a segment ran "
-          "unstratified")
-    sphere_psnr = float(np.mean(sphere.final_psnrs))
-    print(f"sphere_path: final grid {sphere.state.geometry.grid_size}, test psnr "
-          f"{sphere_psnr:.4f} dB (min {SPHERE_MIN_PSNR}; the JAX drive {SPHERE_JAX_PSNR} on the "
-          f"CPU)", flush=True)
-    check(sphere_psnr >= SPHERE_MIN_PSNR, f"synth_sphere test psnr {sphere_psnr} < {SPHERE_MIN_PSNR}")
-    sphere_ckpt = sphere.final_path
-    del sphere
+    sphere_psnrs, sphere_launches = {}, None
+    for seed in SEEDS:
+        sphere_cfg = load_config("configs/synth_sphere.txt", dict(basedir=workdir, seed=seed))
+        name = f"sphere_path[seed {seed}]"
+        sphere, launches = drive(torch, name, sphere_cfg, sphere_scene, kernels,
+                                 sphere_cfg.n_iters)
+        check(launches["scatter_add"] > 0, f"{name}: the kernel never launched: {launches}")
+        check(all(seg["strata"] > 0 for seg in sphere.segments), f"{name}: a segment ran "
+              "unstratified")
+        sphere_psnrs[seed] = float(np.mean(sphere.final_psnrs))
+        print(f"{name}: final grid {sphere.state.geometry.grid_size}, test psnr "
+              f"{sphere_psnrs[seed]:.4f} dB", flush=True)
+        if sphere_launches is None:  # the config's seed
+            for plan in sphere.plans:
+                print(f"{name}: plan " + json.dumps(plan), flush=True)
+            sphere_launches, sphere_ckpt = launches, sphere.final_path
+            config_seed_cfg = sphere_cfg
+            # the next seed's run reuses the logfolder: keep this checkpoint
+            kept = f"{workdir}/sphere_config_seed.npz"
+            shutil.copyfile(sphere_ckpt, kept)
+            sphere_ckpt = kept
+        del sphere
+        torch.cuda.empty_cache()
+    sphere_seed_mean(np, sphere_psnrs)
+    sphere_cfg, sphere_psnr = config_seed_cfg, sphere_psnrs[SEEDS[0]]
     phase_done("sphere_path", t0)
 
     t0 = time.perf_counter()
@@ -1591,35 +1958,56 @@ def run_paths(torch, np, kernels, workdir) -> None:
         by_path[f"shading_{mode}"] = n
     by_path["flower_path"], flower_cases = flower_phase(torch, np, kernels, workdir)
 
+    # ---- slice 9: the bf16 path, LPIPS ----
+    bf16_launches, bf16_cases = bf16_phase(torch, np, kernels, workdir, scene)
+    by_path["bf16_path"] = bf16_launches["scatter_add"]
+    frame = sphere_scene["test"]["frames"][0]["image"]
+    lpips_phase(torch, np, workdir, frame[..., :3] / 255.0)
+
     # the headline numbers are density_128's, the widest scatter of the
     # unstratified first segment; "shapes" carries every main-path shape
     # beside it, the real streams of both synth_full drives among them.
     # "launches" counts calls of the kernel's entry point on the main path,
     # each of which enqueues the grids in "grids"; every time covers both.
+    # The bf16 entry point's path is the bf16 path (the main path runs
+    # float32): its launches are that path's, its headline its largest
+    # stratum's density stream, and its "shapes" the synthetic main-path
+    # streams in bf16 (their float32 times are in the first entry's) and
+    # each of the bf16 path's streams beside the float32 entry point's time
+    # on the same values widened.
     main_cases = [c for c in cases if c["case"] in main_shapes]
     head = main_cases[0]
     check(head["case"] == "density_128", "the headline kernel case is missing")
-    line = {"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": src,
-        "replaces": replaces,
-        "grids": grids,
-        "launches": main_launches[name],
-        "max_abs_err": max(c["max_abs_err"] for c in main_cases),
-        "ms": head["kernel_ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shapes": [{k: c[k] for k in CASE_KEYS} for c in main_cases],
-        # each path's launches, its counts set to 0 just before it; TensorCP
-        # (lego_path) gathers no plane, so none
-        "launches_by_path": by_path,
-        "tensorvm_shapes": [{k: c[k] for k in CASE_KEYS} for c in vm_cases],
-        # flower's last segment: the packed plane and the line footprint tables
-        "flower_shapes": [{k: c[k] for k in CASE_KEYS} for c in flower_cases],
-    } for name, (_, src, replaces, grids) in kernels.items()]}
+    bf16_cases = bf16_synthetic + bf16_cases
+    bf16_only = [c for c in bf16_cases if c["dtype"] == "bfloat16"]
+    bf16_head = next((c for c in bf16_only if c["case"] == "density_bf16_128"), None)
+    check(bf16_head is not None, "the bf16 path's density stream is missing")
+
+    def entry(name, launches, head, shapes, own):
+        """``own``: the cases that ran this entry point."""
+        _, src, replaces, grids = kernels[name]
+        return {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces, "grids": grids,
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in own),
+            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": [{k: c[k] for k in CASE_KEYS} for c in shapes],
+        }
+
+    line = {"kernels": [
+        dict(entry("scatter_add", main_launches["scatter_add"], head, main_cases, main_cases),
+             # each path's launches, its counts set to 0 just before it;
+             # TensorCP (lego_path) gathers no plane, so none
+             launches_by_path=by_path,
+             tensorvm_shapes=[{k: c[k] for k in CASE_KEYS} for c in vm_cases],
+             # flower's last segment: the packed plane and the line footprint tables
+             flower_shapes=[{k: c[k] for k in CASE_KEYS} for c in flower_cases]),
+        dict(entry("scatter_add_bf16", bf16_launches["scatter_add_bf16"], bf16_head, bf16_cases,
+                   bf16_only),
+             launches_by_path={"main_path": main_launches["scatter_add_bf16"],
+                               "bf16_path": bf16_launches["scatter_add_bf16"]}),
+    ]}
     print(json.dumps(line), flush=True)
 
 

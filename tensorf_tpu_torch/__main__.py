@@ -21,8 +21,14 @@ memory (no files, no PIL) in place of reading ``datadir``: for an ``llff``
 config a forward-facing capture in LLFF's layout (``--synthetic_views N``
 views, every 8th held out for test, at ``--synthetic_wh`` x 3/4 of it
 pixels), else the blender-layout scene, of which a training run traces only
-the views the config's ``train_idxs`` and ``test_idxs`` select.  A config
-runs as written; only the bf16 dtypes are refused (not ported yet).
+the views the config's ``train_idxs`` and ``test_idxs`` select.  Every
+config runs as written, with every option: ``--grid_dtype bfloat16``,
+``--line_dtype bfloat16`` and ``--compute_dtype bfloat16`` run the plane
+tables, the line one-hots and the shading MLP in bfloat16 (parameters and
+checkpoints stay float32).  ``--ckpt`` takes the port's or the JAX
+package's ``.npz`` or the reference's ``.th`` (utils/import_torch.py).
+LPIPS reads its nets' weights from ``TENSORF_LPIPS_DIR``
+(eval/lpips.py); without them mean.txt's LPIPS lines are NaN.
 """
 
 from __future__ import annotations

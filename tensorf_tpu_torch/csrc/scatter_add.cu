@@ -1,4 +1,5 @@
-// Row scatter-add: out[idx[m], :] += g[m, :], fp32 accumulation.
+// Row scatter-add: out[idx[m], :] += g[m, :], fp32 accumulation, for an
+// fp32 g (tftorch_scatter_add_f32) or a bf16 g (tftorch_scatter_add_bf16).
 //
 // This is the backward of the footprint plane gather
 // (tensorf_tpu_torch/ops/grid_sample.py::footprint_sample_2d): every train
@@ -7,16 +8,21 @@
 // samples (C = 192).
 //
 // Replaces the TPU kernel tensorf_tpu/ops/pallas/scatter_add2.py::
-// scatter_add_banked (pallas_call at :156).  That kernel keeps NB
+// scatter_add_banked (pallas_call at :156), which takes g of any float
+// type, casts it to fp32 inside (g.astype(jnp.float32), :164) and returns
+// fp32: so do both entry points here.  That kernel keeps NB
 // accumulator banks of the whole output in on-chip memory across a grid
 // that runs in order.  Nothing of that carries over: blocks here run in
 // parallel and in no order, and no on-chip memory lives across blocks, so
 // partial sums go into the output with atomics and the L2 cache plays the
 // part of the accumulator.
 //
-// What bounds it on an H100: bytes.  The function must read g (M*C*4) and
-// idx (M*4) once and write the output (n_rows*C*4) once, against 3.35 TB/s;
-// its M*C adds are far below the fp32 rate.  At the main path's shapes g
+// What bounds it on an H100: bytes.  The function must read g (M*C*4, or
+// M*C*2 in bf16) and idx (M*4) once and write the output (n_rows*C*4) once,
+// against 3.35 TB/s; its M*C adds are far below the fp32 rate.  The bf16
+// entry point is the backward of a model whose grid_dtype is bfloat16: its
+// tap gradients arrive in bf16, and reading them as they are halves the
+// bytes of g.  At the main path's shapes g
 // is 16-116x the output, so the kernel is a stream over g whose cost beside
 // the stream is the read-modify-writes it sends to L2.
 //
@@ -42,6 +48,12 @@
 //    compute capability 9.x): one 16-byte L2 operation where the scalar
 //    version issues four.  Otherwise a scalar path does the same with one
 //    channel per thread.
+//  * bf16 widened on load.  The bf16 entry point runs the same kernel with
+//    another source type: a column is eight channels, read as one 16-byte
+//    load of eight bf16 and widened to two float4 (a bf16 is the upper half
+//    of the fp32 of the same value, so widening is a shift), summed and
+//    reduced in fp32 as two float4 atomics; where C % 8 != 0 or g is not
+//    16-byte aligned, one channel (a 2-byte load) per thread.
 //  * Streamed loads, several in flight.  g is read with 16-byte (or 4-byte)
 //    streaming loads (__ldcs, evict-first), so the output table (4 MB at
 //    128^3 for density) stays in the 50 MB L2 while the much larger g
@@ -97,8 +109,35 @@ __device__ __forceinline__ void allow_dependent_launch() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
+// The bf16 entry point's source columns: eight bf16 channels (16 bytes),
+// or one; and the fp32 accumulator of eight channels.
+struct Bf16x8 {
+  uint4 bits;
+};
+struct Bf16 {
+  unsigned short bits;
+};
+struct Float8 {
+  float4 lo, hi;
+};
+
+// bf16 -> fp32 is exact: the bf16's bits are the fp32's upper half.  A
+// 32-bit word holds two bf16, the lower-addressed one in its low half.
+__device__ __forceinline__ float bf16_low(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_high(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// A streamed (evict-first) load of one source column, widened to its
+// accumulator type.
 __device__ __forceinline__ float4 load_stream(const float4* p) { return __ldcs(p); }
 __device__ __forceinline__ float load_stream(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ Float8 load_stream(const Bf16x8* p) {
+  const uint4 w = __ldcs(&p->bits);
+  return Float8{make_float4(bf16_low(w.x), bf16_high(w.x), bf16_low(w.y), bf16_high(w.y)),
+                make_float4(bf16_low(w.z), bf16_high(w.z), bf16_low(w.w), bf16_high(w.w))};
+}
+__device__ __forceinline__ float load_stream(const Bf16* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldcs(&p->bits)) << 16);
+}
 
 __device__ __forceinline__ void accumulate(float4& acc, const float4& v) {
   acc.x += v.x;
@@ -107,6 +146,18 @@ __device__ __forceinline__ void accumulate(float4& acc, const float4& v) {
   acc.w += v.w;
 }
 __device__ __forceinline__ void accumulate(float& acc, float v) { acc += v; }
+__device__ __forceinline__ void accumulate(Float8& acc, const Float8& v) {
+  accumulate(acc.lo, v.lo);
+  accumulate(acc.hi, v.hi);
+}
+
+// One reduction into L2: a float4 is one red.global.add.v4.f32.
+__device__ __forceinline__ void reduce(float4* p, const float4& v) { atomicAdd(p, v); }
+__device__ __forceinline__ void reduce(float* p, float v) { atomicAdd(p, v); }
+__device__ __forceinline__ void reduce(Float8* p, const Float8& v) {
+  atomicAdd(&p->lo, v.lo);
+  atomicAdd(&p->hi, v.hi);
+}
 
 // One thread's run of equal indices: rows are added into `acc` while the
 // index stays `cur`, and the sum goes to out[cur, col] as one reduction
@@ -128,7 +179,7 @@ struct RunSum {
       grid_dependency_wait();
       filled = true;
     }
-    atomicAdd(out + cur * stride + col, acc);
+    reduce(out + cur * stride + col, acc);
   }
   // Flushes the last run, and waits for the zero fill even where nothing
   // was flushed: thread 0 of the first block always gets here, so the grid
@@ -148,13 +199,15 @@ struct RunSum {
   }
 };
 
-// T is float4 (four channels per column) or float (one).  A block holds
-// `groups` = blockDim.x / cols_per_block groups; group j owns source rows
+// T is the accumulator of one column: float4 (four channels), Float8
+// (eight) or float (one); S the column as g stores it: T itself for fp32,
+// Bf16x8 or Bf16 for bf16.  A block holds `groups` = blockDim.x /
+// cols_per_block groups; group j owns source rows
 // [s * seg_rows, (s + 1) * seg_rows) of segment s = blockIdx.x * groups + j
 // and walks them one tile of `tile` rows at a time.
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreadsPerBlock)
-scatter_add_runs_kernel(const int32_t* __restrict__ idx, const T* __restrict__ g,
+scatter_add_runs_kernel(const int32_t* __restrict__ idx, const S* __restrict__ g,
                         T* __restrict__ out, int64_t n_src, int64_t n_rows, int n_cols,
                         int cols_per_block, int seg_rows, int tile) {
   __shared__ int32_t s_key[kSortRows];
@@ -207,7 +260,7 @@ scatter_add_runs_kernel(const int32_t* __restrict__ idx, const T* __restrict__ g
     if (active) {
       const int64_t base = m0 + tile0;
       const int n = n_src - base < tile ? static_cast<int>(n_src - base) : tile;
-      const T* src = g + base * stride + col;
+      const S* src = g + base * stride + col;
       int i = 0;
       for (; i + kUnroll <= n; i += kUnroll) {
         int32_t k[kUnroll];
@@ -286,7 +339,7 @@ int launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, cudaStream_t s
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename S>
 int launch(const int32_t* idx, const void* g, void* out, long long n_src, long long n_rows,
            int n_cols, cudaStream_t stream) {
   const int cols_per_block = n_cols < kMaxColsPerBlock ? n_cols : kMaxColsPerBlock;
@@ -305,20 +358,33 @@ int launch(const int32_t* idx, const void* g, void* out, long long n_src, long l
   }
   const dim3 grid(static_cast<unsigned int>(blocks_x), static_cast<unsigned int>(blocks_y));
   const int threads = groups * cols_per_block;
-  const T* src = static_cast<const T*>(g);
+  const S* src = static_cast<const S*>(g);
   T* dst = static_cast<T*>(out);
-  return launch_pdl(scatter_add_runs_kernel<T>, grid, threads, stream, idx, src, dst,
+  return launch_pdl(scatter_add_runs_kernel<T, S>, grid, threads, stream, idx, src, dst,
                     static_cast<int64_t>(n_src), static_cast<int64_t>(n_rows), n_cols,
                     cols_per_block, seg_rows, tile);
 }
 
+// Zero-fills the (n_rows, n_chan) fp32 output on `stream`; returns the
+// launch's CUDA error.
+int zero_fill(void* out, long long n_rows, int n_chan, cudaStream_t stream) {
+  const long long n_out = n_rows * n_chan;
+  long long fill_blocks = (n_out / 4 + kThreadsPerBlock - 1) / kThreadsPerBlock;
+  if (fill_blocks > 8LL * sm_count()) fill_blocks = 8LL * sm_count();
+  if (fill_blocks < 1) fill_blocks = 1;
+  zero_fill_kernel<<<static_cast<unsigned int>(fill_blocks), kThreadsPerBlock, 0, stream>>>(
+      static_cast<float*>(out), static_cast<int64_t>(n_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point for ctypes.  idx: (n_src,) int32; g: (n_src, n_chan)
-// fp32 row-major; out: (n_rows, n_chan) fp32, zero-filled here; stream: the
-// caller's cudaStream_t.  Returns the first CUDA error of the fill or the
-// scatter's launch (0 = both enqueued).  n_src, n_rows and n_chan must be
-// positive.
+// Plain C entry points for ctypes.  idx: (n_src,) int32; g: (n_src, n_chan)
+// row-major, fp32 (tftorch_scatter_add_f32) or bf16
+// (tftorch_scatter_add_bf16); out: (n_rows, n_chan) fp32, zero-filled here;
+// stream: the caller's cudaStream_t.  Returns the first CUDA error of the
+// fill or the scatter's launch (0 = both enqueued).  n_src, n_rows and
+// n_chan must be positive.
 extern "C" int tftorch_scatter_add_f32(const void* idx, const void* g, void* out,
                                        long long n_src, long long n_rows, int n_chan,
                                        void* stream) {
@@ -326,17 +392,27 @@ extern "C" int tftorch_scatter_add_f32(const void* idx, const void* g, void* out
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n_out = n_rows * n_chan;
-  long long fill_blocks = (n_out / 4 + kThreadsPerBlock - 1) / kThreadsPerBlock;
-  if (fill_blocks > 8LL * sm_count()) fill_blocks = 8LL * sm_count();
-  if (fill_blocks < 1) fill_blocks = 1;
-  zero_fill_kernel<<<static_cast<unsigned int>(fill_blocks), kThreadsPerBlock, 0, s>>>(
-      static_cast<float*>(out), static_cast<int64_t>(n_out));
-  const int fill = static_cast<int>(cudaGetLastError());
+  const int fill = zero_fill(out, n_rows, n_chan, s);
   if (fill != 0) return fill;
   const int32_t* index = static_cast<const int32_t*>(idx);
   if (n_chan % 4 == 0 && aligned16(g) && aligned16(out)) {
-    return launch<float4>(index, g, out, n_src, n_rows, n_chan / 4, s);
+    return launch<float4, float4>(index, g, out, n_src, n_rows, n_chan / 4, s);
   }
-  return launch<float>(index, g, out, n_src, n_rows, n_chan, s);
+  return launch<float, float>(index, g, out, n_src, n_rows, n_chan, s);
+}
+
+extern "C" int tftorch_scatter_add_bf16(const void* idx, const void* g, void* out,
+                                        long long n_src, long long n_rows, int n_chan,
+                                        void* stream) {
+  if (n_src <= 0 || n_chan <= 0 || n_rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int fill = zero_fill(out, n_rows, n_chan, s);
+  if (fill != 0) return fill;
+  const int32_t* index = static_cast<const int32_t*>(idx);
+  if (n_chan % 8 == 0 && aligned16(g) && aligned16(out)) {
+    return launch<Float8, Bf16x8>(index, g, out, n_src, n_rows, n_chan / 8, s);
+  }
+  return launch<float, Bf16>(index, g, out, n_src, n_rows, n_chan, s);
 }

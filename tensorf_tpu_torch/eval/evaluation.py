@@ -121,9 +121,13 @@ def evaluation(
             gt_rgb = np.asarray(test_dataset.all_rgbs[idx]).reshape(H, W, 3)
             PSNRs.append(psnr_fn(rgb_map, gt_rgb))
             ssims.append(rgb_ssim(rgb_map, gt_rgb, 1))
-            la, lv = rgb_lpips(gt_rgb, rgb_map, "alex"), rgb_lpips(gt_rgb, rgb_map, "vgg")
+            # on the renderer's device
+            la = rgb_lpips(gt_rgb, rgb_map, "alex", handle.aabb.device)
+            lv = rgb_lpips(gt_rgb, rgb_map, "vgg", handle.aabb.device)
             if (la is None or lv is None) and not l_alex:
-                print("[eval] LPIPS weights unavailable — mean.txt LPIPS lines will be NaN")
+                print("[eval] LPIPS weights unavailable — mean.txt LPIPS lines will be NaN "
+                      "(put lpips_{alex,vgg}.npz in tensorf_tpu_torch/eval/weights/ or set "
+                      "TENSORF_LPIPS_DIR)")
             l_alex.append(float("nan") if la is None else la)
             l_vgg.append(float("nan") if lv is None else lv)
         if imageio is None:

@@ -3,9 +3,9 @@ tensorf_tpu/eval/metrics.py, numpy and scipy only).
 
 SSIM follows the mipnerf-style separable-Gaussian formulation the reference
 uses (loss.py:62-117): filter_size 11, sigma 1.5, k1 0.01, k2 0.03, valid
-padding, covariance clipping.  LPIPS needs pretrained network weights,
-which are not in the repo: ``rgb_lpips`` returns None, and evaluation then
-writes NaN into mean.txt's LPIPS lines.
+padding, covariance clipping.  LPIPS (eval/lpips.py) needs its nets'
+weights, which are not in the repo: without them ``rgb_lpips`` returns
+None, and evaluation then writes NaN into mean.txt's LPIPS lines.
 """
 
 from __future__ import annotations
@@ -71,6 +71,9 @@ def rgb_ssim(
     return ssim_map if return_map else float(np.mean(ssim_map))
 
 
-def rgb_lpips(np_gt, np_im, net_name: str = "alex") -> Optional[float]:
-    """LPIPS distance: None, as no network weights are available."""
-    return None
+def rgb_lpips(np_gt, np_im, net_name: str = "alex", device=None) -> Optional[float]:
+    """LPIPS distance on ``device`` (cuda unless asked), or None when the
+    net's weights are not found (eval/lpips.py: ``TENSORF_LPIPS_DIR``)."""
+    from .lpips import lpips
+
+    return lpips(np_gt, np_im, net=net_name, device=device)

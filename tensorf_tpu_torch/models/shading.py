@@ -38,17 +38,30 @@ class Linear(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w + self.b
+        """In x's dtype: the float32 weights are cast to it per call."""
+        return x @ self.w.to(x.dtype) + self.b.to(x.dtype)
 
 
 MODES = ("MLP_Fea", "MLP_PE", "MLP", "SH", "RGB")
 
 
-def _check(cfg: ModelConfig) -> None:
+# the dtypes a model config's ``dtype`` (the MLP's), ``grid_dtype`` and
+# ``line_dtype`` name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype a config's dtype option names."""
+    if name not in DTYPES:
+        raise ValueError(f"unknown dtype {name!r}: the port runs {sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+def _check(cfg: ModelConfig) -> torch.dtype:
+    """Refuses an unknown mode or dtype; returns the MLP's compute dtype."""
     if cfg.shading_mode not in MODES:
         raise ValueError(f"unrecognized shading mode {cfg.shading_mode}")
-    if cfg.dtype != "float32":
-        raise NotImplementedError("the shading MLP runs in float32 only")
+    return torch_dtype(cfg.dtype)
 
 
 def mlp_in_dim(cfg: ModelConfig) -> int:
@@ -104,7 +117,7 @@ def apply_shading(
     order is each reference variant's (models/mlp.py:41-66, 85-107,
     125-154).
     """
-    _check(cfg)
+    compute_dtype = _check(cfg)
     mode = cfg.shading_mode
     if mode == "SH":
         sh_mult = eval_sh_bases(2, viewdirs)[:, None, :]  # (M, 1, 9)
@@ -122,7 +135,9 @@ def apply_shading(
         indata.append(_masked_pe(viewdirs, cfg.view_pe, masks.view))
     if mode == "MLP" and cfg.fea_pe > 0:
         indata.append(_masked_pe(features, cfg.fea_pe, masks.fea))
-    x = torch.cat(indata, dim=-1)
+    # the MLP in the compute dtype, the sigmoid in float32 (JAX
+    # shading.py:115-120)
+    x = torch.cat(indata, dim=-1).to(compute_dtype)
     x = torch.relu(mlp.l1(x))
     x = torch.relu(mlp.l2(x))
-    return torch.sigmoid(mlp.l3(x))
+    return torch.sigmoid(mlp.l3(x).float())

@@ -33,32 +33,51 @@ from ..ops.grid_sample import (
 from ..ops.resize import resize_bilinear_align_corners, resize_linear_align_corners
 from ..utils.device import resolve_device
 from .config import MAT_MODE, VEC_MODE, ModelConfig
-from .shading import init_shading
+from .shading import init_shading, torch_dtype
 
 # A line samples as a one-hot-lerp matmul, as the JAX package samples
-# lines up to _LINE_MATMUL_MAX_LEN, while its (M, L) float32 one-hot
-# matrix stays within _ONE_HOT_MAX_BYTES: eager PyTorch materializes that
-# matrix (and about twice it again while building it) and keeps it for the
-# backward.  Above either bound the line takes the 2-tap footprint gather,
-# whose backward is the row scatter-add.  6 GiB is above every one-hot the
-# synth_full, synth_sphere and lego paths build (the largest: the
+# lines up to _LINE_MATMUL_MAX_LEN, while its (M, L) one-hot matrix stays
+# within _ONE_HOT_MAX_BYTES at its element size (4 B in float32, 2 B when
+# ``line_dtype`` or ``grid_dtype`` is bfloat16): eager PyTorch materializes
+# that matrix (and about twice it again while building it, and a float32
+# copy of a bf16 one inside each product) and keeps it for the backward.
+# Above either bound the line takes the 2-tap footprint gather, whose
+# backward is the row scatter-add.  6 GiB is above every float32 one-hot
+# the synth_full, synth_sphere and lego paths build (the largest: the
 # unstratified last segment's 4,292,608 samples x 345 x 4 B = 5.92e9 B) and
 # below the ones of flower's last two segments (6,336,512 x 315 x 4 B =
-# 7.98e9 B and up).
+# 7.98e9 B and up).  In bf16 the same bound keeps twice the points: flower's
+# 351..400 segment (6,336,512 samples) samples its lines of 315 and 472
+# texels by the one-hot (3.99e9 and 5.98e9 B) and that of 526 by the
+# footprint (6.67e9 B); its last segment (9,474,048 samples; 471, 706, 786
+# texels: 8.92e9 B and up) takes the footprint throughout.
 _LINE_MATMUL_MAX_LEN = 1024
 _ONE_HOT_MAX_BYTES = 6 * 2**30
 
 
-def line_uses_matmul(n_points: int, length: int) -> bool:
+def line_a_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
+    """The one-hot matrix dtype of line matmuls: bfloat16 when the model
+    opts in through ``line_dtype`` (or the legacy blanket ``grid_dtype``),
+    else None (float32), as JAX's tensorf.py::_line_a_dtype."""
+    for name in (cfg.line_dtype, cfg.grid_dtype):
+        if torch_dtype(name) == torch.bfloat16:
+            return torch.bfloat16
+    return None
+
+
+def line_uses_matmul(n_points: int, length: int, a_dtype: Optional[torch.dtype] = None) -> bool:
     """Whether sampling a line of ``length`` at ``n_points`` points takes
-    the one-hot matmul (else the footprint gather)."""
-    return length <= _LINE_MATMUL_MAX_LEN and n_points * length * 4 <= _ONE_HOT_MAX_BYTES
+    the one-hot matmul (else the footprint gather); ``a_dtype`` is the
+    one-hot's dtype (None: float32)."""
+    size = 2 if a_dtype == torch.bfloat16 else 4
+    return length <= _LINE_MATMUL_MAX_LEN and n_points * length * size <= _ONE_HOT_MAX_BYTES
 
 
-def _sample_line_packed(lpacked: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
+def _sample_line_packed(lpacked: torch.Tensor, coord: torch.Tensor,
+                        a_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     L = lpacked.shape[0]
-    if line_uses_matmul(coord.numel(), L):
-        return line_sample_matmul(lpacked, coord)
+    if line_uses_matmul(coord.numel(), L, a_dtype):
+        return line_sample_matmul(lpacked, coord, a_dtype)
     return footprint_sample_1d(make_footprint_1d(lpacked), L, coord)
 
 
@@ -105,8 +124,9 @@ class _Field(nn.Module):
     def _setup(self, cfg: ModelConfig, device, generator):
         if cfg.model_name != self.name:
             raise ValueError(f"a {cfg.model_name!r} config given to {self.name}")
-        if cfg.grid_dtype != "float32" or cfg.line_dtype != "float32":
-            raise NotImplementedError("factor grids and lines run in float32 only")
+        # an unknown dtype name is refused here (the shading head checks ``dtype``)
+        for name in (cfg.grid_dtype, cfg.line_dtype):
+            torch_dtype(name)
         self.cfg = cfg
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -117,6 +137,18 @@ class _Field(nn.Module):
         return nn.Parameter(
             (torch.rand((fan_in, self.cfg.app_dim), generator=generator) * 2.0 - 1.0) * bound
         )
+
+    # Parameters, Adam state, regularizers and checkpoints stay float32; the
+    # fused feature paths cast the plane tables to grid_dtype (TensorVMSplit)
+    # and the line one-hot to line_a_dtype (every model), as the JAX
+    # package does.
+    @property
+    def grid_dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg.grid_dtype)
+
+    @property
+    def line_a_dtype(self) -> Optional[torch.dtype]:
+        return line_a_dtype(self.cfg)
 
     @property
     def grid_size(self) -> Tuple[int, int, int]:
@@ -243,10 +275,11 @@ class TensorVMSplit(_Field):
             m0, m1 = MAT_MODE[i]
             rd = self.cfg.density_n_comp[i]
             packed = torch.cat([self.density_plane[i], self.app_plane[i]], dim=-1)
+            packed = packed.to(self.grid_dtype)
             H, W, _ = packed.shape
             pv = footprint_sample_2d(make_footprint_2d(packed), H, W, xyz[..., [m0, m1]])
             lpacked = torch.cat([self.density_line[i], self.app_line[i]], dim=-1)
-            lv = _sample_line_packed(lpacked, xyz[..., VEC_MODE[i]])
+            lv = _sample_line_packed(lpacked, xyz[..., VEC_MODE[i]], self.line_a_dtype)
             dp, ap = pv[..., :rd], pv[..., rd:]
             dl, al = lv[..., :rd], lv[..., rd:]
             if den_mask is not None:
@@ -264,10 +297,11 @@ class TensorVMSplit(_Field):
         feat = torch.zeros(xyz.shape[:-1], dtype=xyz.dtype, device=xyz.device)
         for i in range(3):
             m0, m1 = MAT_MODE[i]
-            plane = self.density_plane[i]
+            plane = self.density_plane[i].to(self.grid_dtype)
             H, W, _ = plane.shape
             p = footprint_sample_2d(make_footprint_2d(plane), H, W, xyz[..., [m0, m1]])
-            l = _sample_line_packed(self.density_line[i], xyz[..., VEC_MODE[i]])
+            l = _sample_line_packed(self.density_line[i], xyz[..., VEC_MODE[i]],
+                                    self.line_a_dtype)
             if mask is not None:
                 p = p * mask[i]
                 l = l * mask[i]
@@ -279,10 +313,10 @@ class TensorVMSplit(_Field):
         coefs = []
         for i in range(3):
             m0, m1 = MAT_MODE[i]
-            plane = self.app_plane[i]
+            plane = self.app_plane[i].to(self.grid_dtype)
             H, W, _ = plane.shape
             p = footprint_sample_2d(make_footprint_2d(plane), H, W, xyz[..., [m0, m1]])
-            l = _sample_line_packed(self.app_line[i], xyz[..., VEC_MODE[i]])
+            l = _sample_line_packed(self.app_line[i], xyz[..., VEC_MODE[i]], self.line_a_dtype)
             if mask is not None:
                 p = p * mask[i]
                 l = l * mask[i]
@@ -341,11 +375,10 @@ class TensorCP(_Field):
         prod = prod * grid_sample_1d(lines[1], xyz[..., VEC_MODE[1]])
         return prod * grid_sample_1d(lines[2], xyz[..., VEC_MODE[2]])  # (M, R)
 
-    @staticmethod
-    def _line_product_fused(lines, xyz: torch.Tensor) -> torch.Tensor:
+    def _line_product_fused(self, lines, xyz: torch.Tensor) -> torch.Tensor:
         prod = None
         for i in range(3):
-            lv = _sample_line_packed(lines[i], xyz[..., VEC_MODE[i]])
+            lv = _sample_line_packed(lines[i], xyz[..., VEC_MODE[i]], self.line_a_dtype)
             prod = lv if prod is None else prod * lv
         return prod
 
@@ -454,7 +487,8 @@ class TensorVM(_Field):
             plane = self.plane[i][:, :, lo:hi]
             H, W, _ = plane.shape
             p = footprint_sample_2d(make_footprint_2d(plane), H, W, xyz[..., [m0, m1]])
-            l = _sample_line_packed(self.line[i][:, lo:hi], xyz[..., VEC_MODE[i]])
+            l = _sample_line_packed(self.line[i][:, lo:hi], xyz[..., VEC_MODE[i]],
+                                    self.line_a_dtype)
             yield p * l
 
     def density_feature(self, xyz: torch.Tensor, mask) -> torch.Tensor:
@@ -478,7 +512,7 @@ class TensorVM(_Field):
             plane = self.plane[i]
             H, W, _ = plane.shape
             pv = footprint_sample_2d(make_footprint_2d(plane), H, W, xyz[..., [m0, m1]])
-            lv = _sample_line_packed(self.line[i], xyz[..., VEC_MODE[i]])
+            lv = _sample_line_packed(self.line[i], xyz[..., VEC_MODE[i]], self.line_a_dtype)
             den_feat = den_feat + torch.sum(pv[..., -rd:] * lv[..., -rd:], dim=-1)
             app_coefs.append(pv[..., :ra] * lv[..., :ra])
         return den_feat, torch.cat(app_coefs, dim=-1) @ self.basis

@@ -18,22 +18,33 @@ from .scatter_add import scatter_add
 
 
 class _GatherRows(torch.autograd.Function):
-    """rows = table[idx]; backward: d_table = scatter_add(idx, d_rows)."""
+    """rows = table[idx]; backward: d_table = scatter_add(idx, d_rows).
+
+    A bfloat16 table (a model whose ``grid_dtype`` is bfloat16) gathers
+    bf16 rows, and its row gradients arrive in bf16; the scatter-add's
+    bf16 entry point sums them in float32, and that sum is rounded to
+    bf16 once, here, because autograd gives a table the gradient of its own
+    dtype.  The JAX package sums them in bf16 (the transpose of its bf16
+    gather), so the two differ by bf16 rounding.
+    """
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(idx)
         ctx.n_rows = table.shape[0]
+        ctx.table_dtype = table.dtype
         return table.index_select(0, idx)
 
     @staticmethod
     def backward(ctx, d_rows: torch.Tensor):
         (idx,) = ctx.saved_tensors
-        return scatter_add(idx, d_rows.contiguous(), ctx.n_rows), None
+        d_table = scatter_add(idx, d_rows.contiguous(), ctx.n_rows)
+        return d_table.to(ctx.table_dtype), None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table (n_rows, C) float32, idx (M,) int32 in range -> (M, C)."""
+    """table (n_rows, C) float32 or bfloat16, idx (M,) int32 in range ->
+    (M, C) of the table's dtype."""
     return _GatherRows.apply(table, idx)
 
 
@@ -161,12 +172,45 @@ def footprint_sample_1d(fp: torch.Tensor, L: int, coord: torch.Tensor) -> torch.
     return _tap_lerp(w, taps).reshape(*shape, C)
 
 
-def line_sample_matmul(line: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
+class _MatmulF32(torch.autograd.Function):
+    """out = a @ b in float32 from bfloat16 operands: JAX's
+    ``einsum(..., preferred_element_type=jnp.float32)``.
+
+    A product of two bf16 values is exact in float32, so widening both
+    operands and multiplying in float32 gives what a bf16 matmul with a
+    float32 result gives, on the CPU and the card alike (torch's bf16
+    ``matmul`` rounds its result to bf16, and its ``mm(..., out_dtype=)``
+    has no CPU kernel).  ``a`` carries no gradient (the one-hot of detached
+    coordinates) and is kept for the backward in bf16; the widened copies
+    live only inside each call.
+    """
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a)
+        ctx.b_dtype = b.dtype
+        return a.float() @ b.float()
+
+    @staticmethod
+    def backward(ctx, d_out: torch.Tensor):
+        (a,) = ctx.saved_tensors
+        # summed in float32, rounded to b's dtype once (JAX's transpose
+        # rounds its float32 result to the operand's dtype too)
+        return None, (a.float().T @ d_out).to(ctx.b_dtype)
+
+
+def line_sample_matmul(line: torch.Tensor, coord: torch.Tensor, a_dtype=None) -> torch.Tensor:
     """Linear line sampling as a dense one-hot-lerp matmul (M, L) @ (L, C).
 
     Same edge-clamp contract as footprint_sample_2d; coords carry no
     gradient (the reference detaches them).  Its backward is the transposed
     matmul, so lines need no scatter.
+
+    ``a_dtype`` (None or torch.bfloat16) sets the one-hot matrix's dtype:
+    the matrix and the line are cast to it and the product comes out in
+    float32, as the JAX package computes it (``preferred_element_type``).
+    Each row's two weights round to bf16 one by one, as JAX's cast of the
+    float32 matrix rounds them, so the matrix is built in that dtype.
     """
     L, C = line.shape
     shape = coord.shape
@@ -175,11 +219,15 @@ def line_sample_matmul(line: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
     i0 = torch.floor(pos)
     w1 = pos - i0
     cols = torch.arange(L, dtype=pos.dtype, device=pos.device)[None, :]
-    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
-    a = torch.where(cols == i0[:, None], 1.0 - w1[:, None], zero) + torch.where(
-        cols == i0[:, None] + 1.0, w1[:, None], zero
+    dt = pos.dtype if a_dtype is None else a_dtype
+    zero = torch.zeros((), dtype=dt, device=pos.device)
+    # the two taps' columns differ, so the sum adds a weight to a zero: exact
+    a = torch.where(cols == i0[:, None], (1.0 - w1[:, None]).to(dt), zero) + torch.where(
+        cols == i0[:, None] + 1.0, w1[:, None].to(dt), zero
     )
-    return (a @ line).reshape(*shape, C)
+    if a_dtype is None:
+        return (a @ line).reshape(*shape, C)
+    return _MatmulF32.apply(a, line.to(a_dtype)).reshape(*shape, C)
 
 
 def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

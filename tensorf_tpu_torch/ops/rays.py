@@ -252,3 +252,107 @@ def sample_along_rays_ndc(
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
     outside = torch.any((xyz < aabb[0]) | (xyz > aabb[1]), dim=-1)
     return xyz, interpx.expand(B, n_samples), ~outside
+
+
+# ---------------------------------------------------------------------------
+# Generic sampling helpers of the reference's ray utilities
+# (dataLoader/ray_utils.py: depth2dist :9, ndc2dist :18, sample_pdf :129,
+# dda :174, ray_marcher :184), which the trainer does not call but users
+# of the package may.  Where the JAX versions take a PRNG key, these take
+# the uniforms ``u`` themselves or a ``torch.Generator`` to draw them.
+# ---------------------------------------------------------------------------
+
+
+def depth2dist(z_vals: torch.Tensor, cos_angle: torch.Tensor) -> torch.Tensor:
+    """Per-sample distances from depths (the last one 1e10), scaled by the
+    ray angle's cosine."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+    return dists * cos_angle[..., None]
+
+
+def ndc2dist(ndc_pts: torch.Tensor, cos_angle: torch.Tensor) -> torch.Tensor:
+    """Distances between consecutive NDC points (B, N, 3), the last one
+    1e10 times the cosine."""
+    dists = torch.linalg.norm(ndc_pts[:, 1:] - ndc_pts[:, :-1], dim=-1)
+    return torch.cat([dists, 1e10 * cos_angle[..., None]], dim=-1)
+
+
+def _uniforms(shape, device, u, generator):
+    """The injected ``u``, else uniforms from ``generator``, else None."""
+    if u is not None:
+        return torch.as_tensor(u, dtype=torch.float32, device=device).expand(shape)
+    if generator is not None:
+        return torch.rand(shape, generator=generator, device=generator.device).to(device)
+    return None
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int, det: bool = False,
+               u: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverse-CDF hierarchical sampling (reference ray_utils.py:129-171).
+
+    bins (..., N + 1) edges, weights (..., N) -> (..., n_samples) depths.
+    The quantiles are linspace(0, 1) when ``det`` is set or nothing random
+    is given, else ``u`` (..., n_samples) or uniforms from ``generator``.
+    """
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    shape = (*cdf.shape[:-1], n_samples)
+    q = None if det else _uniforms(shape, cdf.device, u, generator)
+    if q is None:
+        q = linspace(0.0, 1.0, n_samples, cdf.device).expand(shape)
+    q = q.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), q, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_b = torch.gather(cdf, -1, below)
+    cdf_a = torch.gather(cdf, -1, above)
+    last = bins.shape[-1] - 1
+    bins_b = torch.gather(bins, -1, torch.clamp(below, max=last))
+    bins_a = torch.gather(bins, -1, torch.clamp(above, max=last))
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (q - cdf_b) / denom
+    return bins_b + t * (bins_a - bins_b)
+
+
+def dda(rays_o: torch.Tensor, rays_d: torch.Tensor,
+        bbox_3d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slab entry and exit (B, 1) with the reference's epsilon
+    (ray_utils.py:174-181)."""
+    inv = 1.0 / (rays_d + 1e-6)
+    t0 = (bbox_3d[:1] - rays_o) * inv
+    t1 = (bbox_3d[1:] - rays_o) * inv
+    t_min = torch.amax(torch.minimum(t0, t1), dim=-1, keepdim=True)
+    t_max = torch.amin(torch.maximum(t0, t1), dim=-1, keepdim=True)
+    return t_min, t_max
+
+
+def ray_marcher(rays: torch.Tensor, n_samples: int = 64, lindisp: bool = False,
+                perturb: float = 0.0, bbox_3d: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None):
+    """Stratified samples over (o, d, near, far) ray packets (B, 8)
+    (reference ray_utils.py:184-228).  With ``perturb`` > 0 each depth moves
+    within its stratum by ``perturb`` times ``u`` (B, n_samples) or
+    uniforms from ``generator``.  Returns (xyz, rays_o, rays_d, z_vals)."""
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+    if bbox_3d is not None:
+        near, far = dda(rays_o, rays_d, bbox_3d)
+    z_steps = linspace(0.0, 1.0, n_samples, rays.device)
+    if not lindisp:
+        z_vals = near * (1 - z_steps) + far * z_steps
+    else:
+        z_vals = 1.0 / (1.0 / near * (1 - z_steps) + 1.0 / far * z_steps)
+    z_vals = z_vals.expand(rays.shape[0], n_samples)
+    jitter = _uniforms(z_vals.shape, rays.device, u, generator) if perturb > 0 else None
+    if jitter is not None:
+        mids = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+        upper = torch.cat([mids, z_vals[:, -1:]], dim=-1)
+        lower = torch.cat([z_vals[:, :1], mids], dim=-1)
+        z_vals = lower + (upper - lower) * (perturb * jitter)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    return xyz, rays_o, rays_d, z_vals

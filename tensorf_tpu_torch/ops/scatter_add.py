@@ -1,10 +1,14 @@
 """Row scatter-add ``out[idx[m]] += g[m]`` — the plane-gather backward.
 
 Counterpart of the TPU kernel tensorf_tpu/ops/pallas/scatter_add2.py::
-scatter_add_banked.  On a CUDA tensor ``scatter_add`` launches the
-hand-written kernel in ``csrc/scatter_add.cu`` (or raises); on a CPU tensor
-it runs ``scatter_add_reference``, the plain PyTorch version the tests and
-the on-card checks hold the kernel against.  There is no fallback from the
+scatter_add_banked, which takes ``g`` of any float type and sums in
+float32.  On a CUDA tensor ``scatter_add`` launches the hand-written kernel
+in ``csrc/scatter_add.cu`` (or raises): its float32 entry point for a
+float32 ``g``, its bfloat16 entry point (which reads the bf16 values and
+sums them in float32) for a bfloat16 ``g``, the tap gradients of a model
+whose ``grid_dtype`` is bfloat16.  On a CPU tensor it runs
+``scatter_add_reference``, the plain PyTorch version the tests and the
+on-card checks hold the kernel against.  There is no fallback from the
 kernel to the plain version.
 """
 
@@ -18,10 +22,13 @@ from ..utils.cuda_build import load_library
 
 KERNEL_NAME = "scatter_add"
 KERNEL_SOURCE = "tensorf_tpu_torch/csrc/scatter_add.cu"
+# the C entry point of each dtype of g
+_ENTRY = {torch.float32: "tftorch_scatter_add_f32", torch.bfloat16: "tftorch_scatter_add_bf16"}
 
 
 def scatter_add_reference(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Plain version: fp32 ``index_add_`` into a zeroed (n_rows, C) table."""
+    """Plain version: fp32 ``index_add_`` of ``g.float()`` into a zeroed
+    (n_rows, C) table."""
     out = torch.zeros((n_rows, g.shape[1]), dtype=torch.float32, device=g.device)
     return out.index_add_(0, idx, g.to(torch.float32))
 
@@ -32,9 +39,9 @@ def _check(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> None:
             f"scatter_add: idx must be a contiguous 1-D int32 tensor, got "
             f"{idx.dtype} of shape {tuple(idx.shape)}"
         )
-    if g.dtype != torch.float32 or g.dim() != 2 or not g.is_contiguous():
+    if g.dtype not in _ENTRY or g.dim() != 2 or not g.is_contiguous():
         raise ValueError(
-            f"scatter_add: g must be a contiguous 2-D float32 tensor, got "
+            f"scatter_add: g must be a contiguous 2-D float32 or bfloat16 tensor, got "
             f"{g.dtype} of shape {tuple(g.shape)}"
         )
     if idx.shape[0] != g.shape[0]:
@@ -49,29 +56,30 @@ def _check(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> None:
         raise ValueError(f"scatter_add: unsupported device {g.device}")
 
 
-_fn = None  # the C entry point, bound at first use
+_fns = {}  # the C entry points by dtype of g, bound at first use
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = load_library(KERNEL_NAME).tftorch_scatter_add_f32
+def _kernel(dtype: torch.dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(load_library(KERNEL_NAME), _ENTRY[dtype])
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def scatter_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
     """out[idx[m]] += g[m]; idx (M,) int32 in [0, n_rows), g (M, C) float32
-    -> (n_rows, C) float32.
+    or bfloat16 -> (n_rows, C) float32.
 
     ``scatter_add.launches`` counts the calls that launched the kernel (CUDA
-    tensors only); each such call enqueues two grids, the zero fill and the
-    scatter.
+    tensors only), through either entry point, and
+    ``scatter_add_bf16.launches`` those through the bfloat16 one; each such
+    call enqueues two grids, the zero fill and the scatter.
     """
     _check(idx, g, n_rows)
     if g.device.type == "cpu":
@@ -83,9 +91,9 @@ def scatter_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
             return scatter_add(idx, g, n_rows)
-    fn = _kernel()
+    fn = _kernel(g.dtype)
     # the entry point zero-fills ``out`` on the stream it launches on
-    out = g.new_empty((n_rows, C))
+    out = torch.empty((n_rows, C), dtype=torch.float32, device=g.device)
     # the raw handle: torch.cuda.current_stream() builds a Stream object,
     # which costs more host time than the small launches themselves
     stream = torch._C._cuda_getCurrentRawStream(device)
@@ -93,7 +101,18 @@ def scatter_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor
     if err != 0:
         raise RuntimeError(f"scatter_add: kernel launch failed with CUDA error {err}")
     scatter_add.launches += 1
+    if g.dtype == torch.bfloat16:
+        scatter_add_bf16.launches += 1
     return out
 
 
+def scatter_add_bf16(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``scatter_add`` of a bfloat16 ``g`` alone (its bfloat16 entry point
+    on a CUDA tensor); raises on another dtype."""
+    if g.dtype != torch.bfloat16:
+        raise ValueError(f"scatter_add_bf16: g must be bfloat16, got {g.dtype}")
+    return scatter_add(idx, g, n_rows)
+
+
 scatter_add.launches = 0
+scatter_add_bf16.launches = 0

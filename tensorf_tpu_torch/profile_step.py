@@ -2,7 +2,7 @@
 over a few steps, or over one frame.
 
     python -m tensorf_tpu_torch.profile_step [--config configs/lego.txt |
-        --config configs/flower.txt] [--last_segment | --serve] [--unstratified]
+        --config configs/flower.txt] [--last_segment | --serve] [--unstratified] [--bf16]
 
 Trains a config's model as the config is written (ray stratification,
 sample budgets and top-K shading on) on its in-memory composite scene:
@@ -12,7 +12,8 @@ configs/lego.txt on Blender's 100 train and 200 test views of 800x800 px
 in-memory forward-facing capture of 34 views at 1008x756 (flower's
 images_4 size; 29 train, 5 test); ``--unstratified`` runs
 it with stratification and budgets off instead, as the port ran before
-it had them.  By default it takes WARMUP steps of the first (128^3) segment
+it had them; ``--bf16`` sets grid_dtype, line_dtype and compute_dtype to
+bfloat16.  By default it takes WARMUP steps of the first (128^3) segment
 unprofiled, past the initial loss plateau, then profiles STEPS steps.
 With ``--last_segment`` it runs the cut schedule chip_smoke.py drives
 (synth_full's CUT_SCHEDULE: 450 steps, both alpha-mask events, five
@@ -60,6 +61,9 @@ FLOWER = "configs/flower.txt"
 OVERRIDES = dict(progress_refresh_rate=10**9)
 # the port's drive before it had stratification and budgets
 UNSTRATIFIED = dict(stratify=0, sample_budget=0, prefilter_budget=0)
+# every dtype option at bfloat16: bf16 plane tables (their backward through
+# the scatter-add's bf16 entry point), bf16 line one-hots, the bf16 MLP
+BF16 = dict(grid_dtype="bfloat16", line_dtype="bfloat16", compute_dtype="bfloat16")
 # synth_full's 30000-step schedule cut to 450 steps: the same events, 50
 # steps apart.  The LR still decays over the config's 30000 steps: decayed
 # over 450, it slows the field's escape from its initial plateau past the
@@ -174,8 +178,13 @@ def main(argv=None) -> int:
                            "final state")
     parser.add_argument("--unstratified", action="store_true",
                         help="stratification and sample budgets off")
+    parser.add_argument("--bf16", action="store_true",
+                        help="grid_dtype, line_dtype and compute_dtype bfloat16 (BF16): the "
+                             "plane gathers' backward goes through the scatter-add's bfloat16 "
+                             "entry point")
     args = parser.parse_args(argv)
-    overrides = dict(OVERRIDES, **(UNSTRATIFIED if args.unstratified else {}))
+    overrides = dict(OVERRIDES, **(UNSTRATIFIED if args.unstratified else {}),
+                     **(BF16 if args.bf16 else {}))
     cut = PATHS[args.config][1]
     # (first step, profiler, profiled wall s, wall s of the unprofiled steps before)
     windows = []
@@ -276,7 +285,8 @@ def main(argv=None) -> int:
     ]
     busy_ms = _busy_ms(prof.events()) / per
     print(f"{torch.cuda.get_device_name(0)}; {args.config} "
-          f"{'unstratified' if args.unstratified else 'as written'}; {cfg.model_name} "
+          f"{'unstratified' if args.unstratified else 'as written'}"
+          f"{', every dtype bfloat16' if args.bf16 else ''}; {cfg.model_name} "
           f"{cfg.shadingMode}; {where}")
     print(f"{summary(prof, wall, plain)}; kernel rows sum to "
           f"{sum(ms for _, ms, _ in rows):.3f} ms/{unit}")

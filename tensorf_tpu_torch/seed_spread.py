@@ -27,6 +27,8 @@ import tempfile
 import time
 
 _PSNR = re.compile(r"test all psnr: ([-+0-9.eE]+|nan)")
+# the config's seed (TrainConfig.seed) and four more
+SEEDS = (20211202, 1, 2, 3, 4)
 
 
 def _run(cmd, env) -> tuple:
@@ -50,7 +52,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", required=True)
     p.add_argument("--datadir", required=True)
-    p.add_argument("--seeds", default="20211202,1,2,3,4")
+    p.add_argument("--seeds", default=",".join(str(s) for s in SEEDS))
     p.add_argument("--out", default=None, help="also write the JSON here")
     args, extra = p.parse_known_args(argv)
     env = dict(os.environ, JAX_PLATFORMS="cpu")

@@ -63,9 +63,27 @@ def save_checkpoint(
     return final
 
 
+def field_from_params(cfg: ModelConfig, grid_size, flat: Dict[str, np.ndarray], device):
+    """A field of ``cfg``'s model on ``grid_size`` holding the flat JAX-keyed
+    params ``flat``, on ``device``."""
+    if cfg.model_name not in FIELD_MODELS:
+        raise ValueError(f"unknown model {cfg.model_name!r}")
+    field = FIELD_MODELS[cfg.model_name](cfg, grid_size, device)
+    field.load_state_dict(params_from_jax(flat))
+    return field
+
+
 def load_checkpoint(path: str, device=None):
     """Returns (cfg, field, aabb (2, 3) float32, grid_size, alpha_mask|None,
-    extra), the field and mask on ``device`` (cuda unless asked)."""
+    extra), the field and mask on ``device`` (cuda unless asked).
+
+    A reference PyTorch ``.th`` checkpoint is read as it is (converted in
+    memory by utils/import_torch.py), so every ``--ckpt`` entry point takes
+    checkpoints the reference trained."""
+    if path.endswith(".th"):
+        from .import_torch import load_reference_checkpoint
+
+        return load_reference_checkpoint(path, device)
     device = resolve_device(device)
     data = np.load(path, allow_pickle=False)
     kwargs = json.loads(bytes(data["kwargs"]).decode())
@@ -75,12 +93,9 @@ def load_checkpoint(path: str, device=None):
     cfg = ModelConfig(**{
         k: (tuple(v) if isinstance(v, list) else v) for k, v in kwargs.items() if k in names
     })
-    if cfg.model_name not in FIELD_MODELS:
-        raise ValueError(f"unknown model {cfg.model_name!r}")
-    field = FIELD_MODELS[cfg.model_name](cfg, grid_size, device)
-    field.load_state_dict(params_from_jax({
+    field = field_from_params(cfg, grid_size, {
         k[len("params/"):]: data[k] for k in data.files if k.startswith("params/")
-    }))
+    }, device)
     alpha_mask = None
     if "alphaMask.mask" in data.files:
         alpha_mask = unpack_mask(
@@ -92,7 +107,9 @@ def load_checkpoint(path: str, device=None):
 
 def load_opt_leaves(path: str) -> Optional[List[np.ndarray]]:
     """The ordered optimizer leaves of a resumable checkpoint (None when it
-    carries none)."""
+    carries none, as a reference ``.th`` never does)."""
+    if path.endswith(".th"):
+        return None
     data = np.load(path, allow_pickle=False)
     keys = sorted(k for k in data.files if k.startswith("opt/"))
     return [data[k] for k in keys] if keys else None
@@ -100,5 +117,7 @@ def load_opt_leaves(path: str) -> Optional[List[np.ndarray]]:
 
 def load_aux(path: str) -> Dict[str, np.ndarray]:
     """The ``aux/`` arrays of a checkpoint, by name (empty without them)."""
+    if path.endswith(".th"):
+        return {}
     data = np.load(path, allow_pickle=False)
     return {k[len("aux/"):]: data[k] for k in data.files if k.startswith("aux/")}

@@ -238,10 +238,14 @@ def test_tiny_reconstruction_end_to_end(tmp_path):
 
 
 def test_schedule_refuses_what_is_not_ported(tmp_path):
-    """The bf16 dtypes are all the schedule still refuses (resume and NDC
-    rays are ported: tests/test_torch_resume.py, tests/test_torch_ndc.py)."""
+    """Nothing of the schedule is refused any more: the bf16 dtypes, the
+    last refusal, run their whole schedule (tests/test_torch_bf16.py pins
+    them against JAX); a dtype the port does not know is refused."""
     cfg = load_config("configs/synth_sphere.txt", dict(TINY, basedir=str(tmp_path)))
     scene = make_synthetic_scene_arrays(n_train=2, n_test=1, wh=(16, 16), scene="sphere")
     for knob in ("compute_dtype", "grid_dtype", "line_dtype"):
-        with pytest.raises(NotImplementedError, match="float32"):
-            reconstruction(dataclasses.replace(cfg, **{knob: "bfloat16"}), scene, "cpu")
+        res = reconstruction(dataclasses.replace(cfg, **{knob: "bfloat16"}), scene, "cpu",
+                             save_images=False)
+        assert np.all(np.isfinite(res.total_loss)) and np.all(np.isfinite(res.final_psnrs))
+        with pytest.raises(ValueError, match="unknown dtype"):
+            reconstruction(dataclasses.replace(cfg, **{knob: "float16"}), scene, "cpu")

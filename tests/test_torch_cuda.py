@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from tensorf_tpu_torch.ops.grid_sample import gather_rows
-from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
+from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16, scatter_add_reference
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 
@@ -147,6 +147,92 @@ def test_scatter_add_kernel_on_unaligned_rows():
     g_d = flat[1:].view(M, C)
     assert g_d.is_contiguous() and g_d.data_ptr() % 16 != 0
     _check_kernel(idx, g, R, g_d)
+
+
+def _check_bf16_kernel(idx, g, R, g_d=None):
+    """The bf16 entry point on (idx, g as bf16) against np.add.at of the
+    bf16 values (float64) and the plain version (index_add_ of g.float());
+    it counts as a launch of both entry points' counter and of its own."""
+    g_bf = torch.from_numpy(g).to(torch.bfloat16)
+    want = np.zeros((R, g.shape[1]), np.float64)
+    np.add.at(want, idx, g_bf.double().numpy())
+    idx_d = torch.from_numpy(idx).cuda()
+    g_d = g_bf.cuda() if g_d is None else g_d
+    before = (scatter_add.launches, scatter_add_bf16.launches)
+    got = scatter_add_bf16(idx_d, g_d, R)
+    torch.cuda.synchronize()
+    assert (scatter_add.launches, scatter_add_bf16.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want, **TOL)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), scatter_add_reference(idx_d, g_d, R).cpu().numpy(), **TOL
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,M,R,C",
+    [
+        ("runs", 200_003, 4096, 64),
+        ("shuffled", 200_003, 100_000, 192),
+        ("long_runs", 300_001, 2000, 256),
+        ("hot_row", 200_000, 1000, 64),
+        ("runs", 4099, 7, 5),
+        ("runs", 10_007, 300, 12),
+        ("uniform", 3001, 100, 2056),
+        ("uniform", 1, 10, 64),
+        ("uniform", 500_003, 16_384, 5),
+    ],
+    ids=["runs_C64", "shuffled_C192", "long_runs_C256", "hot_row_C64", "runs_C5", "runs_C12",
+         "wide_C2056", "M1_C64", "uniform_C5"],
+)
+def test_scatter_add_bf16_kernel_branches(kind, M, R, C):
+    """The bf16 entry point's branches: 8-channel columns (16-byte loads
+    widened to two float4) where C % 8 == 0, one channel a thread
+    otherwise (C 5, 12), rows wider than a block, hot rows, sorted and
+    unsorted tiles, a single row."""
+    _need_gpu()
+    rng = np.random.default_rng(4)
+    _check_bf16_kernel(_stream(kind, M, R, rng), _values(kind, M, C, rng), R)
+
+
+@pytest.mark.cuda
+def test_scatter_add_bf16_kernel_on_unaligned_rows():
+    """bf16 g 2 bytes off a 16-byte boundary: the one-channel path at C = 64."""
+    _need_gpu()
+    rng = np.random.default_rng(5)
+    M, R, C = 40_001, 512, 64
+    idx = _stream("runs", M, R, rng)
+    g = rng.normal(size=(M, C)).astype(np.float32)
+    flat = torch.empty(M * C + 1, device="cuda", dtype=torch.bfloat16)
+    flat[1:] = torch.from_numpy(g.reshape(-1)).to(torch.bfloat16).cuda()
+    g_d = flat[1:].view(M, C)
+    assert g_d.is_contiguous() and g_d.data_ptr() % 16 != 0
+    _check_bf16_kernel(idx, g, R, g_d)
+
+
+@pytest.mark.cuda
+def test_bf16_gather_backward_launches_the_bf16_kernel():
+    """A bf16 table's gather: its backward launches the bf16 entry point
+    and hands autograd the float32 sum rounded to bf16, as on the CPU."""
+    _need_gpu()
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn((300, 16), generator=gen).to(torch.bfloat16)
+    idx = torch.randint(0, 300, (5000,), generator=gen, dtype=torch.int32)
+    cot = torch.randn((5000, 16), generator=gen).to(torch.bfloat16)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        t = table.to(dev, copy=True).requires_grad_()
+        before = scatter_add_bf16.launches
+        gather_rows(t, idx.to(dev)).backward(cot.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert scatter_add_bf16.launches == before + 1
+        assert t.grad.dtype == torch.bfloat16
+        grads[dev] = t.grad.float().cpu().numpy()
+    # the same float32 sums in another order, each rounded to bf16 once:
+    # at most one bf16 step (2^-8 relative) apart
+    np.testing.assert_allclose(grads["cuda"], grads["cpu"], rtol=2 ** -7, atol=1e-3)
 
 
 @pytest.mark.cuda

@@ -20,11 +20,11 @@ def test_port_imports_with_jax_blocked():
         "import tensorf_tpu_torch, tensorf_tpu_torch.__main__\n"
         "from tensorf_tpu_torch import convert, ops, models, render, train, data, config, eval\n"
         "from tensorf_tpu_torch.train import loop\n"
-        "from tensorf_tpu_torch.utils import ckpt, misc, watchdog\n"
+        "from tensorf_tpu_torch.utils import ckpt, import_torch, misc, watchdog\n"
         "from tensorf_tpu_torch.models import alpha_mask\n"
         "from tensorf_tpu_torch.ops import resize, sh\n"
         "from tensorf_tpu_torch.render import chunked, culling\n"
-        "from tensorf_tpu_torch.eval import evaluation, mesh, metrics, vis\n"
+        "from tensorf_tpu_torch.eval import evaluation, lpips, mesh, metrics, vis\n"
         "from tensorf_tpu_torch import profile_step, seed_spread\n"
         "from tensorf_tpu_torch.data import colmap2nerf, human, io, llff, nsvf, synthetic\n"
         "from tensorf_tpu_torch.data import tankstemple, your_own_data\n"
@@ -76,8 +76,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     for entry in (reconstruction, render_test):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(TrainConfig())
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        load_checkpoint("unused.npz")
+    for path in ("unused.npz", "unused.th"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_checkpoint(path)
     assert resolve_device("cpu").type == "cpu"
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

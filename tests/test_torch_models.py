@@ -233,6 +233,6 @@ def test_unknown_models_are_refused():
     cfg = TConfig(model_name="TensorCP")
     with pytest.raises(ValueError, match="TensorVM"):
         T_MODELS["TensorVM"](cfg, GRID, device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        T_MODELS["TensorCP"](dataclasses.replace(cfg, line_dtype="bfloat16"), GRID, device="cpu")
+    with pytest.raises(ValueError, match="unknown dtype"):
+        T_MODELS["TensorCP"](dataclasses.replace(cfg, line_dtype="float16"), GRID, device="cpu")
     assert set(T_MODELS) == set(FIELD_MODELS)

@@ -128,5 +128,5 @@ def test_apply_shading_matches_jax(rng, mode, masked):
 def test_refusals():
     with pytest.raises(ValueError, match="unrecognized"):
         init_shading(TConfig(shading_mode="MLP_X"), torch.Generator())
-    with pytest.raises(NotImplementedError, match="float32"):
-        init_shading(TConfig(shading_mode="SH", app_dim=27, dtype="bfloat16"), torch.Generator())
+    with pytest.raises(ValueError, match="unknown dtype"):
+        init_shading(TConfig(shading_mode="SH", app_dim=27, dtype="float16"), torch.Generator())

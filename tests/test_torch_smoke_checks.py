@@ -153,3 +153,110 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
         batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
         assert len(calls) == chip_smoke.scatter_launches_per_step(statics, model, batches,
                                                                   (10, 11, 12))
+
+
+@pytest.mark.parametrize("model", ["TensorVMSplit", "TensorCP", "TensorVM"])
+@pytest.mark.parametrize("fused,top_k", [(True, 16), (True, None), (False, 16)],
+                         ids=["fused_topk", "fused_all", "unfused"])
+def test_bf16_launches_per_step_count_the_bf16_gathers(model, fused, top_k):
+    """With grid_dtype and line_dtype bfloat16, chip_smoke.py's counts of a
+    step's launches equal what the step's backward scatters, counted on the
+    CPU: in all (scatter_launches_per_step with the bf16 one-hot) and in
+    bf16 rows (bf16_launches_per_step: TensorVMSplit's fused plane tables,
+    strata or not)."""
+    from unittest import mock
+
+    from tensorf_tpu_torch.models import FIELD_MODELS
+    from tensorf_tpu_torch.ops import grid_sample
+    from tensorf_tpu_torch.ops.scatter_add import scatter_add_reference
+    from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
+
+    ranks = (3, 3, 3) if model == "TensorVMSplit" else (3,)
+    cfg = ModelConfig(model_name=model, density_n_comp=ranks, app_n_comp=ranks, app_dim=6,
+                      shading_mode="MLP_Fea", feature_c=8, density_shift=-3.0,
+                      grid_dtype="bfloat16", line_dtype="bfloat16")
+    field = FIELD_MODELS[model](cfg, (10, 11, 12), "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    o = rng.normal(size=(48, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True) + 0.1 * rng.normal(size=(48, 3))
+    rays = torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32))
+    rgbs = torch.rand((48, 3), generator=torch.Generator().manual_seed(2))
+    u = torch.rand((48, 1), generator=torch.Generator().manual_seed(3))
+    common = dict(n_samples=64, step_size=0.06, white_bg=True, ndc_ray=False, total_steps=10,
+                  lr_factor=1.0, weights=LossWeights(), shade_top_k=top_k, fused=fused)
+    cases = [
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0)),
+        (TrainStatics(**common, strata_budgets=(16, None), strata_n_samples=(64, 64),
+                      strata_loss_weights=(0.5, 0.5)),
+         (rays[:24], rays[24:]), (rgbs[:24], rgbs[24:]), (u[:24], u[24:]),
+         (torch.tensor(0.0), torch.tensor(0.0))),
+    ]
+    for statics, rays_, rgbs_, u_, flip in cases:
+        calls = []
+
+        def counting(idx, g, n_rows):
+            calls.append(g.dtype)
+            return scatter_add_reference(idx, g, n_rows)
+
+        field.zero_grad(set_to_none=True)
+        with mock.patch.object(grid_sample, "scatter_add", counting):
+            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
+            total.backward()
+        batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
+        assert len(calls) == chip_smoke.scatter_launches_per_step(
+            statics, model, batches, (10, 11, 12), field.line_a_dtype)
+        assert calls.count(torch.bfloat16) == chip_smoke.bf16_launches_per_step(
+            statics, model, batches, field.grid_dtype)
+        assert (calls.count(torch.bfloat16) > 0) == (model == "TensorVMSplit" and fused)
+
+
+@pytest.mark.parametrize("model,mode,with_mask", [
+    ("TensorVMSplit", "MLP_Fea", True), ("TensorCP", "MLP", False), ("TensorVM", "SH", True)])
+def test_reference_th_writer_round_trips_through_the_importer(tmp_path, model, mode, with_mask):
+    """chip_smoke.py's th_import writes a field in the reference's .th
+    layout; utils/import_torch.py reads back the same config, grid, params,
+    aabb and mask."""
+    from tensorf_tpu_torch.convert import params_to_jax
+    from tensorf_tpu_torch.models import FIELD_MODELS
+    from tensorf_tpu_torch.utils.import_torch import load_reference_checkpoint
+
+    ranks = (2, 3, 4) if model == "TensorVMSplit" else (3,)
+    grid = (8, 8, 8) if model == "TensorVM" else (8, 10, 12)
+    cfg = ModelConfig(model_name=model, density_n_comp=ranks, app_n_comp=ranks,
+                      app_dim=27 if mode == "SH" else 6, shading_mode=mode, pos_pe=2, view_pe=2,
+                      fea_pe=2, feature_c=8, density_shift=-3.0, near_far=(1.5, 5.5))
+    field = FIELD_MODELS[model](cfg, grid, "cpu", torch.Generator().manual_seed(0))
+    aabb = np.asarray([[-1.5, -1.2, -1.0], [1.5, 1.2, 1.0]], np.float32)
+    mask = None
+    if with_mask:
+        vol = torch.from_numpy((np.random.default_rng(0).uniform(size=(5, 6, 7)) > 0.5)
+                               .astype(np.float32))
+        mask = tam.with_dilation(tam.AlphaGridMask(aabb=torch.from_numpy(aabb), volume=vol))
+    path = str(tmp_path / "field.th")
+    chip_smoke.write_reference_th(torch, np, path, field, aabb, mask)
+    got_cfg, got, got_aabb, got_grid, got_mask, extra = load_reference_checkpoint(path, "cpu")
+    # the legacy TensorVM's reference kwargs carry one int rank, read as three
+    full_ranks = ranks * 3 if model == "TensorVM" else ranks
+    assert got_cfg == dataclasses.replace(cfg, density_n_comp=full_ranks, app_n_comp=full_ranks)
+    assert got_grid == grid and extra is None
+    np.testing.assert_array_equal(got_aabb, aabb)
+    want = params_to_jax(field)
+    assert params_to_jax(got).keys() == want.keys()
+    for k, v in params_to_jax(got).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+    assert (got_mask is None) == (mask is None)
+    if mask is not None:
+        np.testing.assert_array_equal(got_mask.volume.numpy(), mask.volume.numpy())
+        np.testing.assert_array_equal(got_mask.aabb.numpy(), aabb)
+
+
+def test_sphere_seed_mean_holds_the_mean_to_30_db(capsys):
+    """The sphere check holds the five seeds' mean to 30 dB: a run under
+    the bar passes inside a mean above it, a mean under it fails."""
+    psnrs = {20211202: 30.2, 1: 29.6, 2: 31.0, 3: 30.1, 4: 29.9}
+    assert chip_smoke.sphere_seed_mean(np, psnrs) == pytest.approx(30.16)
+    assert "mean 30.1600 dB over 5 seeds" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        chip_smoke.sphere_seed_mean(np, {**psnrs, 2: 29.0})
+    assert "under 30.0" in capsys.readouterr().err
