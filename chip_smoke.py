@@ -70,14 +70,16 @@ each prints its seconds):
      in the reference's .th layout (write_reference_th); render-only of the
      .th through the CLI must read the .npz's PSNR within 1e-4 dB, and its
      mesh export as many vertices as mesh_main's;
- 11. resume: synth_sphere as written again, killed after step 251 (its
-     checkpoint at 250 written), then ``resume`` in the same logfolder: the
-     resumed run must log that it continues at 251 with the optimizer and
-     sampling state restored, what it loads must equal the checkpoint
-     exactly, its history.npz must hold the row at 250, and its final test
-     PSNR must lie within 0.5 dB of the uninterrupted run's (phase 9):
-     float atomics sum in another order on each run, so the two drift
-     apart in rounding as two clean runs do;
+ 11. resume: the config seed's synth_sphere run of phase 9 leaves, after
+     step 251 (its checkpoint at 250 the newest), a copy of its logfolder:
+     what a kill after that step leaves on disk.  ``resume`` in that copy
+     must log that it continues at 251 with the optimizer and sampling
+     state restored, what it loads must equal the checkpoint exactly, its
+     history.npz must hold the row at 250, and its final test PSNR must lie
+     within 0.5 dB of the run it was copied from.  Both share the same 251
+     steps: float atomics sum in another order on each run, so only the
+     last 49 drift apart in rounding (two separate runs at one seed spread
+     on the card by as much as the bar);
  12. lego_path: ``reconstruction`` of configs/lego.txt as written
      (TensorCP, ranks 16/48, app_dim 27, MLP shading with pos/view/fea PE
      2 and featureC 128, batch 1024, sample_budget 160, stratify and
@@ -124,7 +126,8 @@ each prints its seconds):
      geometry's; the run's differs by a few samples, which moves every NDC
      sample), ms per frame, their PSNR above the untrained field's and
      FLOWER_MIN_PSNR; FLOWER_SPIRAL spiral poses; render-only of the final
-     checkpoint within 1e-4 dB of the served views.  Then the kernel
+     checkpoint within 1e-4 dB of the served views (render-only scores
+     every test view, the handle serves FLOWER_SERVED).  Then the kernel
      against its plain version on the last segment's plane and line
      footprint streams;
  16. bf16: configs/synth_full.txt as written but with grid_dtype,
@@ -140,7 +143,23 @@ each prints its seconds):
  17. lpips: AlexNet and VGG LPIPS (eval/lpips.py) with seeded random
      weights in a temporary TENSORF_LPIPS_DIR on an 800x800 view (the
      sphere scene's test view 0 against a noisy copy), the card against
-     the CPU within LPIPS_RTOL, with ms per call.
+     the CPU within LPIPS_RTOL, with ms per call;
+ 18. dp_step_parity: synth_full's first step at full width on DP_RANKS
+     gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card)
+     against one rank, from an Adam state in progress: parameters within
+     rel 1e-5 / abs 1e-6 and bit-identical on the ranks, the kernel
+     launched on each rank as often as on one, on its share of the rows;
+ 19. dp_path: ``reconstruction`` of the main path's config and cut
+     schedule on those ranks (parallel/parity.py::reconstruct, each rank's
+     counts set to 0 just before and read just after): plan and event
+     lines and parameter checksums equal on the ranks after every event,
+     every eval overflow 0.0, each rank's launches the per-stratum sum of
+     its shares, the final PSNR within DP_MAX_DPSNR of the main path's;
+     each rank's ms/step and peak GiB;
+ 20. dp_nccl: the CLI with ``--distributed 1`` at world size 1 through
+     the TFTPU_* variables, NCCL on the card, DP_NCCL_STEPS steps; with
+     two or more cards, ``--n_devices min(4, count)`` over NCCL too (with
+     one, a line says it was not run).
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
 
@@ -152,7 +171,8 @@ progress read every 25 steps (profile_step.CUT_SCHEDULE); lego's
 3000, and its final state scored (profile_step.LEGO_CUT); flower's 25000
 steps cut to 450 (profile_step.FLOWER_CUT), its final render and its
 render_path moved to flower_serving (the spiral cut to FLOWER_SPIRAL of 120
-poses).
+poses, the served test views to FLOWER_SERVED: the data-parallel phases'
+time).
 
 Without a GPU, or outside a checkout of the repo, it exits non-zero and
 prints no result.  The last line of stdout is
@@ -198,8 +218,9 @@ MAX_FINAL_OVERFLOW = 0.01
 # data/synthetic.py's sphere: radius 0.8 about the origin
 SPHERE_RADIUS = 0.8
 MESH_RADIUS_TOL = 0.05
-# the resumed sphere run: killed after this step, the checkpoint at 250 the
-# newest; its final test PSNR within this many dB of the uninterrupted run's
+# the sphere run's logfolder is copied after this step (what a kill there
+# leaves: the checkpoint at 250 the newest); the copy's resumed final test
+# PSNR lies within this many dB of the run it was copied from
 RESUME_KILL = 251
 RESUME_MAX_DPSNR = 0.5
 # configs/lego.txt's path (profile_step.LEGO_CUT): its first segment runs
@@ -235,8 +256,11 @@ SHADING_STEPS = 100
 FLOWER_FIRST_SEGMENT = 200
 FLOWER_LOSS_RATIO = 0.5
 FLOWER_MIN_PSNR = 26.0
-# spiral render_path poses flower_serving renders, of the loader's 120
-FLOWER_SPIRAL = 2
+# spiral render_path poses flower_serving renders, of the loader's 120, and
+# the test views it serves through the eval's handle beside render-only's
+# (cut from 2 and all 5 for the data-parallel phases' time: each is ~23 s)
+FLOWER_SPIRAL = 1
+FLOWER_SERVED = 1
 # the bf16 path: synth_full with every dtype option at bfloat16 over the
 # main path's first segment, held to its loss bar; a bf16 render of the
 # main path's final state within JAX's bar for a bf16 grid against the
@@ -246,6 +270,17 @@ BF16_RENDER_BAR = 0.03
 # LPIPS on the card against the CPU: float32 convolutions in both, summed
 # in other orders
 LPIPS_RTOL = 1e-4
+# the data-parallel phases: ranks sharing the one card over gloo (NCCL
+# refuses two ranks on one card); the dp path's final test PSNR within
+# DP_MAX_DPSNR of the main path's (the ranks sum the gradient in another
+# order, and float atomics differ from run to run, as two clean runs do);
+# dp_nccl's steps through --distributed 1 at world size 1
+DP_RANKS = 2
+DP_MAX_DPSNR = 0.5
+DP_NCCL_STEPS = 20
+# each data-parallel launch's bound, and its collectives'
+DP_TIMEOUT_S = 900.0
+DP_COLLECTIVE_TIMEOUT_S = 600.0
 # the keys of each kernel case in the kernels line
 CASE_KEYS = ("case", "M", "dtype", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
 # scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
@@ -1120,9 +1155,26 @@ def mesh_export(torch, np, kernels, name, config, ckpt, min_verts=1):
     return row, verts
 
 
-def resume_phase(torch, np, cfg, scene, clean_psnr, workdir) -> None:
-    """synth_sphere as written, killed after step RESUME_KILL, then resumed
-    in the same logfolder."""
+def resume_snapshot(cfg, dest):
+    """An ``on_step`` hook: after step RESUME_KILL it copies the run's
+    logfolder (basedir/<date>/<expname>) under ``dest`` as it stands, which
+    is what a kill after that step leaves on disk."""
+    import glob
+    import os
+
+    def hook(it, state):
+        if it == RESUME_KILL:
+            (folder,) = glob.glob(f"{cfg.basedir}/*/{cfg.expname}")
+            date = os.path.basename(os.path.dirname(folder))
+            shutil.copytree(folder, f"{dest}/{date}/{cfg.expname}")
+            print(f"resume: the logfolder copied after step {RESUME_KILL}", flush=True)
+    return hook
+
+
+def resume_phase(torch, np, cfg, scene, clean_psnr, basedir) -> None:
+    """``resume`` of synth_sphere in ``basedir``, the logfolder that
+    resume_snapshot copied from the uninterrupted run of ``cfg``, whose
+    final test PSNR is ``clean_psnr``."""
     import dataclasses
     import glob
     import os
@@ -1131,22 +1183,11 @@ def resume_phase(torch, np, cfg, scene, clean_psnr, workdir) -> None:
     from tensorf_tpu_torch.train.loop import TrainState, reconstruction
     from tensorf_tpu_torch.utils.ckpt import load_opt_leaves
 
-    cfg = dataclasses.replace(cfg, basedir=f"{workdir}/resume")
-
-    class Killed(Exception):
-        pass
-
-    def kill(it, state):
-        if it == RESUME_KILL:
-            raise Killed()
-
-    try:
-        reconstruction(cfg, scene, "cuda", save_images=False, on_step=kill,
-                       log=lambda m: print(f"resume (killed run): {m}", flush=True))
-        fail(f"resume: the run was not killed at {RESUME_KILL}")
-    except Killed:
-        print(f"resume: killed after step {RESUME_KILL}", flush=True)
-    (ckpt,) = glob.glob(f"{cfg.basedir}/*/{cfg.expname}/0k_{cfg.expname}.npz")
+    cfg = dataclasses.replace(cfg, basedir=basedir)
+    found = glob.glob(f"{cfg.basedir}/*/{cfg.expname}/0k_{cfg.expname}.npz")
+    check(len(found) == 1, f"resume: the uninterrupted run left no copy after step "
+          f"{RESUME_KILL} ({found})")
+    (ckpt,) = found
 
     # what a resume loads (the same calls reconstruction makes) equals the
     # checkpoint exactly
@@ -1481,20 +1522,24 @@ def flower_phase(torch, np, kernels, workdir):
           "rays uniform")
     test_ds = state.test_ds
     W, H = test_ds.img_wh
+    # render-only scores every test view; the eval's handle serves
+    # FLOWER_SERVED of them, timed, which must read render-only's PSNRs
+    reloaded = render_test(dataclasses.replace(cfg, ckpt=result.final_path, render_test=1),
+                           scene, "cuda", save_images=False, log=lambda m: None)
+    psnr_final = float(np.mean(reloaded))
     frame_ms, served = [], []
-    for k in range(test_ds.all_rays.shape[0]):
+    for k in range(FLOWER_SERVED):
         rays = torch.as_tensor(test_ds.all_rays[k].reshape(-1, 6), device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         rgb, _, _ = handle.render(rays)  # host arrays: the frame is done
         frame_ms.append((time.perf_counter() - t1) * 1e3)
         served.append(psnr(np.clip(rgb, 0, 1), test_ds.all_rgbs[k].reshape(-1, 3)))
-    psnr_final = float(np.mean(served))
-    print(f"flower_serving: {len(frame_ms)} test views of {W}x{H} served uniform (lattice "
-          f"{handle.n_samples}, the run's {state.n_samples}; chunk 8192): ms per frame "
-          f"{[round(m, 1) for m in frame_ms]}, "
-          f"psnr {[round(p, 4) for p in served]}; final test psnr {psnr_final:.4f} dB (bar "
-          f"{FLOWER_MIN_PSNR}), view 0 against {untrained:.4f} untrained", flush=True)
+    print(f"flower_serving: {len(frame_ms)} of {len(reloaded)} test views of {W}x{H} served "
+          f"uniform (lattice {handle.n_samples}, the run's {state.n_samples}; chunk 8192): ms per "
+          f"frame {[round(m, 1) for m in frame_ms]}, psnr {[round(p, 4) for p in served]}; final "
+          f"test psnr (render-only, every view) {psnr_final:.4f} dB (bar {FLOWER_MIN_PSNR}), "
+          f"view 0 against {untrained:.4f} untrained", flush=True)
     check(served[0] > untrained and psnr_final >= FLOWER_MIN_PSNR,
           f"flower: final test psnr {psnr_final} (view 0 {served[0]}, untrained {untrained}), "
           f"bar {FLOWER_MIN_PSNR}")
@@ -1503,13 +1548,11 @@ def flower_phase(torch, np, kernels, workdir):
     evaluation_path(test_ds, handle, poses)
     print(f"flower_serving: spiral poses {list(range(0, 120, 120 // FLOWER_SPIRAL))} of 120 in "
           f"{(time.perf_counter() - t1) * 1e3 / len(poses):.1f} ms per frame", flush=True)
-    reloaded = render_test(dataclasses.replace(cfg, ckpt=result.final_path, render_test=1),
-                           scene, "cuda", save_images=False, log=lambda m: None)
-    delta = abs(float(np.mean(reloaded)) - psnr_final)
-    print(f"render_only: flower_path's final checkpoint: test psnr {float(np.mean(reloaded)):.6f} "
-          f"dB, |delta| {delta:.3g} (tol 1e-4) against the served views on its lattice", flush=True)
-    check(delta <= 1e-4, f"flower: the final checkpoint renders {np.mean(reloaded)}, not "
-          f"{psnr_final}")
+    delta = max(abs(float(a) - b) for a, b in zip(reloaded, served))
+    print(f"render_only: flower_path's final checkpoint: test psnr {psnr_final:.6f} dB, "
+          f"|delta| {delta:.3g} (tol 1e-4) against the served views on its lattice", flush=True)
+    check(delta <= 1e-4, f"flower: the final checkpoint renders {reloaded[:FLOWER_SERVED]}, not "
+          f"{served}")
     del handle
     phase_done("flower_serving", t0)
 
@@ -1792,6 +1835,186 @@ def sphere_seed_mean(np, psnrs) -> float:
     return mean
 
 
+def dp_step_case(torch, np, cfg, scene):
+    """One main-path step's inputs at full width: the 128^3 field drawn
+    from the config's seed, its first plan's statics and global ids, the
+    store, an Adam state in progress, the noise seed of iteration 0."""
+    from tensorf_tpu_torch.parallel import parity
+    from tensorf_tpu_torch.train.loop import TrainState, build_statics, restratify, step_seed
+
+    state = TrainState(cfg, torch.device("cuda"), scene)
+    restratify(state, 0, lambda m: None)
+    case = dict(model_cfg=state.field.cfg, grid=tuple(state.geometry.grid_size),
+                params={k: v.cpu().numpy() for k, v in state.field.state_dict().items()},
+                aabb=state.geometry.aabb_np.astype(np.float32), mask=None,
+                statics=build_statics(state), lr=(cfg.lr_init, cfg.lr_basis, state.lr_factor),
+                opt_leaves=parity.adam_in_progress(state.field),
+                rays=state.rays.cpu().numpy(), rgbs=state.rgbs.cpu().numpy(),
+                ids=tuple(i.numpy() for i in state.sampler.nextids()), step=0,
+                seed=step_seed(cfg.seed, 0))
+    del state
+    torch.cuda.empty_cache()
+    return case
+
+
+def dp_step_parity_phase(torch, np, cfg, scene) -> None:
+    """dp_step_parity: one synth_full step at full width on DP_RANKS gloo
+    ranks sharing cuda:0 against the same step on one rank: the same global
+    batch and noise, an Adam state in progress (parity.adam_in_progress),
+    the parameters after it within rel 1e-5 / abs 1e-6 and bit-identical on
+    the ranks; the kernel launched on every rank as often as on one, each
+    time on its 1/DP_RANKS of the rows."""
+    from tensorf_tpu_torch.parallel import parity, spawn
+
+    t0 = time.perf_counter()
+    case = dp_step_case(torch, np, cfg, scene)
+    want = parity.one_step(None, "cuda:0", case)
+    got = spawn(parity.one_step, (case,), ["cuda:0"] * DP_RANKS, timeout_s=DP_TIMEOUT_S,
+                collective_timeout_s=DP_COLLECTIVE_TIMEOUT_S)
+    worst = 0.0
+    for r, res in enumerate(got):
+        for k, v in want["params"].items():
+            err = np.abs(res["params"][k] - v) - 1e-5 * np.abs(v)
+            worst = max(worst, float(np.abs(res["params"][k] - v).max()))
+            check(bool(np.all(err <= 1e-6)), f"dp_step_parity: rank {r}'s {k} after the step "
+                  f"differs from one rank's by {float(err.max()) + 1e-6} beyond rel 1e-5")
+        check(res["launches"] == want["launches"] > 0 and len(res["rows"]) == len(want["rows"]),
+              f"dp_step_parity: rank {r} launched the kernel {res['launches']} times, one rank "
+              f"{want['launches']}")
+        check(sum(res["rows"]) * DP_RANKS == sum(want["rows"]),
+              f"dp_step_parity: rank {r} scattered {sum(res['rows'])} rows, one rank "
+              f"{sum(want['rows'])}")
+        check(abs(res["metrics"]["mse"] - want["metrics"]["mse"]) <= 1e-5 * want["metrics"]["mse"],
+              f"dp_step_parity: rank {r}'s mse {res['metrics']['mse']}, one rank's "
+              f"{want['metrics']['mse']}")
+    check(len({res["checksum"] for res in got}) == 1,
+          f"dp_step_parity: the ranks' parameters differ after the all-reduce: "
+          f"{[res['checksum'] for res in got]}")
+    print(f"dp_step_parity: {DP_RANKS} gloo ranks on cuda:0 vs one rank, synth_full's first step "
+          f"at full width (quotas {[len(i) for i in case['ids']]}): max |delta param| {worst:.3g}, "
+          f"mse {got[0]['metrics']['mse']:.8f} vs {want['metrics']['mse']:.8f}; kernel launches "
+          f"per rank {[res['launches'] for res in got]} (one rank {want['launches']}), rows per "
+          f"rank {[sum(res['rows']) for res in got]} (one rank {sum(want['rows'])})", flush=True)
+    phase_done("dp_step_parity", t0)
+
+
+def dp_path_phase(torch, np, cfg, scene, main_psnr):
+    """dp_path: ``reconstruction`` of the main path's config on DP_RANKS
+    gloo ranks sharing cuda:0 (parallel/parity.py::reconstruct): every plan
+    and event line and a parameter checksum after every event equal on the
+    ranks, every eval's overflow 0.0, each rank's kernel launches equal to
+    the per-stratum sum of its shares, the final PSNR within DP_MAX_DPSNR
+    of the main path's.  Prints each rank's ms/step and peak GiB per
+    segment (two processes time-slicing one card: no model of two cards).
+    Returns each rank's launches."""
+    from tensorf_tpu_torch.parallel import parity, spawn
+
+    t0 = time.perf_counter()
+    got = spawn(parity.reconstruct, (cfg, scene), ["cuda:0"] * DP_RANKS,
+                timeout_s=DP_TIMEOUT_S, collective_timeout_s=DP_COLLECTIVE_TIMEOUT_S)
+    print(f"dp_path: {DP_RANKS} gloo ranks on cuda:0, {cfg.n_iters} steps in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def plan_lines(res):
+        return [m for m in res["lines"]
+                if "stratified ray store" in m or "'event'" in m or "[budget]" in m]
+
+    for line in plan_lines(got[0]):
+        print(f"dp_path: {line}", flush=True)
+    launches = []
+    for r, res in enumerate(got):
+        check(plan_lines(res) == plan_lines(got[0]),
+              f"dp_path: rank {r}'s plan and event lines differ from rank 0's")
+        check(res["checksums"] == got[0]["checksums"]
+              and res["final_checksum"] == got[0]["final_checksum"],
+              f"dp_path: rank {r}'s parameter checksums {res['checksums']} differ from rank 0's "
+              f"{got[0]['checksums']}")
+        want = sum(n * scatter_launches_per_step(statics, cfg.model_name, batches, grid, a_dtype)
+                   for statics, batches, grid, a_dtype, _, n in res["steps"])
+        n_launch = res["launches"]["scatter_add"]
+        check(n_launch == want > 0, f"dp_path: rank {r} launched the kernel {n_launch} times, "
+              f"the per-stratum sum of its shares is {want}")
+        launches.append(n_launch)
+        result = res["result"]
+        check(all(v == 0.0 for v in result.eval_overflow.values()),
+              f"dp_path: rank {r}'s evaluations overflowed: {result.eval_overflow}")
+        check(all(seg["strata"] > 0 for seg in result.segments),
+              f"dp_path: a segment of rank {r} ran unstratified")
+        for seg in result.segments:
+            print(f"dp_path: rank {r} segment {seg['start']}..{seg['end']}: grid {seg['grid']}, "
+                  f"quotas {seg['quotas']}, {seg['ms_per_step']:.3f} ms/step, peak "
+                  f"{seg['peak_gib']:.2f} GiB", flush=True)
+    psnrs = [float(np.mean(res["result"].final_psnrs)) for res in got]
+    check(len(set(psnrs)) == 1, f"dp_path: the ranks' final test PSNRs differ: {psnrs}")
+    print(f"dp_path: checksums equal on the ranks after every event "
+          f"({sorted(got[0]['checksums'])}); kernel launches per rank {launches}; eval overflow "
+          f"{got[0]['result'].eval_overflow}; final test psnr {psnrs[0]:.4f} dB, the main path's "
+          f"{main_psnr:.4f} (within {DP_MAX_DPSNR})", flush=True)
+    check(abs(psnrs[0] - main_psnr) <= DP_MAX_DPSNR,
+          f"dp_path: final test PSNR {psnrs[0]} is not within {DP_MAX_DPSNR} dB of the main "
+          f"path's {main_psnr}")
+    phase_done("dp_path", t0)
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_cli(np, argv, env, label, ranks, timeout):
+    """The port's CLI in a child process: checks its exit code and that each
+    of ``ranks`` ranks logged the same parameter digest; returns its JSON
+    line."""
+    import os
+
+    proc = subprocess.run([sys.executable, "-m", "tensorf_tpu_torch", *argv],
+                          env=dict(os.environ, **env), capture_output=True, text=True,
+                          timeout=timeout)
+    tail = (proc.stdout[-2000:] + proc.stderr[-3000:])
+    check(proc.returncode == 0, f"{label}: the CLI exited {proc.returncode}: {tail}")
+    out = proc.stdout.splitlines()
+    for line in out:
+        if "rank " in line and (" of " in line or "digest" in line):
+            print(f"{label}: {line}", flush=True)
+    digests = [m.rsplit(" ", 1)[-1] for m in out if "parameter digest" in m]
+    check(len(digests) == ranks and len(set(digests)) == 1,
+          f"{label}: parameter digests {digests}, want {ranks} equal ones")
+    return json.loads(out[-1])
+
+
+def dp_nccl_phase(torch, np, workdir) -> None:
+    """dp_nccl: ``--distributed 1`` through the TFTPU_* variables at world
+    size 1, NCCL on the card, DP_NCCL_STEPS steps of synth_full; with two
+    or more cards visible, NCCL at min(4, count) ranks through
+    ``--n_devices`` too (else a line says it was not run)."""
+    t0 = time.perf_counter()
+    base = ["--config", "configs/synth_full.txt", "--synthetic", "--synthetic_views",
+            f"{SCENE['n_train']},{SCENE['n_test']}", "--synthetic_wh", str(SCENE["wh"][0]),
+            "--n_iters", str(DP_NCCL_STEPS), "--save_images", "0", "--render_test", "0",
+            "--progress_refresh_rate", "5"]
+    env = {"TFTPU_COORDINATOR": f"localhost:{free_port()}", "TFTPU_NUM_PROCESSES": "1",
+           "TFTPU_PROCESS_ID": "0"}
+    row = dp_cli(np, base + ["--distributed", "1", "--basedir", f"{workdir}/nccl1"], env,
+                 "dp_nccl", 1, DP_TIMEOUT_S)
+    seg = row["segments"][0]
+    print(f"dp_nccl: --distributed 1, world size 1, NCCL: {DP_NCCL_STEPS} steps, "
+          f"{seg['ms_per_step']:.3f} ms/step, peak {seg['peak_gib']:.2f} GiB", flush=True)
+    count = torch.cuda.device_count()
+    if count >= 2:
+        n = min(4, count)
+        row = dp_cli(np, base + ["--n_devices", str(n), "--basedir", f"{workdir}/nccl{n}"], {},
+                     f"dp_nccl[{n} cards]", n, DP_TIMEOUT_S)
+        print(f"dp_nccl[{n} cards]: --n_devices {n}, NCCL: segments {row['segments']}",
+              flush=True)
+    else:
+        print(f"dp_nccl: NCCL on several cards not run: {count} card visible", flush=True)
+    phase_done("dp_nccl", t0)
+
+
 def run_paths(torch, np, kernels, workdir) -> None:
     """Phases 2-17; prints the kernels line."""
     from tensorf_tpu_torch.config import load_config
@@ -1839,6 +2062,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
           f"stratum {last['overflow']} (max {MAX_FINAL_OVERFLOW})", flush=True)
     check(max(last["overflow"]) <= MAX_FINAL_OVERFLOW,
           f"main_path: a stratum overflows {max(last['overflow'])} at the last read")
+    main_psnr = float(np.mean(result.final_psnrs))
 
     # the main path's final checkpoint, before the unstratified drive (same
     # expname, overwrt) replaces its logfolder
@@ -1901,11 +2125,15 @@ def run_paths(torch, np, kernels, workdir) -> None:
     t0 = time.perf_counter()
     sphere_scene = make_synthetic_scene_arrays(**SPHERE)
     sphere_psnrs, sphere_launches = {}, None
+    resume_base = f"{workdir}/resume"
     for seed in SEEDS:
         sphere_cfg = load_config("configs/synth_sphere.txt", dict(basedir=workdir, seed=seed))
         name = f"sphere_path[seed {seed}]"
+        # the config's seed leaves the copy that resume continues
         sphere, launches = drive(torch, name, sphere_cfg, sphere_scene, kernels,
-                                 sphere_cfg.n_iters)
+                                 sphere_cfg.n_iters,
+                                 resume_snapshot(sphere_cfg, resume_base)
+                                 if seed == SEEDS[0] else None)
         check(launches["scatter_add"] > 0, f"{name}: the kernel never launched: {launches}")
         check(all(seg["strata"] > 0 for seg in sphere.segments), f"{name}: a segment ran "
               "unstratified")
@@ -1940,7 +2168,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
     phase_done("mesh_sphere", t0)
 
     t0 = time.perf_counter()
-    resume_phase(torch, np, sphere_cfg, sphere_scene, sphere_psnr, workdir)
+    resume_phase(torch, np, sphere_cfg, sphere_scene, sphere_psnr, resume_base)
     phase_done("resume", t0)
 
     # ---- the slice's paths: lego (TensorCP, MLP), TensorVM, every shading mode ----
@@ -1963,6 +2191,13 @@ def run_paths(torch, np, kernels, workdir) -> None:
     by_path["bf16_path"] = bf16_launches["scatter_add"]
     frame = sphere_scene["test"]["frames"][0]["image"]
     lpips_phase(torch, np, workdir, frame[..., :3] / 255.0)
+
+    # ---- slice 10: data parallelism; each rank counts its own launches ----
+    dp_step_parity_phase(torch, np, cfg, scene)
+    dp_cfg = load_config("configs/synth_full.txt",
+                         dict(OVERRIDES, **CUT_SCHEDULE, basedir=f"{workdir}/dp"))
+    by_path["dp_path"] = dp_path_phase(torch, np, dp_cfg, scene, main_psnr)
+    dp_nccl_phase(torch, np, workdir)
 
     # the headline numbers are density_128's, the widest scatter of the
     # unstratified first segment; "shapes" carries every main-path shape

@@ -9,6 +9,8 @@ render a checkpoint's test views, or export a checkpoint's mesh.
     python -m tensorf_tpu_torch --config ... --export_mesh 1 --ckpt PATH
     python -m tensorf_tpu_torch --config ... --resume 1            # continue a run
     python -m tensorf_tpu_torch --config ... --auto_resume 3       # relaunch on a wedge
+    python -m tensorf_tpu_torch --config ... --n_devices 2         # two ranks, one per card
+    torchrun --nproc_per_node 4 -m tensorf_tpu_torch --config ... --distributed 1
 
 Any TrainConfig field is a ``--flag``, and the flags dispatch as
 train.py's do: ``auto_resume`` supervises a child run, ``export_mesh``
@@ -29,6 +31,14 @@ checkpoints stay float32).  ``--ckpt`` takes the port's or the JAX
 package's ``.npz`` or the reference's ``.th`` (utils/import_torch.py).
 LPIPS reads its nets' weights from ``TENSORF_LPIPS_DIR``
 (eval/lpips.py); without them mean.txt's LPIPS lines are NaN.
+
+``--n_devices N`` trains data-parallel over N ranks, one per visible card
+(0: every card; with ``--device cpu``, N ranks on the CPU over gloo), which
+this process spawns; ``--distributed 1`` makes this process one rank of a
+run started outside it (torchrun, or the TFTPU_* variables).  Rank 0 alone
+writes the run's files; a rank that fails makes the launch exit non-zero.
+Render-only and mesh export run on one device, on rank 0 of a distributed
+run; ``--n_steps`` runs on one device.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import numpy as np
 
 from .config import add_config_args, config_from_args
 from .data.synthetic import make_forward_facing_scene, make_synthetic_scene_arrays
+from .parallel.launch import RankFailed, env_rank
 from .train.loop import export_mesh, reconstruction, render_test, train_steps
 from .utils.watchdog import EXIT_WEDGED
 
@@ -50,7 +61,8 @@ def _supervise(argv, retries: int) -> int:
     """Run the CLI in a child process; on the watchdog's wedged exit (code
     17, utils/watchdog.py) relaunch it with ``--resume 1``, so the run
     continues from its newest periodic checkpoint — up to ``retries``
-    relaunches (train.py:27-56)."""
+    relaunches (train.py:27-56).  The child spawns an ``n_devices``
+    launch's ranks, so a relaunch restarts every rank."""
     base = [sys.executable, "-m", "tensorf_tpu_torch"]
     # the child must not supervise again
     child_argv = list(argv) + ["--auto_resume", "0"]
@@ -100,7 +112,21 @@ def main(argv=None) -> int:
 
     if cfg.auto_resume and argv:
         return _supervise(argv, int(cfg.auto_resume))
+    try:
+        return _run(cfg, args)
+    except RankFailed as exc:
+        print(f"[launch] {exc}", file=sys.stderr, flush=True)
+        return exc.exitcode
+
+
+def _run(cfg, args) -> int:
+    # on a distributed run every rank runs the CLI: render-only and mesh
+    # export are rank 0's
+    found = env_rank() if cfg.distributed else None
+    single_writer = found is None or found[0] == 0
     if cfg.export_mesh and (cfg.ckpt or cfg.ckpt_path):
+        if not single_writer:
+            return 0
         _print_mesh(export_mesh(cfg, device=args.device))
         return 0
 
@@ -123,6 +149,8 @@ def main(argv=None) -> int:
             scene=args.synthetic_scene, views=views,
         )
     if render_only:
+        if not single_writer:
+            return 0
         psnrs = render_test(cfg, scene, args.device, save_images=bool(args.save_images))
         print(json.dumps({"test_psnr": float(np.mean(psnrs)) if psnrs else None}))
         return 0
@@ -147,7 +175,7 @@ def main(argv=None) -> int:
         "final_test_psnr": float(np.mean(result.final_psnrs)) if result.final_psnrs else None,
         "segments": result.segments,
     }))
-    if cfg.export_mesh:
+    if cfg.export_mesh and single_writer:
         _print_mesh(export_mesh(cfg, result.final_path, device=args.device))
     return 0
 

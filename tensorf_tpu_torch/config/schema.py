@@ -133,7 +133,12 @@ class TrainConfig:
     stratify_render: int = 1
     stratify_prefilter: int = 1
     stratify_alive: int = 0
-    n_devices: int = 0  # 0 = all visible devices (ray-batch DP)
+    # ray-batch data parallelism: N ranks, one per visible card, spawned by
+    # the launch (0 = every visible card; on the CPU N ranks over gloo, 0 = one)
+    n_devices: int = 0
+    # this process is one rank of a run started outside it (torchrun, or
+    # TFTPU_COORDINATOR/TFTPU_NUM_PROCESSES/TFTPU_PROCESS_ID); each rank draws
+    # from its own id pool; n_devices must be 0 or the world size
     distributed: bool = False
     # --- failure detection / recovery ---
     resume: int = 0

@@ -8,7 +8,10 @@ when ``savePath`` is given do they write PNGs, the two videos and (for
 stratified handle with a mask serves each view through
 render_chunked_stratified, exact by construction; otherwise the view is
 rendered in uniform chunks at the handle's budget.  A render whose sample
-budget dropped candidates prints a warning.
+budget dropped candidates prints a warning.  A handle with a ``group``
+splits every frame's chunks over the ranks (render/chunked.py), which must
+all call it in step: every rank then returns the same images and metrics,
+and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ..models.alpha_mask import AlphaGridMask
 from ..ops.rays import get_rays, ndc_rays_blender
+from ..parallel.mesh import RankGroup, is_writer
 from ..render.chunked import render_chunked, render_chunked_stratified
 from ..utils.misc import visualize_depth_numpy
 from .metrics import psnr as psnr_fn
@@ -50,6 +54,9 @@ class RendererHandle:
     # the largest budget overflow fraction of a chunk over this handle's
     # renders so far (0.0: nothing under-integrated)
     max_overflow: float = 0.0
+    # the ranks that split every frame's chunks (None: this process alone),
+    # as the JAX handle carries its mesh
+    group: Optional[RankGroup] = None
 
     def render(self, rays, chunk: int = 8192, log: Optional[Callable[[str], None]] = None):
         """(M, 6) rays (numpy or a tensor) -> (rgb (M, 3), depth (M,))
@@ -60,11 +67,12 @@ class RendererHandle:
                   fused=self.fused, use_coarse_gate=self.use_coarse_gate)
         if self.stratified and self.alpha_mask is not None:
             rgb, depth, n_valid, overflow = render_chunked_stratified(
-                self.field, self.alpha_mask, rays, self.aabb, chunk=chunk, log=log, **kw)
+                self.field, self.alpha_mask, rays, self.aabb, chunk=chunk, log=log,
+                group=self.group, **kw)
         else:
             rgb, depth, n_valid, overflow = render_chunked(
                 self.field, self.alpha_mask, rays, self.aabb, chunk=chunk,
-                sample_budget=self.sample_budget, **kw)
+                sample_budget=self.sample_budget, group=self.group, **kw)
             rgb, depth = rgb.cpu().numpy(), depth.cpu().numpy()
         self.max_overflow = max(self.max_overflow, overflow)
         if overflow > 0.0:
@@ -104,6 +112,8 @@ def evaluation(
     rgb_frames, depth_frames = [], []
     W, H = test_dataset.img_wh
     imageio = None
+    if not is_writer(handle.group):  # rank 0 writes (tensorf_tpu evaluation.py:151)
+        savePath = None
     if savePath is not None:
         import imageio.v2 as imageio
 
@@ -168,6 +178,8 @@ def evaluation_path(
     runs once per frame.  Returns []."""
     W, H = test_dataset.img_wh
     imageio = None
+    if not is_writer(handle.group):  # rank 0 writes (tensorf_tpu evaluation.py:249)
+        savePath = None
     if savePath is not None:
         import imageio.v2 as imageio
 

@@ -20,6 +20,14 @@ loop, the pixels in one copy after it.
 
 ``render_frame`` renders a whole frame in fixed-size tiles, the last one
 padded, so every tile launches the same shapes.
+
+With ``group`` on several ranks (parallel/mesh.py) every rank holds the
+whole frame's rays and renders a disjoint share of its chunks: chunk j of
+the uniform path, or bucket chunk j of the stratified one, on rank
+j mod W.  The rendered rows are gathered to every rank (``gather_rows``),
+the shaded samples summed and the overflow max-reduced, so every rank
+returns the whole frame, the single-rank render's: each ray is rendered
+on its own.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from ..models.alpha_mask import COARSE_STRIDE
 from ..ops.freq_mask import FreeMasks
+from ..parallel.mesh import RankGroup, gather_rows, host_allmax, host_allsum
 from .volume import render_rays
 
 # Chunk-size ladder of the serving paths: the per-chunk cost scales with
@@ -56,19 +65,52 @@ def _next_chunk(rem: int, cap: int) -> int:
     return c
 
 
-def _render_chunks(field, alpha_mask, rays, aabb, chunk: int, masks, **render_kw):
+def _reduce_counts(n_valid: torch.Tensor, overflow: torch.Tensor,
+                   group: Optional[RankGroup]):
+    """The shaded samples summed and the overflow max-reduced over the
+    ranks, on the device."""
+    if group is None:
+        return n_valid, overflow
+    dev = n_valid.device
+    return (torch.as_tensor(host_allsum(np.asarray([int(n_valid)]), group)[0], device=dev),
+            torch.as_tensor(host_allmax(np.asarray([float(overflow)], np.float32), group)[0],
+                            device=dev))
+
+
+def _render_chunks(field, alpha_mask, rays, aabb, chunk: int, masks,
+                   group: Optional[RankGroup] = None, **render_kw):
     """render_rays over device rays (M, 6), ``chunk`` at a time: (rgb, depth,
-    shaded samples, largest overflow fraction of a chunk), all on the device."""
+    shaded samples, largest overflow fraction of a chunk), all on the
+    device.  With ``group`` on W ranks, chunk j is rendered on rank j mod W
+    and the rows gathered to every rank."""
+    starts = list(range(0, rays.shape[0], chunk))
+    multi = group is not None
+    mine = starts[group.rank::group.world] if multi else starts
     rgbs, depths, n_valid, overflow = [], [], [], []
-    for s in range(0, rays.shape[0], chunk):
+    for s in mine:
         out = render_rays(field, rays[s : s + chunk], masks, aabb=aabb, is_train=False,
                           alpha_mask=alpha_mask, u=None, **render_kw)
         rgbs.append(out.rgb)
         depths.append(out.depth)
         n_valid.append(out.num_valid_samples)
         overflow.append(out.budget_overflow_frac)
-    return (torch.cat(rgbs), torch.cat(depths), torch.stack(n_valid).sum(),
-            torch.stack(overflow).amax())
+    dev = rays.device
+    n_valid = torch.stack(n_valid).sum() if n_valid else torch.zeros((), dtype=torch.int64,
+                                                                      device=dev)
+    overflow = torch.stack(overflow).amax() if overflow else torch.zeros((), device=dev)
+    if not multi:
+        return torch.cat(rgbs), torch.cat(depths), n_valid, overflow
+    # every rank's rows padded to the most chunks a rank renders, gathered,
+    # and put back in chunk order
+    W = group.world
+    per_rank = len(starts[0::W]) * chunk
+    local = torch.cat([torch.cat(rgbs), torch.cat(depths)[:, None]], 1) if rgbs else \
+        torch.zeros((0, 4), device=dev)
+    local = torch.cat([local, local.new_zeros((per_rank - local.shape[0], 4))])
+    rows = gather_rows(local, group).view(W, per_rank, 4)
+    out = torch.cat([rows[j % W, (j // W) * chunk:(j // W) * chunk + min(chunk, rays.shape[0] - s)]
+                     for j, s in enumerate(starts)])
+    return (out[:, :3], out[:, 3]) + _reduce_counts(n_valid, overflow, group)
 
 
 @torch.no_grad()
@@ -80,6 +122,7 @@ def render_chunked(
     *,
     chunk: int = 8192,
     masks: FreeMasks = FreeMasks(),
+    group: Optional[RankGroup] = None,
     **render_kw,
 ) -> Tuple[torch.Tensor, torch.Tensor, int, float]:
     """Render (M, 6) rays (numpy or a tensor) in chunks on the field's
@@ -87,10 +130,10 @@ def render_chunked(
     shaded samples and the largest budget overflow fraction of a chunk.
     ``render_kw`` are render_rays' keywords (step_size, n_samples,
     white_bg, ndc_ray, shade_top_k, fused, sample_budget, budget_mode,
-    use_coarse_gate)."""
+    use_coarse_gate).  ``group``: the chunks split over its ranks."""
     rays = torch.as_tensor(rays, dtype=torch.float32, device=aabb.device)
     rgb, depth, n_valid, overflow = _render_chunks(field, alpha_mask, rays, aabb, chunk, masks,
-                                                   **render_kw)
+                                                   group, **render_kw)
     return rgb, depth, int(n_valid), float(overflow)
 
 
@@ -145,15 +188,45 @@ class _SortedFrame:
     chunk's rgb and depth land in one (M - start, 4) buffer, and the shaded
     samples and the largest overflow accumulate beside it, so nothing is
     read back until every chunk is enqueued.  ``start`` rays (the
-    zero-candidate ones, first in count order) are background."""
+    zero-candidate ones, first in count order) are background.  With
+    ``group`` on W ranks, ``take`` hands bucket chunk j to rank j mod W and
+    ``fetch`` gathers the ranks' rows."""
 
-    def __init__(self, order: np.ndarray, start: int, dev):
+    def __init__(self, order: np.ndarray, start: int, dev, group: Optional[RankGroup] = None):
         self.order, self.start = order, start
         self.out = torch.empty((order.shape[0] - start, 4), device=dev)
         self.n_valid = torch.zeros((), dtype=torch.int64, device=dev)
         self.overflow = torch.zeros((), device=dev)
         # the rendered rays' rows, uploaded once
         self.idx = torch.as_tensor(order[start:]).to(dev)
+        self.group = group
+        self.tasks: List[Tuple[int, int]] = []  # (lo, n) of each chunk handed out
+
+    def take(self, lo: int, n: int) -> bool:
+        """Hand out the chunk of sorted rays [lo, lo + n): whether this rank
+        renders it."""
+        self.tasks.append((lo, n))
+        g = self.group
+        return g is None or (len(self.tasks) - 1) % g.world == g.rank
+
+    def _gather(self) -> None:
+        """Every rank's chunks' rows into every rank's buffer."""
+        g, dev = self.group, self.out.device
+
+        def rows(q):
+            spans = [torch.arange(lo - self.start, lo - self.start + n, device=dev)
+                     for j, (lo, n) in enumerate(self.tasks) if j % g.world == q]
+            return torch.cat(spans) if spans else torch.zeros(0, dtype=torch.int64, device=dev)
+
+        owned = [rows(q) for q in range(g.world)]
+        width = max(r.numel() for r in owned)
+        local = self.out[owned[g.rank]]
+        local = torch.cat([local, local.new_zeros((width - local.shape[0], 4))])
+        every = gather_rows(local, g).view(g.world, width, 4)
+        for q, r in enumerate(owned):
+            if q != g.rank:
+                self.out[r] = every[q, :r.numel()]
+        self.n_valid, self.overflow = _reduce_counts(self.n_valid, self.overflow, g)
 
     def rows(self, lo: int, n: int, pad_to: int = 0) -> torch.Tensor:
         """Store rows of sorted rays [lo, lo + n), the last repeated up to
@@ -173,6 +246,8 @@ class _SortedFrame:
         largest overflow: one copy of the buffer, then the background rays
         filled on the host (acc = 0: the background color, and depth
         (1 - acc) * rays[:, -1] as the composite computes it)."""
+        if self.group is not None:
+            self._gather()
         host = self.out.cpu().numpy()
         M = self.order.shape[0]
         rgb, depth = np.empty((M, 3), np.float32), np.empty((M,), np.float32)
@@ -223,6 +298,7 @@ def render_chunked_stratified(
     use_coarse_gate: bool = True,
     alive_stage: bool = False,
     log: Optional[Callable[[str], None]] = None,
+    group: Optional[RankGroup] = None,
 ) -> Tuple[np.ndarray, np.ndarray, int, float]:
     """Candidate-count-stratified serving of (M, 6) rays (numpy or a device
     tensor, e.g. from rays_from_pose) on the field's device; returns numpy
@@ -241,12 +317,15 @@ def render_chunked_stratified(
 
     NDC rays render uniform and unbudgeted, without the coarse gate: the
     count passes march the non-NDC slab and would miscount them.  A lattice
-    above 512 samples caps the chunk at 8192 rays."""
+    above 512 samples caps the chunk at 8192 rays.  ``group``: every rank
+    counts the whole frame and renders its share of the bucket chunks (the
+    legacy path: of each bucket's chunks); every rank returns the frame."""
     common = dict(step_size=step_size, white_bg=white_bg, shade_top_k=shade_top_k, fused=fused)
     if ndc_ray:
         rgb, depth, n_valid, overflow = render_chunked(
             field, alpha_mask, rays, aabb, chunk=min(chunk, 8192) if n_samples > 512 else chunk,
-            masks=masks, n_samples=n_samples, ndc_ray=True, use_coarse_gate=False, **common)
+            masks=masks, group=group, n_samples=n_samples, ndc_ray=True, use_coarse_gate=False,
+            **common)
         return rgb.cpu().numpy(), depth.cpu().numpy(), n_valid, overflow
     from .culling import count_ray_candidates, count_ray_candidates_and_alive
 
@@ -254,7 +333,7 @@ def render_chunked_stratified(
     if use_coarse_gate and not alive_stage:
         return _render_stratified_resident(field, alpha_mask, rays, aabb, n_samples=n_samples,
                                            chunk=chunk, masks=masks, near_far=near_far, log=log,
-                                           **common)
+                                           group=group, **common)
     dev = aabb.device
     rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
     count_args = (rays, alpha_mask, aabb.cpu().numpy(), step_size, near_far)
@@ -291,9 +370,10 @@ def render_chunked_stratified(
         # memory guard: an unbudgeted deep lattice caps the chunk
         if tier is None and n_samples > 512:
             chunk_b = min(chunk_b, 8192)
+        # the bucket's chunks split over the ranks, gathered to each
         frame.put(lo, n_b, *_render_chunks(
             field, alpha_mask, rays.index_select(0, frame.rows(lo, n_b)), aabb, chunk_b, masks,
-            n_samples=n_samples, sample_budget=tier, budget_mode="cand",
+            group, n_samples=n_samples, sample_budget=tier, budget_mode="cand",
             use_coarse_gate=use_coarse_gate, alive_budget=alive_tier, **common))
         if log is not None:
             log(f"bucket tier={tier} K={tier} alive={alive_tier} rays={n_b} chunk={chunk_b} "
@@ -302,7 +382,7 @@ def render_chunked_stratified(
 
 
 def _render_stratified_resident(field, alpha_mask, rays, aabb, *, n_samples: int, chunk: int,
-                                masks, near_far, log, **common):
+                                masks, near_far, log, group=None, **common):
     """The device-resident path: the count pass leaves the padded rays and
     their window bits on the device; each bucket chunk gathers its rows from
     them (render_rays' window-bits path, no lattice) on a lattice capped at
@@ -323,7 +403,7 @@ def _render_stratified_resident(field, alpha_mask, rays, aabb, *, n_samples: int
     order, sorted_counts, start, tiers = _sort_by_count(counts, n_samples)
     if log is not None:
         log(f"count pass: {M} rays, {start} with no candidate composited on the host")
-    frame = _SortedFrame(order, start, rays_dev.device)
+    frame = _SortedFrame(order, start, rays_dev.device, group)
     for tier, lo, hi in _buckets(sorted_counts, start, tiers):
         cmax = int(chords[order[lo:hi]].max())
         n_eff = min(n_samples, max(128, -(-cmax // 128) * 128))
@@ -333,9 +413,11 @@ def _render_stratified_resident(field, alpha_mask, rays, aabb, *, n_samples: int
         K_b = tier_b if tier_b is not None else n_eff
         if K_b % COARSE_STRIDE != 0:
             cb = chunk if (tier_b is not None or n_eff <= 512) else min(chunk, 8192)
-            frame.put(lo, hi - lo, *_render_chunks(
-                field, alpha_mask, rays_dev.index_select(0, frame.rows(lo, hi - lo)), aabb, cb,
-                masks, n_samples=n_eff, sample_budget=tier_b, budget_mode="cand", **common))
+            if frame.take(lo, hi - lo):
+                frame.put(lo, hi - lo, *_render_chunks(
+                    field, alpha_mask, rays_dev.index_select(0, frame.rows(lo, hi - lo)), aabb,
+                    cb, masks, n_samples=n_eff, sample_budget=tier_b, budget_mode="cand",
+                    **common))
             if log is not None:
                 log(f"bucket tier={tier} K={tier_b} rays={hi - lo} chunk={cb} lattice={n_eff} "
                     f"(lattice render)")
@@ -345,9 +427,10 @@ def _render_stratified_resident(field, alpha_mask, rays, aabb, *, n_samples: int
         while lo < hi:
             c = _next_chunk(hi - lo, cap)
             n = min(c, hi - lo)
-            frame.put(lo, n, *_render_eval_windows(
-                field, alpha_mask, rays_dev, bits_dev, frame.rows(lo, n, c), aabb, masks,
-                n_samples=n_eff, sample_budget=K_b, **common))
+            if frame.take(lo, n):
+                frame.put(lo, n, *_render_eval_windows(
+                    field, alpha_mask, rays_dev, bits_dev, frame.rows(lo, n, c), aabb, masks,
+                    n_samples=n_eff, sample_budget=K_b, **common))
             if log is not None:
                 log(f"bucket tier={tier} K={K_b} rays={n} chunk={c} lattice={n_eff}")
             lo += n

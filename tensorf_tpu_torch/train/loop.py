@@ -35,6 +35,19 @@ A config with ``ndc_ray`` (the forward-facing LLFF scenes) trains as the
 JAX loop trains it: its ray store is neither bbox-filtered nor re-filtered
 by the mask, it is never stratified, its mask gates exactly (no coarse
 pre-gate), and it serves uniform.
+
+``n_devices`` and ``distributed`` run the schedule data-parallel over
+ranks, as the JAX loop runs it over a device mesh (parallel/).  With
+``n_devices`` N (0: every visible card) ``reconstruction`` spawns one rank
+per card; every rank draws the same global batch and renders its block of
+it.  With ``distributed`` the ranks come from the environment (torchrun or
+the JAX package's TFTPU_* variables), each drawing its share of the batch
+from its own id pool with its own sampler seed and its slice of the global
+stratum plan.  Either way every rank holds the whole field, the step sums
+the gradients over the ranks, the parameters are broadcast from rank 0
+after every event that rebuilds them, the evaluations render each frame's
+chunks split over the ranks, the decisions (budget raises, resume) read
+reduced values, and rank 0 alone writes the logfolder's files.
 """
 
 from __future__ import annotations
@@ -62,6 +75,19 @@ from ..models.alpha_mask import coarse_gate_valid
 from ..models.config import GridGeometry, cal_n_samples, n_to_reso, n_voxel_schedule
 from ..models.tensorf import FIELD_MODELS
 from ..ops.freq_mask import free_masks
+from ..parallel.launch import join_from_env, rank_devices, spawn
+from ..parallel.mesh import (
+    RankGroup,
+    barrier,
+    broadcast_params,
+    broadcast_tensors,
+    destroy_group,
+    host_allmax,
+    host_ray_pool,
+    is_writer,
+    param_digest,
+    shard_rows,
+)
 from ..render.culling import (
     _budget_hint,
     count_ray_candidates,
@@ -81,12 +107,14 @@ from ..utils.device import resolve_device
 from ..utils.watchdog import Watchdog
 from .losses import LossWeights
 from .optim import make_optimizer
-from .sampler import SimpleSampler, StratifiedSampler, allocate_quotas
+from .sampler import SimpleSampler, StratifiedSampler, allocate_quotas, localize_strata
 from .step import TrainStatics, make_train_step, render_widths
 
-# per-stratum quotas are multiples of this (the JAX loop's rounding on one
-# device: the smallest multiple of the device count that is >= 8)
-QUOTA_ROUND = 8
+def quota_round(n_dev: int) -> int:
+    """Per-stratum quotas are multiples of this: the smallest multiple of
+    the device count that is >= 8 (the JAX loop's rounding), so every
+    quota splits evenly over the ranks."""
+    return n_dev * -(-8 // n_dev)
 
 
 def step_seed(seed: int, iteration: int) -> int:
@@ -161,7 +189,8 @@ class TrainState:
     optimizer, the mask, the grid geometry and lattice, the ray store and
     its sampler, and the loss and LR settings of the current segment."""
 
-    def __init__(self, cfg: TrainConfig, device: torch.device, scene=None):
+    def __init__(self, cfg: TrainConfig, device: torch.device, scene=None,
+                 group: Optional[RankGroup] = None):
         """With ``cfg.ckpt_path`` the state starts from that checkpoint's
         field, grid, aabb and mask.  With ``cfg.resume`` too, and a
         resumable checkpoint, it continues that run (``resume_extra`` then
@@ -170,9 +199,14 @@ class TrainState:
         run had it (filtered on the dataset's bbox, re-filtered by the mask
         once past the second mask event).  The optimizer state and the
         sampler are restored apart (``restore_optimizer``,
-        ``restore_sampling_state``)."""
+        ``restore_sampling_state``).  ``group``: this rank's place in a
+        data-parallel run (None: one rank)."""
         self.cfg = cfg
         self.device = device
+        self.group = group
+        self.world = self.group.world if self.group else 1
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide by the {self.world} ranks")
         self.ndc_ray = bool(cfg.ndc_ray)
         self.train_ds, self.test_ds = _datasets(cfg, scene)
         self.white_bg = self.train_ds.white_bg
@@ -239,8 +273,7 @@ class TrainState:
                 self.geometry.step_size, self.near_far,
             )
             print(f"[resume] store re-filtered to {self.rays.shape[0]} rays")
-        self.sampler = SimpleSampler(self.rays.shape[0], cfg.batch_size,
-                                     cfg.seed + self.start_iter)
+        self.sampler = self.simple_sampler(self.start_iter)
         # the budgets in effect, each auto-raised when it keeps overflowing:
         # the unstratified mask-era and prefilter budgets, and with strata
         # (None = unstratified) one candidate budget, alive budget, lattice
@@ -253,6 +286,40 @@ class TrainState:
         self.strata_loss_w: Optional[list] = None
         self.quotas: Optional[list] = None
         self.overflow_strikes = [0]
+
+    @property
+    def pooled(self) -> bool:
+        """Each rank draws its share of the batch from its own id pool (a
+        distributed run); else every rank draws the global batch."""
+        return self.group is not None and self.group.pooled
+
+    def ray_pool(self) -> Optional[np.ndarray]:
+        """This rank's id pool over the current store (None: the whole)."""
+        if not self.pooled:
+            return None
+        pool, _ = host_ray_pool(self.rays.shape[0], self.cfg.batch_size, self.group.rank,
+                                self.world)
+        return np.arange(self.rays.shape[0], dtype=np.int64) if pool is None else pool
+
+    def simple_sampler(self, iteration: int) -> SimpleSampler:
+        """The plain sampler from ``iteration`` on: over this rank's pool,
+        drawing its share of the batch, seeded apart per rank (the JAX
+        loop's ``seed + iteration + process_index``), on a distributed run;
+        the global batch at ``seed + iteration`` otherwise."""
+        if not self.pooled:
+            return SimpleSampler(self.rays.shape[0], self.cfg.batch_size,
+                                 self.cfg.seed + iteration)
+        return SimpleSampler(self.rays.shape[0], self.cfg.batch_size // self.world,
+                             self.cfg.seed + iteration + self.group.rank, pool=self.ray_pool())
+
+    def broadcast(self) -> None:
+        """Rank 0's parameters and mask on every rank (after an event
+        rebuilds them, as the JAX loop re-replicates)."""
+        broadcast_params(self.field, self.group)
+        m = self.alpha_mask
+        if self.group is not None and m is not None:
+            broadcast_tensors([t for t in (m.volume, m.dilated, m.coarse) if t is not None],
+                              self.group)
 
     @property
     def aabb(self) -> torch.Tensor:
@@ -272,6 +339,12 @@ class TrainState:
         """The next batch's store ids on the device: one tensor, or with
         strata one per stratum (one upload, split on the device)."""
         ids = self.sampler.nextids()
+        if self.group is not None and not self.pooled:
+            # every rank drew the global batch: this rank's block of each
+            # sub-batch
+            rank = self.group.rank
+            ids = (tuple(shard_rows(i, rank, self.world) for i in ids) if isinstance(ids, tuple)
+                   else shard_rows(ids, rank, self.world))
         flat = torch.cat(ids) if isinstance(ids, tuple) else ids
         if self.device.type == "cuda":
             # from pinned memory the upload does not wait for the device
@@ -314,8 +387,12 @@ class TrainState:
         resumable checkpoint of the port, so the resumed run draws the ids
         the uninterrupted run draws.  Returns False (the caller
         restratifies) when the checkpoint has no such state; a JAX
-        checkpoint's sampler state is numpy's and does not carry over."""
+        checkpoint's sampler state is numpy's and does not carry over.  A
+        distributed run restratifies too, as the JAX loop does: rank 0's
+        checkpoint holds rank 0's sampler only."""
         meta = extra.get("port_sampler")
+        if self.pooled:
+            return False
         if not meta:
             if extra.get("sampler"):
                 log("[resume] sampling-state restore failed (the checkpoint holds the "
@@ -331,7 +408,7 @@ class TrainState:
                 if sum(sampler.quotas) != self.cfg.batch_size:
                     raise ValueError("saved quotas do not sum to the batch")
             else:
-                sampler = SimpleSampler(self.rays.shape[0], self.cfg.batch_size, self.cfg.seed)
+                sampler = self.simple_sampler(0)
                 sampler.set_state(meta, arrays)
         except (KeyError, ValueError) as e:
             log(f"[resume] sampling-state restore failed ({e}); restratifying instead")
@@ -410,6 +487,8 @@ def make_handle(state: TrainState) -> RendererHandle:
         use_coarse_gate=state.coarse_ok(),
         # NDC rays serve uniform: the count passes march the non-NDC slab
         stratified=bool(cfg.stratify_render) and not state.ndc_ray,
+        # evaluations split every frame's chunks over the training's ranks
+        group=state.group,
     )
 
 
@@ -429,8 +508,7 @@ def restratify(state: TrainState, iteration: int, log: Callable[[str], None] = p
             state.strata_budgets = state.strata_alive_budgets = None
             state.strata_n_samples = state.strata_loss_w = state.quotas = None
             state.overflow_strikes = [0]
-            state.sampler = SimpleSampler(state.rays.shape[0], cfg.batch_size,
-                                          cfg.seed + iteration)
+            state.sampler = state.simple_sampler(iteration)
         return None
 
     if not cfg.stratify or state.ndc_ray:
@@ -458,6 +536,9 @@ def restratify(state: TrainState, iteration: int, log: Callable[[str], None] = p
                                       n_samples=n_samples, use_coarse=False)
         chord_counts = None
     quantiles = tuple(cfg.strata_quantiles) if cfg.strata_quantiles else None
+    if state.pooled:
+        # the alive-primary joint plan is a one-process tool in the JAX loop
+        alive_counts = None
     if alive_counts is not None:
         strata, budgets, alive_hints = stratify_rays_joint(counts, alive_counts,
                                                            quantiles=quantiles)
@@ -465,10 +546,12 @@ def restratify(state: TrainState, iteration: int, log: Callable[[str], None] = p
         strata, budgets = stratify_rays(counts, quantiles=quantiles)
         alive_hints = None
     sizes = [int(sel.size) for sel in strata]
-    if len(strata) * QUOTA_ROUND > cfg.batch_size:
+    rounding = quota_round(state.world)
+    if len(strata) * rounding > cfg.batch_size:
         log(f"[{iteration}] stratify skipped (batch too small)")
         return deactivate()
-    quotas = allocate_quotas(sizes, cfg.batch_size, QUOTA_ROUND)
+    # the GLOBAL quotas, each a multiple of the rank count
+    quotas = allocate_quotas(sizes, cfg.batch_size, rounding)
     state.strata_budgets = [b if b < n_samples else None for b in budgets]
     state.strata_n_samples = None if chord_counts is None else tuple(
         min(n_samples, _budget_hint(int(chord_counts[sel].max()))) for sel in strata)
@@ -480,7 +563,15 @@ def restratify(state: TrainState, iteration: int, log: Callable[[str], None] = p
     state.overflow_strikes = [0] * len(strata)
     state.strata_loss_w = [n / float(sum(sizes)) for n in sizes]
     state.quotas = quotas
-    state.sampler = StratifiedSampler(strata, quotas, cfg.seed + iteration)
+    if state.pooled:
+        # rank r draws quota / W per stratum from its pool's slice of the
+        # global plan
+        rank = state.group.rank
+        state.sampler = StratifiedSampler(
+            localize_strata(strata, counts, state.ray_pool(), n_samples),
+            [q // state.world for q in quotas], cfg.seed + iteration + rank)
+    else:
+        state.sampler = StratifiedSampler(strata, quotas, cfg.seed + iteration)
     plan = dict(event="stratify", iteration=iteration, sizes=sizes, quotas=quotas,
                 budgets=list(state.strata_budgets), alive_budgets=state.strata_alive_budgets,
                 lattices=None if state.strata_n_samples is None else list(state.strata_n_samples),
@@ -600,7 +691,7 @@ def alpha_mask_event(state: TrainState, iteration: int) -> dict:
             state.rays, state.rgbs, state.alpha_mask, state.geometry.aabb_np,
             state.geometry.step_size, state.near_far,
         )
-        state.sampler = SimpleSampler(state.rays.shape[0], cfg.batch_size, cfg.seed + iteration)
+        state.sampler = state.simple_sampler(iteration)
         record.update(refiltered=True)
     if state.l1_weight != cfg.L1_weight_rest and cfg.L1_weight_rest >= 0:
         state.l1_weight = cfg.L1_weight_rest
@@ -635,12 +726,22 @@ def _summary(state: TrainState) -> dict:
                 lr_scale=state.lr_scale, l1_weight=state.l1_weight)
 
 
-def _make_logfolder(cfg: TrainConfig, log: Callable[[str], None] = print) -> str:
+def _make_logfolder(cfg: TrainConfig, log: Callable[[str], None] = print,
+                    group: Optional[RankGroup] = None) -> str:
     """basedir/<YYYY-MM-DD>/<expname>, the date in Asia/Ho_Chi_Minh as the
     reference writes it (train.py:193-200), with the imgs_vis, imgs_rgba
     and rgba subfolders; emptied first on ``overwrt`` unless resuming.  A
     resume relaunched after local midnight continues in the newest prior
-    folder of the expname (tensorf_tpu loop.py:92-122)."""
+    folder of the expname (tensorf_tpu loop.py:92-122).  On several ranks
+    rank 0 prepares it first (it may empty it) and the others follow it
+    past a barrier without emptying it (tensorf_tpu loop.py:260-276)."""
+    if group is not None:
+        if group.rank == 0:
+            logfolder = _make_logfolder(cfg, log)
+        barrier(group)
+        if group.rank != 0:
+            logfolder = _make_logfolder(dataclasses.replace(cfg, overwrt=False), log)
+        return logfolder
     from datetime import datetime
     from zoneinfo import ZoneInfo
 
@@ -742,7 +843,9 @@ class ReconstructionResult(NamedTuple):
     eval_overflow: Dict[int, float]
     segments: List[dict]  # steps, grid, n_samples, strata, ms/step, peak GiB per segment
     events: List[dict]  # each schedule event's outcome
-    state: TrainState
+    # the final state; None for a launch that spawned its ranks (the fields
+    # stay in the ranks' processes: the result is rank 0's otherwise)
+    state: Optional[TrainState]
     plans: List[dict]  # each stratification plan and budget raise, in order
     progress: List[dict]  # each progress read: iteration, psnr, mse, overflow per budget
 
@@ -755,8 +858,9 @@ def reconstruction(
     save_images: bool = True,
     log: Callable[[str], None] = print,
     on_step: Optional[Callable[[int, TrainState], None]] = None,
+    group: Optional[RankGroup] = None,
 ) -> ReconstructionResult:
-    """Run ``cfg``'s schedule (tensorf_tpu loop.py:195-1420, single host).
+    """Run ``cfg``'s schedule (tensorf_tpu loop.py:195-1420).
 
     ``scene`` is an in-memory dataset (data/synthetic.py); None reads
     ``cfg.datadir``.  ``save_images`` writes the final evaluations' PNGs,
@@ -767,8 +871,28 @@ def reconstruction(
     start after the run's first step.  With ``cfg.resume`` the run
     continues from the newest resumable checkpoint in its logfolder (a
     fresh start without one); a finished run then only renders.
+
+    ``cfg.n_devices`` (0: every visible card; on the CPU 0 is one rank)
+    above one spawns that many ranks, one per card, each running this
+    schedule (``log`` and ``on_step`` must then pickle, and run in the
+    ranks), and returns rank 0's result without its state.
+    ``cfg.distributed`` joins the ranks the environment names
+    (parallel/launch.py::join_from_env).  ``group``: this process is
+    already that rank of a data-parallel run (the spawned ranks, tests).
     """
     device = resolve_device(device)
+    if group is None and cfg.distributed:
+        group = join_from_env(cfg.n_devices, device)
+        try:
+            return reconstruction(cfg, scene, group.device, save_images=save_images, log=log,
+                                  on_step=on_step, group=group)
+        finally:
+            destroy_group()
+    if group is None:
+        devices = rank_devices(cfg.n_devices, device)
+        if len(devices) > 1:
+            return spawn(_reconstruction_rank, (cfg, scene, save_images, log, on_step),
+                         devices)[0]
     # armed before any device work; setup milestones and every step beat
     # it, and writes under the build directory count as progress
     watchdog = Watchdog(cfg.wedge_timeout_s, tag=cfg.expname,
@@ -776,26 +900,53 @@ def reconstruction(
                         cache_dirs=[str(BUILD_DIR)]).start()
     writer = None
     try:
-        logfolder = _make_logfolder(cfg, log)
-        writer = _summary_writer(logfolder)
+        logfolder = _make_logfolder(cfg, log, group)
+        # rank 0 alone writes event files: every rank reads the same scalars
+        writer = _summary_writer(logfolder) if is_writer(group) else _NullWriter()
         return _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer,
-                            logfolder)
+                            logfolder, group)
     finally:
         watchdog.stop()
         if writer is not None:
             writer.close()
 
 
-def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer, logfolder):
+def _reconstruction_rank(group: RankGroup, device, cfg, scene, save_images, log, on_step):
+    """One spawned rank of an ``n_devices`` launch."""
+    return reconstruction(cfg, scene, device, save_images=save_images, log=log, on_step=on_step,
+                          group=group)._replace(state=None)
+
+
+def _agreed_ckpt(found, group: Optional[RankGroup], log):
+    """The newest checkpoint when every rank found the same iteration's;
+    None (a fresh start on every rank) when they disagree, as the JAX loop
+    decides (tensorf_tpu loop.py:299-316)."""
+    if group is None:
+        return found
+    it = np.asarray([found[1] if found else -1], np.int64)
+    hi, lo = int(host_allmax(it, group)[0]), -int(host_allmax(-it, group)[0])
+    if hi != lo or lo < 0:
+        if found:
+            log(f"[resume] ranks disagree on the newest iteration ({lo} vs {hi}) — fresh start "
+                f"on every rank")
+        return None
+    return found
+
+
+def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer, logfolder,
+                 group):
     """``reconstruction``'s body, inside its watchdog and summary writer."""
+    writes = is_writer(group)
+    # the figures and images are rank 0's
+    save_images = save_images and writes
     if cfg.resume and not cfg.ckpt_path:
-        found = _latest_ckpt(logfolder)
+        found = _agreed_ckpt(_latest_ckpt(logfolder), group, log)
         if found:
             cfg = dataclasses.replace(cfg, ckpt_path=found[0])
             log(f"[resume] newest checkpoint: {found[0]}")
         else:
             log(f"[resume] no checkpoint under {logfolder} — fresh start")
-    state = TrainState(cfg, device, scene)
+    state = TrainState(cfg, device, scene, group)
     resume_extra, start_iter = state.resume_extra, state.start_iter
     history = defaultdict(list)
     psnrs_window, psnrs_test = [], [0.0]
@@ -811,6 +962,8 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
                 history[k[len("history/"):]] = list(np.asarray(v))
         psnrs_window = [float(v) for v in aux.get("progress/psnrs_window", [])]
         psnrs_test = [float(v) for v in aux.get("progress/psnrs_test", [0.0])]
+    # the field replicated from rank 0, as the JAX loop replicates it
+    state.broadcast()
     watchdog.beat()  # setup milestone: datasets, field and ray store on the device
     train_gift = test_gift = None
     if save_images:
@@ -818,7 +971,10 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
         test_gift = _gift_dataset(cfg, scene, "test")
     log(f"[port] {cfg.model_name} grid {state.geometry.grid_size} n_samples "
         f"{state.n_samples} batch {cfg.batch_size} store {state.rays.shape[0]} rays "
-        f"on {device}; logfolder {logfolder}")
+        f"on {device}; logfolder {logfolder}"
+        + (f"; rank {group.rank} of {group.world} ({group.backend}, "
+           f"{'own id pool' if group.pooled else 'blocks of the global batch'})"
+           if group else ""))
 
     event_iters = set(cfg.update_AlphaMask_list) | set(cfg.upsamp_list)
     # reseeded every step from (seed, iteration): stateless noise
@@ -837,7 +993,7 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
         # mask), or restore the plan and sampler the checkpoint carries
         if resume_extra is None or not state.restore_sampling_state(resume_extra, aux, log):
             stratify(start_iter)
-        step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
+        step_fn = make_train_step(state.field, build_statics(state), state.optimizer, group)
     # else: a finished run's resume goes straight to the final renders,
     # with no count pass and no step built
     aabb = state.aabb
@@ -893,7 +1049,8 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
             raised = raise_budgets(state, per_budget, iteration, log)
             if raised:
                 plans.append(dict(event="budget_raise", iteration=iteration, raised=raised))
-                step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
+                step_fn = make_train_step(state.field, build_statics(state), state.optimizer,
+                                          group)
         boundary = iteration in event_iters or iteration == cfg.n_iters - 1
         if boundary and seg is not None and iteration >= seg["start"]:
             close_segment(seg, iteration)
@@ -921,7 +1078,10 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
                 history["test_psnr"].append(round(float(np.mean(psnrs_test)), 2))
                 history["mse"].append(round(float(metrics["mse"]), 5))
                 if train_gift is not None:
-                    save_rendered_image_per_train(train_gift, test_gift, handle, iteration,
+                    # rank 0 alone renders the figure: on one rank
+                    save_rendered_image_per_train(train_gift, test_gift,
+                                                  dataclasses.replace(handle, group=None),
+                                                  iteration,
                                                   history, savePath=f"{logfolder}/gif/",
                                                   chunk=cfg.batch_size)
             if seg is not None:
@@ -935,14 +1095,17 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
             if iteration in cfg.upsamp_list:
                 events.append(upsample_event(state, iteration))
                 log(f"[{iteration}] {events[-1]}")
+            # rank 0's rebuilt factors and mask on every rank (tensorf_tpu
+            # loop.py:1345-1347)
+            state.broadcast()
             # every event moves the per-ray counts: re-partition the store
             stratify(iteration)
-            step_fn = make_train_step(state.field, build_statics(state), state.optimizer)
+            step_fn = make_train_step(state.field, build_statics(state), state.optimizer, group)
             aabb = state.aabb
             if iteration < cfg.n_iters - 1:
                 seg = open_segment(iteration + 1)
 
-        if iteration in (cfg.save_ckpt_every or []):
+        if iteration in (cfg.save_ckpt_every or []) and writes:
             _save(state, f"{logfolder}/{iteration // 1000}k_{cfg.expname}.npz", iteration,
                   history, dict(psnrs_window=psnrs_window, psnrs_test=psnrs_test))
 
@@ -950,11 +1113,14 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
     # beaten per rendered image
     watchdog.beat()
     # resumable too: a resume of the finished run goes straight to the renders
-    final_path = _save(state, f"{logfolder}/final_{cfg.expname}.npz", cfg.n_iters - 1, history,
-                       dict(psnrs_window=psnrs_window, psnrs_test=psnrs_test))
+    final_path = f"{logfolder}/final_{cfg.expname}.npz"
+    if writes:
+        _save(state, final_path, cfg.n_iters - 1, history,
+              dict(psnrs_window=psnrs_window, psnrs_test=psnrs_test))
     watchdog.beat()
     elapsed = time.perf_counter() - run_tic
-    np.savetxt(f"{logfolder}/training_time.txt", np.asarray([elapsed]))
+    if writes:
+        np.savetxt(f"{logfolder}/training_time.txt", np.asarray([elapsed]))
     log(f"Total time {elapsed:.2f}s.")
     handle = make_handle(state)
     final_psnrs = _render_after_training(cfg, scene, handle, state.test_ds, logfolder,
@@ -963,7 +1129,14 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
         writer.add_scalar("test/psnr_all", float(np.mean(final_psnrs)), cfg.n_iters)
     eval_overflow[cfg.n_iters] = handle.max_overflow
     watchdog.stop()
-    np.savez(f"{logfolder}/history.npz", **{k: np.asarray(v) for k, v in history.items()})
+    if group is not None:
+        # equal on every rank: the ranks hold the same parameters bit for bit
+        log(f"[port] rank {group.rank} of {group.world}: parameter digest "
+            f"{param_digest(state.field)!r}")
+    if writes:
+        np.savez(f"{logfolder}/history.npz", **{k: np.asarray(v) for k, v in history.items()})
+    # the ranks leave together: a rank's files are written when any returns
+    barrier(group)
     if save_images:
         create_gif(f"{logfolder}/gif/plot/vis_every", f"{logfolder}/gif/training.gif")
     totals = torch.stack(totals).tolist() if totals else []
@@ -1109,6 +1282,9 @@ def train_steps(
     brackets steps with it).
     """
     device = resolve_device(device)
+    if cfg.distributed or len(rank_devices(cfg.n_devices, device)) > 1:
+        raise ValueError("train_steps runs on one device: set n_devices 1 and distributed 0, or "
+                         "use reconstruction")
     end = first_segment_end(cfg)
     if n_steps > end:
         raise ValueError(

@@ -5,7 +5,9 @@ tensorf_tpu/train/sampler.py, driven by torch.Generators).
 count-partitioned ray store (render/culling.py::stratify_rays); with
 quotas proportional to stratum sizes every ray keeps about the per-step
 inclusion probability of uniform sampling, while each sub-batch renders at
-its own sample budget.  Multi-host id pools are not ported.
+its own sample budget.  On a distributed run each rank draws only from
+its id pool (``pool``, parallel/mesh.py::host_ray_pool) and its slice of
+the global stratum plan (``localize_strata``).
 
 ``get_state``/``set_state`` carry a sampler across a resume: a json-able
 meta (sizes, cursor) and arrays (the generator state, the permutation
@@ -26,20 +28,34 @@ class SimpleSampler:
     """Random-permutation batch sampler over a flat ray store.
 
     Draws the permutations on the CPU from a seeded generator, so the id
-    stream is the same on every device.
+    stream is the same on every device.  ``pool`` (optional): draw from this
+    array of store ids instead of ``range(total)`` — a distributed run keeps
+    the store whole on every rank and gives each rank a disjoint id pool
+    (parallel/mesh.py::host_ray_pool).
     """
 
-    def __init__(self, total: int, batch: int, seed: int = 20211202):
+    def __init__(self, total: int, batch: int, seed: int = 20211202, pool=None):
+        if pool is not None:
+            pool = torch.as_tensor(np.asarray(pool, np.int64))
+            total = int(pool.numel())
         if total <= 0:
-            raise ValueError(f"SimpleSampler: empty ray store (total={total})")
+            # on a distributed run an empty pool would otherwise surface as a
+            # hang at the other ranks' next collective
+            raise ValueError(f"SimpleSampler: empty ray store (total={total}); on a "
+                             "distributed run this means this rank's id pool is empty")
         self.total = total
         self.batch = batch
         self.curr = total
         self.ids = None
+        self.pool = pool
         self._gen = torch.Generator().manual_seed(int(seed))
 
     def nextids(self) -> torch.Tensor:
         """The next (batch,) int64 CPU tensor of store ids."""
+        out = self._next_positions()
+        return out if self.pool is None else self.pool[out]
+
+    def _next_positions(self) -> torch.Tensor:
         if self.batch > self.total:
             # a store smaller than the batch: tile fresh permutations so the
             # batch shape stays fixed
@@ -62,6 +78,8 @@ class SimpleSampler:
         arrays = {"rng": self._gen.get_state().numpy()}
         if self.ids is not None:
             arrays["ids"] = self.ids.numpy()
+        if self.pool is not None:
+            arrays["pool"] = self.pool.numpy()
         return meta, arrays
 
     def set_state(self, meta: dict, arrays: Dict[str, np.ndarray]) -> None:
@@ -73,6 +91,8 @@ class SimpleSampler:
         self._gen.set_state(torch.from_numpy(np.array(arrays["rng"], np.uint8)))
         self.curr = int(meta["curr"])
         self.ids = torch.from_numpy(np.array(arrays["ids"], np.int64)) if meta["has_ids"] else None
+        if "pool" in arrays:
+            self.pool = torch.from_numpy(np.array(arrays["pool"], np.int64))
 
 
 def allocate_quotas(
@@ -125,6 +145,33 @@ def allocate_quotas(
     return quotas
 
 
+def localize_strata(
+    strata: Sequence[np.ndarray],
+    counts: np.ndarray,
+    pool: np.ndarray,
+    fallback_max: int,
+) -> List[np.ndarray]:
+    """Per-rank slice of a GLOBAL stratum plan (distributed layout; a copy
+    of tensorf_tpu/train/sampler.py::localize_strata).
+
+    Every rank computes the same ``strata`` over the identical full store;
+    rank r then draws only from ``pool`` (its disjoint id subset).  A
+    stratum whose pool slice is empty borrows lower-count pool rays (they
+    fit the stratum budget exactly); the whole pool only as a last resort.
+    """
+    in_pool = np.zeros(counts.size, bool)
+    in_pool[pool] = True
+    out = []
+    for sel in strata:
+        loc = sel[in_pool[sel]]
+        if loc.size == 0:
+            bound = int(counts[sel].max()) if sel.size else int(fallback_max)
+            cand = pool[counts[pool] <= bound]
+            loc = cand if cand.size else pool
+        out.append(loc)
+    return out
+
+
 class StratifiedSampler:
     """Fixed per-stratum quota sampler over a partitioned ray store.
 
@@ -162,6 +209,6 @@ class StratifiedSampler:
         n = len(meta["samplers"])
         smp = cls([arrays[f"strata/{i}"] for i in range(n)], meta["quotas"])
         for i, (sub, m) in enumerate(zip(smp.samplers, meta["samplers"])):
-            sub.set_state(m, {k: arrays[f"{k}/{i}"] for k in ("rng", "ids")
+            sub.set_state(m, {k: arrays[f"{k}/{i}"] for k in ("rng", "ids", "pool")
                               if f"{k}/{i}" in arrays})
         return smp

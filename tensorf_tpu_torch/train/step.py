@@ -16,6 +16,16 @@ lattice; the per-stratum losses combine by the strata's shares of the
 store (or, noise-matched, by a multinomial draw around them), so the
 estimator stays the store-uniform one while each ray pays about its own
 candidate count.
+
+On several ranks (``group``, parallel/mesh.py) each rank renders its share
+of the global batch: it draws the global batch's noise and takes its block,
+normalises the data terms by the global counts (the MSE by the global
+batch, the occlusion term by the occlusion mask's sum over every rank) and
+takes 1/W of each parameter regularizer, so the ranks' losses sum to the
+one-rank loss.  ``make_train_step`` then sums the gradients over the ranks
+in one all-reduce between ``backward`` and the Adam step, and the step's
+metrics ride in the same buffer, so every rank reads the global mse, psnr,
+overflow and sample counts.
 """
 
 from __future__ import annotations
@@ -27,8 +37,9 @@ import torch
 from ..models.alpha_mask import AlphaGridMask
 from ..models.config import ModelConfig
 from ..ops.freq_mask import FreeMasks, free_masks
+from ..parallel.mesh import RankGroup, allreduce_grads, shard_rows
 from ..render.volume import render_rays
-from .losses import LossWeights, mse_loss, occlusion_loss
+from .losses import LossWeights, mse_loss, occlusion_loss, occlusion_mask
 
 
 class TrainStatics(NamedTuple):
@@ -139,6 +150,24 @@ def _build_masks(cfg: ModelConfig, statics: TrainStatics, step: int, device) -> 
     )
 
 
+def _occlusion_denoms(sigmas, rgbs, lw: LossWeights, group: Optional[RankGroup]):
+    """Each render's occlusion-mask sum over every rank: without the
+    white/black prior the mask is the same window on every ray, so the
+    global sum is W times the local one; with it the window follows each
+    ray's ground truth, and the sums are all-reduced (they carry no
+    gradient)."""
+    import torch.distributed as dist
+
+    local = torch.stack([
+        torch.sum(occlusion_mask(sg, rg, lw.occ_range, lw.occ_wb_range, lw.occ_wb_prior))
+        for sg, rg in zip(sigmas, rgbs)]).detach()
+    if not (lw.occ_wb_prior and lw.occ_wb_range > 0):
+        return list(local * group.world)
+    flat = local.to(group.device) if group.backend == "nccl" else local
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    return list(flat.to(local.device))
+
+
 def loss_fn(
     field,
     statics: TrainStatics,
@@ -150,6 +179,7 @@ def loss_fn(
     flip,
     alpha_mask: Optional[AlphaGridMask] = None,
     shares: Optional[torch.Tensor] = None,
+    group: Optional[RankGroup] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and its parts for one batch at iteration ``step``.
 
@@ -157,10 +187,15 @@ def loss_fn(
     ``flip`` are sequences with one entry per stratum, and ``shares`` (S,)
     are the per-step loss weights of a noise-matched step (None: the fixed
     ones of strata_loss_shares).  With ``statics.ndc_ray``, ``u`` is the
-    per-sample jitter (B, n_samples); NDC rays are never stratified."""
+    per-sample jitter (B, n_samples); NDC rays are never stratified.  With
+    ``group`` on W > 1 ranks, the rays are this rank's block of a global
+    batch W times their number, and the loss is this rank's share of the
+    global loss (the parameter regularizers' metrics keep their whole
+    value)."""
     cfg = field.cfg
     lw = statics.weights
     occ_on = lw.occ > 0 and lw.occ_range > 0
+    world = group.world if group is not None else 1
 
     def render(rays_b, u_b, flip_b, **budget):
         return render_rays(
@@ -180,6 +215,10 @@ def loss_fn(
             **budget,
         )
 
+    def mse_of(out, target):
+        # a rank's share: its squared errors over the global batch's values
+        return mse_loss(out.rgb, target, None if world == 1 else target.numel() * world)
+
     if statics.strata_budgets is not None:
         if statics.ndc_ray:
             raise ValueError("NDC rays are not stratified")
@@ -190,22 +229,25 @@ def loss_fn(
         lattices = statics.strata_n_samples or (statics.n_samples,) * S
         assert len(alive_budgets) == len(lattices) == S
         sizes = [int(r.shape[0]) for r in rays]
-        loss_w = shares if shares is not None else strata_loss_shares(statics, sizes)
+        loss_w = (shares if shares is not None
+                  else strata_loss_shares(statics, [n * world for n in sizes]))
+        outs = [render(rays[s], u[s], flip[s], n_samples=lattices[s],
+                       sample_budget=statics.strata_budgets[s], budget_mode="cand",
+                       alive_budget=alive_budgets[s]) for s in range(S)]
+        denoms = (_occlusion_denoms([o.sigma for o in outs], rgbs, lw, group)
+                  if occ_on and world > 1 else [None] * S)
         mse = occ = mean_alive = 0.0
         num_valid = 0
         overflow_each = []
-        for s in range(S):
-            out = render(rays[s], u[s], flip[s], n_samples=lattices[s],
-                         sample_budget=statics.strata_budgets[s], budget_mode="cand",
-                         alive_budget=alive_budgets[s])
+        for s, out in enumerate(outs):
             w = loss_w[s]
-            mse = mse + w * mse_loss(out.rgb, rgbs[s])
+            mse = mse + w * mse_of(out, rgbs[s])
             mean_alive = mean_alive + w * out.mean_alive_samples
             num_valid = num_valid + out.num_valid_samples
             overflow_each.append(out.budget_overflow_frac)
             if occ_on:
                 occ = occ + w * occlusion_loss(out.sigma, rgbs[s], lw.occ_range,
-                                               lw.occ_wb_range, lw.occ_wb_prior)
+                                               lw.occ_wb_range, lw.occ_wb_prior, denoms[s])
         batch = float(sum(sizes))
         metrics = {
             "mse": mse,
@@ -218,7 +260,7 @@ def loss_fn(
         masks = _build_masks(cfg, statics, step, rays.device)
         out = render(rays, u, flip, n_samples=statics.n_samples,
                      sample_budget=statics.sample_budget, budget_mode="alive")
-        mse = mse_loss(out.rgb, rgbs)
+        mse = mse_of(out, rgbs)
         metrics = {
             "mse": mse,
             "num_valid_samples": out.num_valid_samples,
@@ -226,30 +268,34 @@ def loss_fn(
             "mean_alive_samples": out.mean_alive_samples,
         }
         if occ_on:
-            occ = occlusion_loss(out.sigma, rgbs, lw.occ_range, lw.occ_wb_range, lw.occ_wb_prior)
+            denom = (_occlusion_denoms([out.sigma], [rgbs], lw, group)[0] if world > 1
+                     else None)
+            occ = occlusion_loss(out.sigma, rgbs, lw.occ_range, lw.occ_wb_range, lw.occ_wb_prior,
+                                 denom)
     total = mse
     if occ_on:
         total = total + lw.occ * occ
         metrics["reg_occ"] = occ
 
     # TV weights decay by lr_factor each step; step t uses w0 * factor^(t+1).
+    # Each of W ranks adds 1/W of a parameter regularizer.
     tv_decay = float(torch.pow(torch.tensor(statics.lr_factor, dtype=torch.float32),
                                torch.tensor(step + 1.0, dtype=torch.float32)))
     if lw.ortho > 0 and getattr(field, "has_ortho", False):
         reg = field.ortho_reg()
-        total = total + lw.ortho * reg
+        total = total + lw.ortho * reg / world
         metrics["reg_ortho"] = reg
     if lw.l1 > 0:
         reg = field.density_l1()
-        total = total + lw.l1 * reg
+        total = total + lw.l1 * reg / world
         metrics["reg_l1"] = reg
     if lw.tv_density > 0:
         reg = field.tv_density() * lw.tv_density * tv_decay
-        total = total + reg
+        total = total + reg / world
         metrics["reg_tv_density"] = reg
     if lw.tv_app > 0:
         reg = field.tv_app() * lw.tv_app * tv_decay
-        total = total + reg
+        total = total + reg / world
         metrics["reg_tv_app"] = reg
     return total, metrics
 
@@ -280,35 +326,71 @@ def draw_strata_noise(
     return torch.split(u, list(sizes)), tuple(flip), shares
 
 
-def make_train_step(field, statics: TrainStatics, optimizer):
+# the step metrics that are sums over the ranks' rays (each rank holds its
+# share) and those that are means over them (each rank holds its own)
+_SUMMED = ("mse", "total_loss", "reg_occ", "num_valid_samples")
+_AVERAGED = ("stratum_overflow", "budget_overflow_frac", "mean_alive_samples")
+
+
+def _reduce_metrics(field, metrics: Dict[str, torch.Tensor], group: RankGroup):
+    """All-reduce the gradients with the metrics riding in the same buffer;
+    the summed metrics come back as global sums, the averaged ones as the
+    mean over the ranks (every rank holds as many rays)."""
+    keys = [k for k in _SUMMED + _AVERAGED if k in metrics]
+    parts = [metrics[k].reshape(-1).to(torch.float32) for k in keys]
+    reduced = allreduce_grads(list(field.parameters()), group, torch.cat(parts))
+    offset = 0
+    for k, part in zip(keys, parts):
+        v = reduced[offset:offset + part.numel()].view_as(metrics[k]).to(metrics[k].dtype)
+        metrics[k] = v / group.world if k in _AVERAGED else v
+        offset += part.numel()
+    return metrics
+
+
+def make_train_step(field, statics: TrainStatics, optimizer, group: Optional[RankGroup] = None):
     """Returns ``step_fn(aabb, rays, rgbs, step, generator, alpha_mask=None,
-    ids=None) -> metrics``, which updates ``field`` in place through
+    ids=None, noise=None) -> metrics``, which updates ``field`` in place through
     ``optimizer``.  With ``ids`` given, ``rays`` and ``rgbs`` are the
     device-resident store and the batch is gathered from it on the device:
     ``ids`` is one id tensor, or with strata a sequence of one per
-    stratum."""
+    stratum.  With ``group`` on W > 1 ranks the ids (or rays) are this
+    rank's block of the global batch, the gradients are summed over the
+    ranks before the Adam step, and the metrics are the global ones.
+    ``noise`` replaces the generator's draws with given ones, those of the
+    whole (global) batch: ``(u, flip)``, or with strata ``(u per stratum,
+    flip per stratum, shares or None)`` — the tests feed JAX's."""
+    multi = group is not None
+    world = group.world if multi else 1
 
-    def step_fn(aabb, rays, rgbs, step: int, generator: torch.Generator, alpha_mask=None,
-                ids=None):
+    def step_fn(aabb, rays, rgbs, step: int, generator: Optional[torch.Generator],
+                alpha_mask=None, ids=None, noise=None):
         shares = None
         if statics.strata_budgets is not None:
             sizes = [int(i.shape[0]) for i in ids]
             idx = torch.cat(list(ids))
             rays, rgbs = torch.split(rays[idx], sizes), torch.split(rgbs[idx], sizes)
-            u, flip, shares = draw_strata_noise(generator, statics, sizes, aabb.device)
+            # the global batch's draws, of which this rank takes its blocks
+            u, flip, shares = noise or draw_strata_noise(
+                generator, statics, [n * world for n in sizes], aabb.device)
+            if multi:
+                u = tuple(shard_rows(us, group.rank, world) for us in u)
         else:
             if ids is not None:
                 rays, rgbs = rays[ids], rgbs[ids]
-            u, flip = draw_noise(generator, rays.shape[0], rays.device,
-                                 statics.n_samples if statics.ndc_ray else 1)
+            u, flip = noise or draw_noise(generator, rays.shape[0] * world, rays.device,
+                                          statics.n_samples if statics.ndc_ray else 1)
+            if multi:
+                u = shard_rows(u, group.rank, world)
         optimizer.zero_grad()
         total, metrics = loss_fn(field, statics, aabb, rays, rgbs, step, u, flip, alpha_mask,
-                                 shares)
+                                 shares, group)
         total.backward()
-        optimizer.step()
         # detached, so a kept metric holds no graph (nor the parameters)
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
+        if multi:
+            metrics = _reduce_metrics(field, metrics, group)
+        optimizer.step()
         metrics["psnr"] = -10.0 * torch.log10(metrics["mse"])
         return metrics
 

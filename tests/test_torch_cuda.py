@@ -596,3 +596,53 @@ def test_resume_on_the_card(tmp_path):
     assert np.isfinite(np.mean(res.final_psnrs))
     hist = np.load(os.path.join(os.path.dirname(res.final_path), "history.npz"))
     assert list(hist["iteration"]) == [10, 20, 30, 40]
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_one_rank():
+    """One stratified TensorVMSplit step on two gloo ranks sharing the card
+    (each launching the kernel on its half of every scatter's rows) against
+    the same step on one rank, from an Adam state in progress (second
+    moments 1e-6: the update is smooth in the gradient)."""
+    _need_gpu()
+    from tensorf_tpu_torch.models import ModelConfig, TensorVMSplit
+    from tensorf_tpu_torch.parallel import parity, spawn
+    from tensorf_tpu_torch.train.losses import LossWeights
+    from tensorf_tpu_torch.train.step import TrainStatics
+
+    cfg = ModelConfig(model_name="TensorVMSplit", density_n_comp=(4, 4, 4),
+                      app_n_comp=(6, 6, 6), app_dim=9, shading_mode="MLP_Fea", pos_pe=2,
+                      view_pe=2, fea_pe=2, feature_c=32, density_shift=-3.0)
+    field = TensorVMSplit(cfg, (32, 32, 32), "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    o = rng.normal(size=(4096, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True) + 0.1 * rng.normal(size=(4096, 3))
+    aabb = np.asarray([[-1.5] * 3, [1.5] * 3], np.float32)
+    case = dict(
+        model_cfg=cfg, grid=(32, 32, 32),
+        params={k: v.numpy() for k, v in field.state_dict().items()}, aabb=aabb,
+        mask=(aabb, (rng.uniform(size=(32, 32, 32)) < 0.35).astype(np.float32)),
+        statics=TrainStatics(
+            n_samples=256, step_size=0.02, white_bg=True, ndc_ray=False, total_steps=100,
+            lr_factor=0.999, free_reg=True, free_decomp=True, freq_reg_ratio=0.8,
+            shade_top_k=32, strata_budgets=(64, 160, None), strata_n_samples=(128, 256, 256),
+            strata_loss_weights=(0.5, 0.3, 0.2), strata_noise_match=True,
+            weights=LossWeights(ortho=0.01, l1=8e-5, tv_density=0.01, tv_app=0.01, occ=0.1,
+                                occ_range=5, occ_wb_range=12, occ_wb_prior=True)),
+        lr=(0.02, 1e-3, 1.0), opt_leaves=parity.adam_in_progress(field),
+        rays=np.concatenate([o, d], -1).astype(np.float32),
+        rgbs=rng.uniform(size=(4096, 3)).astype(np.float32),
+        ids=tuple(rng.choice(4096, size=n, replace=False).astype(np.int32)
+                  for n in (1024, 512, 256)),
+        step=3, seed=11)
+    want = parity.one_step(None, "cuda:0", case)
+    got = spawn(parity.one_step, (case,), ["cuda:0", "cuda:0"], timeout_s=600.0,
+                collective_timeout_s=300.0)
+    assert want["launches"] > 0
+    for res in got:
+        assert res["launches"] == want["launches"]
+        assert sum(res["rows"]) * 2 == sum(want["rows"])
+        for k, v in want["params"].items():
+            np.testing.assert_allclose(res["params"][k], v, rtol=1e-5, atol=1e-6, err_msg=k)
+    assert got[0]["checksum"] == got[1]["checksum"]

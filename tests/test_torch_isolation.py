@@ -28,6 +28,8 @@ def test_port_imports_with_jax_blocked():
         "from tensorf_tpu_torch import profile_step, seed_spread\n"
         "from tensorf_tpu_torch.data import colmap2nerf, human, io, llff, nsvf, synthetic\n"
         "from tensorf_tpu_torch.data import tankstemple, your_own_data\n"
+        "from tensorf_tpu_torch import parallel\n"
+        "from tensorf_tpu_torch.parallel import launch, mesh, parity\n"
         "assert not {'imageio', 'PIL', 'matplotlib', 'tensorboardX'} & set(sys.modules)\n"
         "bad = [m for m, mod in sys.modules.items()"
         " if mod is not None and m.split('.')[0] in ('jax', 'tensorf_tpu')]\n"

@@ -252,6 +252,28 @@ def test_resume_is_bit_exact(tmp_path):
         np.testing.assert_array_equal(ha[k], hb[k])
 
 
+def test_resume_of_a_copied_logfolder_is_bit_exact(tmp_path, monkeypatch):
+    """chip_smoke's resume phase: a copy of the running run's logfolder
+    after step 31 (``resume_snapshot``) is what a kill there leaves, and
+    resuming the copy ends in that run's state exactly."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "RESUME_KILL", 31)
+    scene = scene_arrays()
+    cfg = port_cfg(tmp_path, n_iters=45, train_vis_every=10)
+    copy = str(tmp_path / "copy")
+    clean = run(cfg, scene, log=lambda m: None, on_step=chip_smoke.resume_snapshot(cfg, copy))
+    logs = []
+    resumed = run(dataclasses.replace(cfg, basedir=copy, resume=1), scene, log=logs.append)
+    assert any("continuing at iteration 31" in line for line in logs)
+    assert any("sampling state restored (stratified)" in line for line in logs)
+    assert clean.total_loss[31:] == resumed.total_loss
+    for (name, p), (_, q) in zip(clean.state.field.named_parameters(),
+                                 resumed.state.field.named_parameters()):
+        assert torch.equal(p, q), name
+    assert torch.equal(clean.state.alpha_mask.volume, resumed.state.alpha_mask.volume)
+
+
 # ---- crossing between the packages ---------------------------------------------
 
 def _jax_run(tmp_path, **over):
