@@ -9,7 +9,12 @@ each prints its seconds):
   1. build every kernel of the path from the checkout's sources with nvcc
      (sm_90a), all at once;
   2. kernel phase: each kernel against its plain version on the card, at the
-     shapes the main path gives it plus edge cases, with its times;
+     shapes the main path gives it plus edge cases, with its times; the
+     bf16 entry point on the same values in bf16 (the main path's shapes,
+     ragged_M, odd_C, one_row) and on its own branches (C = 12, rows 8
+     bytes off a 16-byte boundary), each bf16 case timed in turns with the
+     float32 entry point on the same values widened (vs_f32) and beside its
+     bound (share);
   3. step parity: one synth_full train step with the kernels and one with
      the plain versions, same params, batch and jitter; gradients must agree;
   4. main path: ``reconstruction`` of configs/synth_full.txt as written
@@ -204,6 +209,11 @@ FIRST_SEGMENT = 200
 UNSTRATIFIED_LAUNCHES_PER_STEP = 6
 # the synthetic cases of the main path's shapes; the real streams join them
 SYNTHETIC_MAIN_SHAPES = ("density_128", "appearance_128", "density_300", "appearance_300")
+# the synthetic cases that also run in bf16 (the same values): the main
+# path's shapes, then the bf16 entry point's other branches (ragged M, one
+# channel a thread, a hot row); bf16_branch_streams adds C = 12 and a g 8
+# bytes off a 16-byte boundary
+BF16_SYNTHETIC = SYNTHETIC_MAIN_SHAPES + ("ragged_M", "odd_C", "one_row")
 # the JAX package's drive of synth_sphere is held to >= 30 dB (its verify
 # notes); one run's PSNR spreads across that bar with the seed (29.59-32.50
 # dB for JAX's CPU drive, 27.79-31.90 for the port's) and, on the card,
@@ -282,7 +292,8 @@ DP_NCCL_STEPS = 20
 DP_TIMEOUT_S = 900.0
 DP_COLLECTIVE_TIMEOUT_S = 600.0
 # the keys of each kernel case in the kernels line
-CASE_KEYS = ("case", "M", "dtype", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
+CASE_KEYS = ("case", "M", "dtype", "kernel_ms", "plain_ms", "bound_ms", "library_ms", "share",
+             "vs_f32")
 # scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
 STREAM_KINDS = {64: "density", 192: "appearance", 256: "fused"}
 # flower's fused step (ranks [16,4,4]/[48,12,12] packed per axis): the plane
@@ -364,7 +375,10 @@ def stream_stats(torch, idx, tile=64):
 def kernel_case(torch, name, idx, g, n_rows):
     """scatter_add against scatter_add_reference on one (idx, g), float32
     or bf16 (the bf16 entry point), with its times, its bound and its index
-    stream's run structure."""
+    stream's run structure.  A bf16 case also times the float32 entry point
+    on the same values widened, in turns with its own (bf16, float32,
+    float32, bf16), and reports ``vs_f32``, its mean time over that one's;
+    ``share`` is the bound over the kernel's time."""
     from tensorf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_reference
 
     idx, g = idx.cuda(), g.cuda()
@@ -381,10 +395,18 @@ def kernel_case(torch, name, idx, g, n_rows):
     del got, want, abs_sum
     lib_out = torch.zeros((n_rows, C), device=dev)
     # index_add_ takes a source of its table's dtype: a bf16 g widened once,
-    # outside the timed call
+    # outside the timed call (the float32 entry point's input too)
     lib_g = g.float()
     reps = 10 if M * C > 50_000_000 else 30
-    kernel_ms = time_ms(torch, lambda: scatter_add(idx, g, n_rows), reps)
+    f32_ms = None
+    if g.dtype == torch.bfloat16:
+        turns = [time_ms(torch, lambda: scatter_add(idx, g, n_rows), reps),
+                 time_ms(torch, lambda: scatter_add(idx, lib_g, n_rows), reps),
+                 time_ms(torch, lambda: scatter_add(idx, lib_g, n_rows), reps),
+                 time_ms(torch, lambda: scatter_add(idx, g, n_rows), reps)]
+        kernel_ms, f32_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    else:
+        kernel_ms = time_ms(torch, lambda: scatter_add(idx, g, n_rows), reps)
     plain_ms = time_ms(torch, lambda: scatter_add_reference(idx, g, n_rows), reps)
     library_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, lib_g), reps)
     del lib_out, lib_g
@@ -392,15 +414,17 @@ def kernel_case(torch, name, idx, g, n_rows):
     nbytes = M * C * g.element_size() + M * 4 + n_rows * C * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = M * C / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     mean_run, distinct64 = stream_stats(torch, idx)
     row = dict(
         case=name, M=M, n_rows=n_rows, C=C, dtype=str(g.dtype).replace("torch.", ""),
         max_abs_err=err, tol=tol,
         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        mean_run=mean_run, distinct_per_64=distinct64,
+        bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        share=bound_ms / kernel_ms, mean_run=mean_run, distinct_per_64=distinct64,
     )
+    if f32_ms is not None:
+        row.update(f32_ms=f32_ms, vs_f32=kernel_ms / f32_ms)
     print("kernel_case " + json.dumps(row), flush=True)
     check(err <= tol, f"scatter_add {name}: max |kernel - plain| {err} > {tol}")
     return row
@@ -442,6 +466,23 @@ def synthetic_streams(torch, dev, rays):
             idx = torch.randint(0, n_rows, (M,), generator=gen, device=dev, dtype=torch.int32)
         check(idx.shape[0] == M, f"{name}: index stream has {idx.shape[0]} rows, want {M}")
         yield name, idx, torch.randn((M, C), generator=gen, device=dev), n_rows
+
+
+def bf16_branch_streams(torch, dev):
+    """(name, idx, g, n_rows) of the bf16 entry point's branches that no
+    float32 case has: four-channel columns at C = 12, and a g whose rows
+    start 8 bytes off a 16-byte boundary (8-byte loads, four channels)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    M = 262_144
+    idx = torch.randint(0, 128 * 128, (M,), generator=gen, device=dev, dtype=torch.int32)
+    yield "C12_bf16", idx, torch.randn((M, 12), generator=gen, device=dev).to(torch.bfloat16), \
+        128 * 128
+    M = 1_000_003
+    flat = torch.randn((M * 64 + 4,), generator=gen, device=dev).to(torch.bfloat16)
+    g = flat[4:].view(M, 64)
+    check(g.is_contiguous() and g.data_ptr() % 16 == 8, "unaligned8_bf16: g is not 8 bytes off")
+    idx = torch.randint(0, 128 * 128, (M,), generator=gen, device=dev, dtype=torch.int32)
+    yield "unaligned8_bf16", idx, g, 128 * 128
 
 
 def step_inputs(torch, dev, cfg, scene, grid):
@@ -2040,9 +2081,12 @@ def run_paths(torch, np, kernels, workdir) -> None:
     cases, bf16_synthetic = [], []
     for name, idx, g, n_rows in synthetic_streams(torch, dev, kernel_rays(torch, dev, scene)):
         cases.append(kernel_case(torch, name, idx, g, n_rows))
-        if name in SYNTHETIC_MAIN_SHAPES:  # the same values in bf16: the bf16 entry point
+        if name in BF16_SYNTHETIC:  # the same values in bf16: the bf16 entry point
             bf16_synthetic.append(kernel_case(torch, f"{name}_bf16", idx, g.to(torch.bfloat16),
                                               n_rows))
+        del idx, g
+    for name, idx, g, n_rows in bf16_branch_streams(torch, dev):
+        bf16_synthetic.append(kernel_case(torch, name, idx, g, n_rows))
         del idx, g
     torch.cuda.empty_cache()
     phase_done("kernels", t0)
@@ -2227,7 +2271,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
             "max_abs_err": max(c["max_abs_err"] for c in own),
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": [{k: c[k] for k in CASE_KEYS} for c in shapes],
+            "shapes": [{k: c[k] for k in CASE_KEYS if k in c} for c in shapes],
         }
 
     line = {"kernels": [
@@ -2235,9 +2279,9 @@ def run_paths(torch, np, kernels, workdir) -> None:
              # each path's launches, its counts set to 0 just before it;
              # TensorCP (lego_path) gathers no plane, so none
              launches_by_path=by_path,
-             tensorvm_shapes=[{k: c[k] for k in CASE_KEYS} for c in vm_cases],
+             tensorvm_shapes=[{k: c[k] for k in CASE_KEYS if k in c} for c in vm_cases],
              # flower's last segment: the packed plane and the line footprint tables
-             flower_shapes=[{k: c[k] for k in CASE_KEYS} for c in flower_cases]),
+             flower_shapes=[{k: c[k] for k in CASE_KEYS if k in c} for c in flower_cases]),
         dict(entry("scatter_add_bf16", bf16_launches["scatter_add_bf16"], bf16_head, bf16_cases,
                    bf16_only),
              launches_by_path={"main_path": main_launches["scatter_add_bf16"],

@@ -48,12 +48,8 @@
 //    compute capability 9.x): one 16-byte L2 operation where the scalar
 //    version issues four.  Otherwise a scalar path does the same with one
 //    channel per thread.
-//  * bf16 widened on load.  The bf16 entry point runs the same kernel with
-//    another source type: a column is eight channels, read as one 16-byte
-//    load of eight bf16 and widened to two float4 (a bf16 is the upper half
-//    of the fp32 of the same value, so widening is a shift), summed and
-//    reduced in fp32 as two float4 atomics; where C % 8 != 0 or g is not
-//    16-byte aligned, one channel (a 2-byte load) per thread.
+//  * bf16 widened on load.  The bf16 entry point runs the same kernel on
+//    another source type; see "The bf16 entry point" below.
 //  * Streamed loads, several in flight.  g is read with 16-byte (or 4-byte)
 //    streaming loads (__ldcs, evict-first), so the output table (4 MB at
 //    128^3 for density) stays in the 50 MB L2 while the much larger g
@@ -74,6 +70,60 @@
 //    have finished.  It lets the scatter after it start at once (a
 //    programmatic dependent launch): the scatter loads and sorts, and waits
 //    for the fill only before its first reduction.
+//
+// The bf16 entry point.  Each choice below is a reading of `python3
+// chip_dev.py scatter` on an NVIDIA H100 80GB HBM3 at its 700 W power
+// limit, which times this entry point in turns beside the float32 one on
+// the same values widened (ms a call, back to back; streams as
+// chip_smoke.py's kernel cases; the designs that were dropped were built
+// as extra entry points of this file and timed the same way).
+//  * Four channels a thread.  A column is four bf16, read as one 8-byte
+//    streamed load (__ldcs of a uint2) and widened to a float4 (a bf16 is
+//    the upper half of the fp32 of the same value, so widening is a
+//    shift), summed in fp32 and sent as one float4 reduction: the float32
+//    entry point's threads, segments and reductions at half its load
+//    bytes.  The count of L2 reductions does not depend on g's type (one
+//    per four channels per run), and where every row is its own run, as in
+//    the appearance streams, they and not the bytes bound the kernel.  The
+//    design this replaced, eight channels a thread (one 16-byte load, two
+//    float4 reductions a flush, half the threads), read 0.1624 ms on
+//    density_128 (1,814,528 x 64) and 0.1538 on appearance_128 (262,144 x
+//    192) against 0.1181 and 0.1006 at four channels; 0.3991 against 0.0894
+//    on one_row, where its two reductions a flush hit one address.
+//  * The float32 kernel itself (launch<float4, Bf16x4>): segments counted
+//    in the same four-channel columns, so the launch picks the segment
+//    length the float32 one would, and 64-row tiles rank-sorted where their
+//    runs average under two rows.  Two additions were tried and dropped.
+//    A block-wide bitonic sort of windows of up to 2048 rows finds
+//    duplicates across a whole window (on the bf16 path's largest
+//    appearance stream, 83,456 x 192, it cut the reductions from 2.66 M to
+//    2.10 M) and won on no stream but the hot row in both calls that
+//    timed it (0.0315 ms against 0.0307 on that stream, 0.1504 against
+//    0.1262 on 1,000,003 uniform rows at C = 64): its barrier stages cost
+//    more than the reductions it saves.  A merge of the groups' last runs
+//    in shared memory (each hot-row block then sends one reduction a
+//    column, not one a segment) read 0.0290 against 0.0894 on one_row, but
+//    on the streams of the main path and of the bf16 path it differed from
+//    this kernel by 6% at most and in no steady direction over two calls
+//    (density_128 0.1216 against 0.1181, the appearance stratum 0.0290
+//    against 0.0307, then 0.0267 against 0.0263), and those streams show
+//    no hot rows (mean run 2.26 and 1.09 on the bf16 path's strata).
+//  * One channel a thread (2-byte loads) where C % 4 != 0 or g is not
+//    8-byte aligned.
+//  * The fill is kept as it is: on a 83,456 x 192 call the fill grid takes
+//    4.2 us and the scatter grid ~23 us of device time (torch.profiler),
+//    while the host enqueues a call in 15-30 us, so back-to-back calls
+//    (~26 us) wait on the device, and the fill runs under the scatter's
+//    loads.
+// Readings of this entry point, ms (float32 entry point on the same
+// values; share of the bound: g at 2 bytes a value, idx and the output
+// once, over 3.35 TB/s): density_128 0.1185 (0.1806; 61%), density_300
+// (4,255,744 x 64) 0.2646 (0.4290; 66%), appearance_128 0.1009 (0.1205;
+// 34%), appearance_300 (262,144 x 192 into 90,000 rows) 0.1783 (0.2025;
+// 29%), the bf16 path's largest strata 0.0269 (0.0347; 50%, appearance)
+// and 0.0296 (0.0387; 49%, density 333,824 x 64).  Where a call's bound is
+// a few microseconds (C = 12, odd C) its fixed cost and its reductions set
+// the time, and it is no faster than the float32 entry point.
 // Offsets are 64-bit.  A row whose index lies outside [0, n_rows) is
 // dropped, never written: callers pass clipped indices, and the guard only
 // keeps a bad index from corrupting memory.  Atomics sum in no fixed
@@ -109,16 +159,13 @@ __device__ __forceinline__ void allow_dependent_launch() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
-// The bf16 entry point's source columns: eight bf16 channels (16 bytes),
-// or one; and the fp32 accumulator of eight channels.
-struct Bf16x8 {
-  uint4 bits;
+// The bf16 entry point's source columns: four bf16 channels (8 bytes), or
+// one.
+struct Bf16x4 {
+  uint2 bits;
 };
 struct Bf16 {
   unsigned short bits;
-};
-struct Float8 {
-  float4 lo, hi;
 };
 
 // bf16 -> fp32 is exact: the bf16's bits are the fp32's upper half.  A
@@ -130,10 +177,9 @@ __device__ __forceinline__ float bf16_high(uint32_t w) { return __uint_as_float(
 // accumulator type.
 __device__ __forceinline__ float4 load_stream(const float4* p) { return __ldcs(p); }
 __device__ __forceinline__ float load_stream(const float* p) { return __ldcs(p); }
-__device__ __forceinline__ Float8 load_stream(const Bf16x8* p) {
-  const uint4 w = __ldcs(&p->bits);
-  return Float8{make_float4(bf16_low(w.x), bf16_high(w.x), bf16_low(w.y), bf16_high(w.y)),
-                make_float4(bf16_low(w.z), bf16_high(w.z), bf16_low(w.w), bf16_high(w.w))};
+__device__ __forceinline__ float4 load_stream(const Bf16x4* p) {
+  const uint2 w = __ldcs(&p->bits);
+  return make_float4(bf16_low(w.x), bf16_high(w.x), bf16_low(w.y), bf16_high(w.y));
 }
 __device__ __forceinline__ float load_stream(const Bf16* p) {
   return __uint_as_float(static_cast<uint32_t>(__ldcs(&p->bits)) << 16);
@@ -146,18 +192,10 @@ __device__ __forceinline__ void accumulate(float4& acc, const float4& v) {
   acc.w += v.w;
 }
 __device__ __forceinline__ void accumulate(float& acc, float v) { acc += v; }
-__device__ __forceinline__ void accumulate(Float8& acc, const Float8& v) {
-  accumulate(acc.lo, v.lo);
-  accumulate(acc.hi, v.hi);
-}
 
 // One reduction into L2: a float4 is one red.global.add.v4.f32.
 __device__ __forceinline__ void reduce(float4* p, const float4& v) { atomicAdd(p, v); }
 __device__ __forceinline__ void reduce(float* p, float v) { atomicAdd(p, v); }
-__device__ __forceinline__ void reduce(Float8* p, const Float8& v) {
-  atomicAdd(&p->lo, v.lo);
-  atomicAdd(&p->hi, v.hi);
-}
 
 // One thread's run of equal indices: rows are added into `acc` while the
 // index stays `cur`, and the sum goes to out[cur, col] as one reduction
@@ -199,9 +237,9 @@ struct RunSum {
   }
 };
 
-// T is the accumulator of one column: float4 (four channels), Float8
-// (eight) or float (one); S the column as g stores it: T itself for fp32,
-// Bf16x8 or Bf16 for bf16.  A block holds `groups` = blockDim.x /
+// T is the accumulator of one column: float4 (four channels) or float
+// (one); S the column as g stores it: T itself for fp32, Bf16x4 or Bf16
+// for bf16.  A block holds `groups` = blockDim.x /
 // cols_per_block groups; group j owns source rows
 // [s * seg_rows, (s + 1) * seg_rows) of segment s = blockIdx.x * groups + j
 // and walks them one tile of `tile` rows at a time.
@@ -318,6 +356,7 @@ int sm_count() {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 
 // Launches `kernel` on `stream` as a programmatic dependent launch: it may
 // start while the kernel enqueued just before it still runs, and waits for
@@ -411,8 +450,8 @@ extern "C" int tftorch_scatter_add_bf16(const void* idx, const void* g, void* ou
   const int fill = zero_fill(out, n_rows, n_chan, s);
   if (fill != 0) return fill;
   const int32_t* index = static_cast<const int32_t*>(idx);
-  if (n_chan % 8 == 0 && aligned16(g) && aligned16(out)) {
-    return launch<Float8, Bf16x8>(index, g, out, n_src, n_rows, n_chan / 8, s);
+  if (n_chan % 4 == 0 && aligned8(g) && aligned16(out)) {
+    return launch<float4, Bf16x4>(index, g, out, n_src, n_rows, n_chan / 4, s);
   }
   return launch<float, Bf16>(index, g, out, n_src, n_rows, n_chan, s);
 }

@@ -1,10 +1,12 @@
-"""Procedural synthetic scenes, built in memory.
+"""Procedural synthetic scenes, built in memory or written to disk.
 
 ``make_synthetic_scene_arrays`` ray-traces the blender-layout scenes of
 tensorf_tpu/data/synthetic.py analytically and returns, per split, the
 ``transforms_{split}.json`` dict with each frame's uint8 RGBA image
-inlined — the pixels the JAX package's on-disk writer stores as PNGs — so
-BlenderDataset loads it with no files and no PIL.
+inlined, so BlenderDataset loads it with no files and no PIL;
+``make_synthetic_blender_scene`` writes the same scene as a blender
+directory (``transforms_{split}.json`` and RGBA PNGs), as the JAX
+package's writer does.
 ``make_forward_facing_scene`` traces a forward-facing capture in LLFF's
 layout (``poses_bounds`` and images_4-sized images) for LLFFDataset;
 ``write_forward_facing_scene`` writes it as an LLFF directory for a reader
@@ -170,6 +172,38 @@ def make_synthetic_scene_arrays(
         out[split] = {"camera_angle_x": camera_angle_x, "frames": frames}
     return out
 
+
+def make_synthetic_blender_scene(
+    root: str,
+    n_train: int = 12,
+    n_test: int = 4,
+    wh: Tuple[int, int] = (64, 64),
+    camera_angle_x: float = 0.6911,
+    cam_radius: float = 4.0,
+    seed: int = 0,
+    scene: str = "sphere",
+) -> str:
+    """Write ``transforms_{train,test}.json`` and RGBA PNGs of
+    ``make_synthetic_scene_arrays``'s scene under ``root`` (needs PIL):
+    the files the JAX package's writer makes for the same arguments.
+    Returns ``root``."""
+    import json
+    import os
+
+    from PIL import Image
+
+    splits = make_synthetic_scene_arrays(n_train, n_test, wh, camera_angle_x, cam_radius, seed,
+                                         scene)
+    for split, meta in splits.items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for frame in meta["frames"]:
+            Image.fromarray(frame["image"]).save(os.path.join(root, frame["file_path"] + ".png"))
+            frames.append({"file_path": frame["file_path"],
+                           "transform_matrix": frame["transform_matrix"]})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)
+    return root
 
 
 # A forward-facing capture in LLFF's layout: a textured backdrop plane

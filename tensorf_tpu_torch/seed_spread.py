@@ -1,7 +1,7 @@
 """Final test PSNR of one config's whole CPU drive in both packages over
 the same seeds, on the same scene directory.
 
-    python -c "from tensorf_tpu.data.synthetic import make_synthetic_blender_scene as m; \\
+    python -c "from tensorf_tpu_torch.data.synthetic import make_synthetic_blender_scene as m; \\
         m('./data/synth_sphere', n_train=10, n_test=2, wh=(800, 800))"
     python -m tensorf_tpu_torch.seed_spread --config configs/synth_sphere.txt \\
         --datadir ./data/synth_sphere --seeds 20211202,1,2,3,4 --out /tmp/spread.json

@@ -56,9 +56,13 @@ def _stream(kind, M, R, rng):
     """uniform rows; sorted runs of random length 1-40; runs of 200-1000
     rows (each crosses segment and block edges); runs of 1-8 shuffled
     within each 64-row window (duplicates that only a sort brings
-    together); every index on one row."""
+    together); each 512-row stretch drawn from 32 rows (duplicates spread
+    over a whole window); every index on one row."""
     if kind == "uniform":
         return rng.integers(0, R, size=M).astype(np.int32)
+    if kind == "window_dups":
+        base = rng.integers(0, R - 32, size=M // 512 + 1)
+        return (np.repeat(base, 512)[:M] + rng.integers(0, 32, size=M)).astype(np.int32)
     if kind in ("runs", "long_runs", "shuffled"):
         lo, hi = {"runs": (1, 41), "long_runs": (200, 1001), "shuffled": (1, 9)}[kind]
         lengths = rng.integers(lo, hi, size=M)
@@ -182,15 +186,24 @@ def _check_bf16_kernel(idx, g, R, g_d=None):
         ("uniform", 3001, 100, 2056),
         ("uniform", 1, 10, 64),
         ("uniform", 500_003, 16_384, 5),
+        ("window_dups", 300_001, 16_384, 64),
+        ("window_dups", 83_456, 16_384, 192),
+        ("uniform", 83_456, 16_384, 192),
+        ("hot_row", 262_144, 16_384, 192),
+        ("hot_row", 65_537, 1000, 12),
+        ("runs", 1_000_003, 16_384, 64),
+        ("shuffled", 65_537, 1000, 6),
     ],
     ids=["runs_C64", "shuffled_C192", "long_runs_C256", "hot_row_C64", "runs_C5", "runs_C12",
-         "wide_C2056", "M1_C64", "uniform_C5"],
+         "wide_C2056", "M1_C64", "uniform_C5", "window_dups_C64", "window_dups_C192",
+         "stratum_C192", "hot_row_C192", "hot_row_C12", "ragged_M_C64", "shuffled_C6"],
 )
 def test_scatter_add_bf16_kernel_branches(kind, M, R, C):
-    """The bf16 entry point's branches: 8-channel columns (16-byte loads
-    widened to two float4) where C % 8 == 0, one channel a thread
-    otherwise (C 5, 12), rows wider than a block, hot rows, sorted and
-    unsorted tiles, a single row."""
+    """The bf16 entry point's branches: four-channel columns (8-byte loads
+    widened to a float4) where C % 4 == 0 (C 12 among them), one channel a
+    thread otherwise (C 5, 6), rows wider than a block, tiles sorted
+    (short runs, duplicates spread over a stretch) and in stream order, hot
+    rows and long runs, ragged and single-row M."""
     _need_gpu()
     rng = np.random.default_rng(4)
     _check_bf16_kernel(_stream(kind, M, R, rng), _values(kind, M, C, rng), R)
@@ -209,6 +222,22 @@ def test_scatter_add_bf16_kernel_on_unaligned_rows():
     g_d = flat[1:].view(M, C)
     assert g_d.is_contiguous() and g_d.data_ptr() % 16 != 0
     _check_bf16_kernel(idx, g, R, g_d)
+
+
+@pytest.mark.cuda
+def test_scatter_add_bf16_kernel_on_rows_8_bytes_off():
+    """bf16 g 8 bytes off a 16-byte boundary: still the four-channel path
+    (8-byte loads), at C = 64 and C = 12."""
+    _need_gpu()
+    rng = np.random.default_rng(6)
+    for M, R, C in ((40_001, 512, 64), (40_001, 512, 12)):
+        idx = _stream("shuffled", M, R, rng)
+        g = rng.normal(size=(M, C)).astype(np.float32)
+        flat = torch.empty(M * C + 4, device="cuda", dtype=torch.bfloat16)
+        flat[4:] = torch.from_numpy(g.reshape(-1)).to(torch.bfloat16).cuda()
+        g_d = flat[4:].view(M, C)
+        assert g_d.is_contiguous() and g_d.data_ptr() % 16 == 8
+        _check_bf16_kernel(idx, g, R, g_d)
 
 
 @pytest.mark.cuda
