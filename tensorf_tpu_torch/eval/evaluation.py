@@ -27,6 +27,7 @@ from ..models.alpha_mask import AlphaGridMask
 from ..ops.rays import get_rays, ndc_rays_blender
 from ..parallel.mesh import RankGroup, is_writer
 from ..render.chunked import render_chunked, render_chunked_stratified
+from ..utils import tracing
 from ..utils.misc import visualize_depth_numpy
 from .metrics import psnr as psnr_fn
 from .metrics import rgb_lpips, rgb_ssim
@@ -62,25 +63,26 @@ class RendererHandle:
         """(M, 6) rays (numpy or a tensor) -> (rgb (M, 3), depth (M,))
         numpy, shaded samples.  ``log`` receives the stratified path's count
         and bucket lines (render_chunked_stratified)."""
-        kw = dict(step_size=float(self.step_size), n_samples=int(self.n_samples),
-                  white_bg=self.white_bg, ndc_ray=self.ndc_ray, shade_top_k=self.shade_top_k,
-                  fused=self.fused, use_coarse_gate=self.use_coarse_gate)
-        if self.stratified and self.alpha_mask is not None:
-            rgb, depth, n_valid, overflow = render_chunked_stratified(
-                self.field, self.alpha_mask, rays, self.aabb, chunk=chunk, log=log,
-                group=self.group, **kw)
-        else:
-            rgb, depth, n_valid, overflow = render_chunked(
-                self.field, self.alpha_mask, rays, self.aabb, chunk=chunk,
-                sample_budget=self.sample_budget, group=self.group, **kw)
-            rgb, depth = rgb.cpu().numpy(), depth.cpu().numpy()
-        self.max_overflow = max(self.max_overflow, overflow)
-        if overflow > 0.0:
-            # a too-small budget would silently under-integrate the images
-            print(f"[eval] WARNING: sample-budget overflow on up to {overflow:.1%} of rays "
-                  f"in a chunk — rendered images may under-integrate; raise sample_budget",
-                  flush=True)
-        return rgb, depth, n_valid
+        with tracing.span("tftorch.serve.view"):
+            kw = dict(step_size=float(self.step_size), n_samples=int(self.n_samples),
+                      white_bg=self.white_bg, ndc_ray=self.ndc_ray, shade_top_k=self.shade_top_k,
+                      fused=self.fused, use_coarse_gate=self.use_coarse_gate)
+            if self.stratified and self.alpha_mask is not None:
+                rgb, depth, n_valid, overflow = render_chunked_stratified(
+                    self.field, self.alpha_mask, rays, self.aabb, chunk=chunk, log=log,
+                    group=self.group, **kw)
+            else:
+                rgb, depth, n_valid, overflow = render_chunked(
+                    self.field, self.alpha_mask, rays, self.aabb, chunk=chunk,
+                    sample_budget=self.sample_budget, group=self.group, **kw)
+                rgb, depth = rgb.cpu().numpy(), depth.cpu().numpy()
+            self.max_overflow = max(self.max_overflow, overflow)
+            if overflow > 0.0:
+                # a too-small budget would silently under-integrate the images
+                print(f"[eval] WARNING: sample-budget overflow on up to {overflow:.1%} of rays "
+                      f"in a chunk — rendered images may under-integrate; raise sample_budget",
+                      flush=True)
+            return rgb, depth, n_valid
 
 
 def _depth_rgb(depth: np.ndarray, near_far) -> np.ndarray:

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from ..utils import tracing
 from ..utils.cuda_build import load_library
 
 KERNEL_NAME = "scatter_add"
@@ -79,9 +80,15 @@ def scatter_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor
     ``scatter_add.launches`` counts the calls that launched the kernel (CUDA
     tensors only), through either entry point, and
     ``scatter_add_bf16.launches`` those through the bfloat16 one; each such
-    call enqueues two grids, the zero fill and the scatter.
+    call enqueues two grids, the zero fill and the scatter.  While a
+    profiler runs, every call (CPU or CUDA) appends its ``(M, C, bytes of
+    an element of g, n_rows)`` to the ``scatter_add`` shapes of
+    utils/tracing.py.
     """
     _check(idx, g, n_rows)
+    if tracing.enabled():
+        tracing.count_shape("scatter_add", (int(idx.shape[0]), int(g.shape[1]),
+                                            g.element_size(), int(n_rows)))
     if g.device.type == "cpu":
         return scatter_add_reference(idx, g, n_rows)
     M, C = g.shape
@@ -90,7 +97,13 @@ def scatter_add(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor
     device = g.device.index
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
-            return scatter_add(idx, g, n_rows)
+            return _launch(idx, g, n_rows, device)
+    return _launch(idx, g, n_rows, device)
+
+
+def _launch(idx: torch.Tensor, g: torch.Tensor, n_rows: int, device: int) -> torch.Tensor:
+    """The kernel on ``device``, the current CUDA device; ``g`` not empty."""
+    M, C = g.shape
     fn = _kernel(g.dtype)
     # the entry point zero-fills ``out`` on the stream it launches on
     out = torch.empty((n_rows, C), dtype=torch.float32, device=g.device)

@@ -28,6 +28,11 @@ j mod W.  The rendered rows are gathered to every rank (``gather_rows``),
 the shaded samples summed and the overflow max-reduced, so every rank
 returns the whole frame, the single-rank render's: each ray is rendered
 on its own.
+
+The stratified path marks its phases for a profiler (utils/tracing.py):
+``tftorch.serve.count`` (the count pass, its read-back, the host sort and
+the sorted rows' upload), one ``tftorch.serve.bucket`` a bucket chunk, and
+``tftorch.serve.fetch``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 from ..models.alpha_mask import COARSE_STRIDE
 from ..ops.freq_mask import FreeMasks
 from ..parallel.mesh import RankGroup, gather_rows, host_allmax, host_allsum
+from ..utils import tracing
 from .volume import render_rays
 
 # Chunk-size ladder of the serving paths: the per-chunk cost scales with
@@ -246,16 +252,17 @@ class _SortedFrame:
         largest overflow: one copy of the buffer, then the background rays
         filled on the host (acc = 0: the background color, and depth
         (1 - acc) * rays[:, -1] as the composite computes it)."""
-        if self.group is not None:
-            self._gather()
-        host = self.out.cpu().numpy()
-        M = self.order.shape[0]
-        rgb, depth = np.empty((M, 3), np.float32), np.empty((M,), np.float32)
-        bg, hit = self.order[: self.start], self.order[self.start :]
-        rgb[bg] = 1.0 if white_bg else 0.0
-        depth[bg] = dirz[bg]
-        rgb[hit], depth[hit] = host[:, :3], host[:, 3]
-        return rgb, depth, int(self.n_valid), float(self.overflow)
+        with tracing.span("tftorch.serve.fetch"):
+            if self.group is not None:
+                self._gather()
+            host = self.out.cpu().numpy()
+            M = self.order.shape[0]
+            rgb, depth = np.empty((M, 3), np.float32), np.empty((M,), np.float32)
+            bg, hit = self.order[: self.start], self.order[self.start :]
+            rgb[bg] = 1.0 if white_bg else 0.0
+            depth[bg] = dirz[bg]
+            rgb[hit], depth[hit] = host[:, :3], host[:, 3]
+            return rgb, depth, int(self.n_valid), float(self.overflow)
 
 
 def _sort_by_count(counts: np.ndarray, n_samples: int):
@@ -335,20 +342,21 @@ def render_chunked_stratified(
                                            chunk=chunk, masks=masks, near_far=near_far, log=log,
                                            group=group, **common)
     dev = aabb.device
-    rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
-    count_args = (rays, alpha_mask, aabb.cpu().numpy(), step_size, near_far)
-    alive_counts = None
-    if use_coarse_gate:
-        counts, alive_counts, _ = count_ray_candidates_and_alive(
-            *count_args, n_samples=n_samples, chunk=max(chunk, 32768))
-    else:
-        counts = count_ray_candidates(*count_args, n_samples=n_samples, chunk=max(chunk, 32768),
-                                      use_coarse=False)
-    dirz = rays[:, 5].cpu().numpy()
-    order, sorted_counts, start, tiers = _sort_by_count(counts, n_samples)
+    with tracing.span("tftorch.serve.count"):
+        rays = torch.as_tensor(rays, dtype=torch.float32, device=dev)
+        count_args = (rays, alpha_mask, aabb.cpu().numpy(), step_size, near_far)
+        alive_counts = None
+        if use_coarse_gate:
+            counts, alive_counts, _ = count_ray_candidates_and_alive(
+                *count_args, n_samples=n_samples, chunk=max(chunk, 32768))
+        else:
+            counts = count_ray_candidates(*count_args, n_samples=n_samples,
+                                          chunk=max(chunk, 32768), use_coarse=False)
+        dirz = rays[:, 5].cpu().numpy()
+        order, sorted_counts, start, tiers = _sort_by_count(counts, n_samples)
+        frame = _SortedFrame(order, start, dev)
     if log is not None:
         log(f"count pass: {rays.shape[0]} rays, {start} with no candidate composited on the host")
-    frame = _SortedFrame(order, start, dev)
     for tier, lo, hi in _buckets(sorted_counts, start, tiers):
         # the exact-alive second stage: eval counts draw no jitter, so the
         # bucket's largest alive count, snapped up the tier ladder, is an
@@ -371,10 +379,11 @@ def render_chunked_stratified(
         if tier is None and n_samples > 512:
             chunk_b = min(chunk_b, 8192)
         # the bucket's chunks split over the ranks, gathered to each
-        frame.put(lo, n_b, *_render_chunks(
-            field, alpha_mask, rays.index_select(0, frame.rows(lo, n_b)), aabb, chunk_b, masks,
-            group, n_samples=n_samples, sample_budget=tier, budget_mode="cand",
-            use_coarse_gate=use_coarse_gate, alive_budget=alive_tier, **common))
+        with tracing.span("tftorch.serve.bucket"):
+            frame.put(lo, n_b, *_render_chunks(
+                field, alpha_mask, rays.index_select(0, frame.rows(lo, n_b)), aabb, chunk_b,
+                masks, group, n_samples=n_samples, sample_budget=tier, budget_mode="cand",
+                use_coarse_gate=use_coarse_gate, alive_budget=alive_tier, **common))
         if log is not None:
             log(f"bucket tier={tier} K={tier} alive={alive_tier} rays={n_b} chunk={chunk_b} "
                 f"lattice={n_samples}")
@@ -393,17 +402,18 @@ def _render_stratified_resident(field, alpha_mask, rays, aabb, *, n_samples: int
     from .culling import count_ray_candidates_chord_bits
 
     M = rays.shape[0]
-    counts, chords, bits_dev, rays_dev = count_ray_candidates_chord_bits(
-        rays, alpha_mask, aabb.cpu().numpy(), common["step_size"], near_far,
-        n_samples=n_samples, tile=max(chunk, 32768))
-    if isinstance(rays, torch.Tensor):
-        dirz = rays_dev[:M, 5].cpu().numpy()
-    else:
-        dirz = np.asarray(rays, np.float32)[:, 5]
-    order, sorted_counts, start, tiers = _sort_by_count(counts, n_samples)
+    with tracing.span("tftorch.serve.count"):
+        counts, chords, bits_dev, rays_dev = count_ray_candidates_chord_bits(
+            rays, alpha_mask, aabb.cpu().numpy(), common["step_size"], near_far,
+            n_samples=n_samples, tile=max(chunk, 32768))
+        if isinstance(rays, torch.Tensor):
+            dirz = rays_dev[:M, 5].cpu().numpy()
+        else:
+            dirz = np.asarray(rays, np.float32)[:, 5]
+        order, sorted_counts, start, tiers = _sort_by_count(counts, n_samples)
+        frame = _SortedFrame(order, start, rays_dev.device, group)
     if log is not None:
         log(f"count pass: {M} rays, {start} with no candidate composited on the host")
-    frame = _SortedFrame(order, start, rays_dev.device, group)
     for tier, lo, hi in _buckets(sorted_counts, start, tiers):
         cmax = int(chords[order[lo:hi]].max())
         n_eff = min(n_samples, max(128, -(-cmax // 128) * 128))
@@ -414,10 +424,11 @@ def _render_stratified_resident(field, alpha_mask, rays, aabb, *, n_samples: int
         if K_b % COARSE_STRIDE != 0:
             cb = chunk if (tier_b is not None or n_eff <= 512) else min(chunk, 8192)
             if frame.take(lo, hi - lo):
-                frame.put(lo, hi - lo, *_render_chunks(
-                    field, alpha_mask, rays_dev.index_select(0, frame.rows(lo, hi - lo)), aabb,
-                    cb, masks, n_samples=n_eff, sample_budget=tier_b, budget_mode="cand",
-                    **common))
+                with tracing.span("tftorch.serve.bucket"):
+                    frame.put(lo, hi - lo, *_render_chunks(
+                        field, alpha_mask, rays_dev.index_select(0, frame.rows(lo, hi - lo)),
+                        aabb, cb, masks, n_samples=n_eff, sample_budget=tier_b,
+                        budget_mode="cand", **common))
             if log is not None:
                 log(f"bucket tier={tier} K={tier_b} rays={hi - lo} chunk={cb} lattice={n_eff} "
                     f"(lattice render)")
@@ -428,9 +439,10 @@ def _render_stratified_resident(field, alpha_mask, rays, aabb, *, n_samples: int
             c = _next_chunk(hi - lo, cap)
             n = min(c, hi - lo)
             if frame.take(lo, n):
-                frame.put(lo, n, *_render_eval_windows(
-                    field, alpha_mask, rays_dev, bits_dev, frame.rows(lo, n, c), aabb, masks,
-                    n_samples=n_eff, sample_budget=K_b, **common))
+                with tracing.span("tftorch.serve.bucket"):
+                    frame.put(lo, n, *_render_eval_windows(
+                        field, alpha_mask, rays_dev, bits_dev, frame.rows(lo, n, c), aabb,
+                        masks, n_samples=n_eff, sample_budget=K_b, **common))
             if log is not None:
                 log(f"bucket tier={tier} K={K_b} rays={n} chunk={c} lattice={n_eff}")
             lo += n

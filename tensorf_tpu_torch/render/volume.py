@@ -19,6 +19,11 @@ Every top-k selection here ranks with distinct scores: kept entries
 nearest first, then dead entries by ascending index.  That is the order
 jax.lax.top_k gives the JAX package's tied scores, so the selected
 indices equal the JAX renderer's index for index.
+
+While a profiler runs, ``render_rays`` marks its parts with spans
+(``tftorch.render.march``, ``.density``, ``.shade``, ``.composite``) and
+counts its rays, the slots the density and the shading run on and the
+samples of use in them (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..ops.rays import (
     sample_lattice,
 )
 from ..ops.render_math import raw2alpha
+from ..utils import tracing
 
 # Re-derive z/xyz/dists from the selected lattice indices instead of
 # gathering them from the full lattice (bit-identical on the affine
@@ -262,102 +268,102 @@ def render_rays(
     near, far = cfg.near_far
     zero = torch.zeros((), device=rays.device)
 
-    n_eff = n_samples
-    overflow = zero
-    exact_gated = False
-    if cand_window_bits is not None:
-        # Serving window bits: the count pass probed every stride window, so
-        # the candidates are the unpacked hits within the closed-form chord
-        # (a superset of the per-sample validity: extra boundary windows are
-        # exact-gated off below, and the tier covers them).  No (B, N, 3)
-        # lattice is built.
-        S = COARSE_STRIDE
-        K = sample_budget
-        _, hit, chord = inbbox_chord(rays_o, viewdirs, aabb, near, far, step_size, n_samples)
-        ghits = unpack_window_bits(cand_window_bits)  # (B, Gb * 8)
-        starts = torch.arange(ghits.shape[1], dtype=torch.int32, device=rays.device) * S
-        gkeep = ghits & hit[:, None] & (starts < chord[:, None]) & (starts < n_samples)
-        sel, win_alive, pc = _select_windows_g(gkeep, K)
-        xyz, z_vals, dists, kept = _derive_at(rays_o, viewdirs, aabb, near, far, u, step_size,
-                                              n_samples, sel, win_alive)
-        ray_valid = kept & (sample_alpha_gate(alpha_mask, xyz) > 0)
-        overflow = torch.mean((pc > K).to(torch.float32))
-        exact_gated = True
-        n_eff = K
-        use_budget = False
-    else:
-        if ndc_ray:
-            xyz, z_vals, ray_valid = sample_along_rays_ndc(
-                rays_o, viewdirs, aabb, near, far, n_samples, jitter
-            )
-        else:
-            xyz, z_vals, ray_valid = sample_along_rays(
-                rays_o, viewdirs, aabb, near, far, step_size, n_samples, u
-            )
-        dists = torch.cat(
-            [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
-        )
-        if ndc_ray:
-            rays_norm = torch.linalg.norm(viewdirs, dim=-1, keepdim=True)
-            dists = dists * rays_norm
-            viewdirs = viewdirs / rays_norm
-        use_budget = sample_budget is not None and sample_budget < n_samples
-
-    def compact_windows(keep, K):
-        if _DERIVED_COMPACTION and not ndc_ray:
-            sel, win_alive, pc = _select_windows(keep, K)
-            return (*_derive_at(rays_o, viewdirs, aabb, near, far, u, step_size,
-                                n_samples, sel, win_alive), pc)
-        return _compact_grouped(xyz, z_vals, dists, keep, K)
-
-    if use_budget:
-        K = sample_budget
-        if alpha_mask is not None and not use_coarse_gate:
-            alive = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)
-            overflow = torch.mean(_over(alive, K).to(torch.float32))
-            xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, alive, K)
-            exact_gated = True
-        elif alpha_mask is not None and budget_mode == "cand":
-            cand = ray_valid & sample_alpha_gate_coarse(alpha_mask, xyz)
-            if K % COARSE_STRIDE == 0:
-                xyz, z_vals, dists, kept, pc = compact_windows(cand, K)
-                over1 = pc > K
-            else:
-                over1 = _over(cand, K)
-                xyz, z_vals, dists, kept = _compact(xyz, z_vals, dists, cand, K)
+    with tracing.span("tftorch.render.march"):
+        n_eff = n_samples
+        overflow = zero
+        exact_gated = False
+        if cand_window_bits is not None:
+            # Serving window bits: the count pass probed every stride window, so
+            # the candidates are the unpacked hits within the closed-form chord
+            # (a superset of the per-sample validity: extra boundary windows are
+            # exact-gated off below, and the tier covers them).  No (B, N, 3)
+            # lattice is built.
+            S = COARSE_STRIDE
+            K = sample_budget
+            _, hit, chord = inbbox_chord(rays_o, viewdirs, aabb, near, far, step_size, n_samples)
+            ghits = unpack_window_bits(cand_window_bits)  # (B, Gb * 8)
+            starts = torch.arange(ghits.shape[1], dtype=torch.int32, device=rays.device) * S
+            gkeep = ghits & hit[:, None] & (starts < chord[:, None]) & (starts < n_samples)
+            sel, win_alive, pc = _select_windows_g(gkeep, K)
+            xyz, z_vals, dists, kept = _derive_at(rays_o, viewdirs, aabb, near, far, u, step_size,
+                                                  n_samples, sel, win_alive)
             ray_valid = kept & (sample_alpha_gate(alpha_mask, xyz) > 0)
-            if alive_budget is not None and alive_budget < K:
-                over1 = over1 | _over(ray_valid, alive_budget)
-                xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, ray_valid,
-                                                         alive_budget)
-                K = alive_budget
-            overflow = torch.mean(over1.to(torch.float32))
-            exact_gated = True
-        elif alpha_mask is not None:
-            # candidates exceed the alive set by about the dilated shell's
-            # thickness per surface crossing: an additive margin
-            K1 = min(n_samples, K + 224)
-            cand = ray_valid & sample_alpha_gate_coarse(alpha_mask, xyz)
-            over1 = _over(cand, K1)
-            xyz, z_vals, dists, cand1 = _compact(xyz, z_vals, dists, cand, K1)
-            alive = cand1 & (sample_alpha_gate(alpha_mask, xyz) > 0)
-            overflow = torch.mean((over1 | _over(alive, K)).to(torch.float32))
-            xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, alive, K)
-            exact_gated = True
-        elif K % COARSE_STRIDE == 0 and not ndc_ray:
-            # mask-free: the candidates are the contiguous in-bbox run
-            xyz, z_vals, dists, ray_valid, pc = compact_windows(ray_valid, K)
             overflow = torch.mean((pc > K).to(torch.float32))
+            exact_gated = True
+            n_eff = K
+            use_budget = False
         else:
-            overflow = torch.mean(_over(ray_valid, K).to(torch.float32))
-            xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, ray_valid, K)
-        n_eff = K
+            if ndc_ray:
+                xyz, z_vals, ray_valid = sample_along_rays_ndc(
+                    rays_o, viewdirs, aabb, near, far, n_samples, jitter
+                )
+            else:
+                xyz, z_vals, ray_valid = sample_along_rays(
+                    rays_o, viewdirs, aabb, near, far, step_size, n_samples, u
+                )
+            dists = torch.cat(
+                [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
+            )
+            if ndc_ray:
+                rays_norm = torch.linalg.norm(viewdirs, dim=-1, keepdim=True)
+                dists = dists * rays_norm
+                viewdirs = viewdirs / rays_norm
+            use_budget = sample_budget is not None and sample_budget < n_samples
 
-    if alpha_mask is not None and not exact_gated:
-        # occupancy gate (reference tensorBase.py:349-354)
-        ray_valid = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)
-    mean_alive = torch.mean(torch.sum(ray_valid.to(torch.float32), dim=-1))
-    xyz_n = normalize_coord(xyz, aabb)  # (B, n_eff, 3)
+        def compact_windows(keep, K):
+            if _DERIVED_COMPACTION and not ndc_ray:
+                sel, win_alive, pc = _select_windows(keep, K)
+                return (*_derive_at(rays_o, viewdirs, aabb, near, far, u, step_size,
+                                    n_samples, sel, win_alive), pc)
+            return _compact_grouped(xyz, z_vals, dists, keep, K)
+
+        if use_budget:
+            K = sample_budget
+            if alpha_mask is not None and not use_coarse_gate:
+                alive = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)
+                overflow = torch.mean(_over(alive, K).to(torch.float32))
+                xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, alive, K)
+                exact_gated = True
+            elif alpha_mask is not None and budget_mode == "cand":
+                cand = ray_valid & sample_alpha_gate_coarse(alpha_mask, xyz)
+                if K % COARSE_STRIDE == 0:
+                    xyz, z_vals, dists, kept, pc = compact_windows(cand, K)
+                    over1 = pc > K
+                else:
+                    over1 = _over(cand, K)
+                    xyz, z_vals, dists, kept = _compact(xyz, z_vals, dists, cand, K)
+                ray_valid = kept & (sample_alpha_gate(alpha_mask, xyz) > 0)
+                if alive_budget is not None and alive_budget < K:
+                    over1 = over1 | _over(ray_valid, alive_budget)
+                    xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, ray_valid,
+                                                             alive_budget)
+                    K = alive_budget
+                overflow = torch.mean(over1.to(torch.float32))
+                exact_gated = True
+            elif alpha_mask is not None:
+                # candidates exceed the alive set by about the dilated shell's
+                # thickness per surface crossing: an additive margin
+                K1 = min(n_samples, K + 224)
+                cand = ray_valid & sample_alpha_gate_coarse(alpha_mask, xyz)
+                over1 = _over(cand, K1)
+                xyz, z_vals, dists, cand1 = _compact(xyz, z_vals, dists, cand, K1)
+                alive = cand1 & (sample_alpha_gate(alpha_mask, xyz) > 0)
+                overflow = torch.mean((over1 | _over(alive, K)).to(torch.float32))
+                xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, alive, K)
+                exact_gated = True
+            elif K % COARSE_STRIDE == 0 and not ndc_ray:
+                # mask-free: the candidates are the contiguous in-bbox run
+                xyz, z_vals, dists, ray_valid, pc = compact_windows(ray_valid, K)
+                overflow = torch.mean((pc > K).to(torch.float32))
+            else:
+                overflow = torch.mean(_over(ray_valid, K).to(torch.float32))
+                xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, ray_valid, K)
+            n_eff = K
+
+        if alpha_mask is not None and not exact_gated:
+            # occupancy gate (reference tensorBase.py:349-354)
+            ray_valid = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)
+        mean_alive = torch.mean(torch.sum(ray_valid.to(torch.float32), dim=-1))
     N = n_eff
 
     def sigma_of(den_feat):
@@ -368,45 +374,57 @@ def render_rays(
         return apply_shading(cfg, field.render, pts, view, app_feat, masks).reshape(B, K, 3)
 
     top_k = shade_top_k is not None and shade_top_k < N
-    if fused and not top_k:
-        # One packed gather pass for density + appearance.
-        den_feat, app_feat = field.fused_features(xyz_n.reshape(-1, 3), masks.den, masks.app)
-    elif fused:
-        den_feat = field.density_feature_fused(xyz_n.reshape(-1, 3), masks.den)
-    else:
-        den_feat = field.density_feature(xyz_n.reshape(-1, 3), masks.den)
-    sigma = sigma_of(den_feat)
-    _, weight, _ = raw2alpha(sigma, dists * cfg.distance_scale)
-    app_gate = weight > cfg.ray_march_weight_thres
-    num_valid = torch.sum(app_gate.to(torch.int32))
 
-    if top_k:
-        # Appearance only for the top-K weights per ray: exact whenever K
-        # covers every above-threshold sample.  torch.topk may order tied
-        # weights differently from jax.lax.top_k; the render is the same.
-        K = shade_top_k
-        w_sel, idx = torch.topk(weight, K, dim=-1)
-        xyz_sel = torch.take_along_dim(xyz_n, idx[..., None], dim=1).reshape(-1, 3)
-        gate_sel = w_sel > cfg.ray_march_weight_thres
-        if fused:
-            app_feat_sel = field.app_feature_fused(xyz_sel, masks.app)
+    with tracing.span("tftorch.render.density"):
+        xyz_n = normalize_coord(xyz, aabb)  # (B, n_eff, 3)
+        if fused and not top_k:
+            # One packed gather pass for density + appearance.
+            den_feat, app_feat = field.fused_features(xyz_n.reshape(-1, 3), masks.den, masks.app)
+        elif fused:
+            den_feat = field.density_feature_fused(xyz_n.reshape(-1, 3), masks.den)
         else:
-            app_feat_sel = field.app_feature(xyz_sel, masks.app)
-        rgb_s = shade(xyz_sel, app_feat_sel.reshape(B * K, -1), K)
-        rgb_s = torch.where(gate_sel[..., None], rgb_s, zero)
-        rgb_map = torch.sum(w_sel[..., None] * rgb_s, dim=-2)
-    else:
-        if not fused:
-            app_feat = field.app_feature(xyz_n.reshape(-1, 3), masks.app)
-        rgb_s = shade(xyz_n.reshape(-1, 3), app_feat, N)
-        rgb_s = torch.where(app_gate[..., None], rgb_s, zero)
-        rgb_map = torch.sum(weight[..., None] * rgb_s, dim=-2)
+            den_feat = field.density_feature(xyz_n.reshape(-1, 3), masks.den)
+        sigma = sigma_of(den_feat)
+        _, weight, _ = raw2alpha(sigma, dists * cfg.distance_scale)
+        app_gate = weight > cfg.ray_march_weight_thres
+        num_valid = torch.sum(app_gate.to(torch.int32))
 
-    return _composite(
-        rgb_map, weight, sigma, z_vals, rays, flip, num_valid,
-        is_train=is_train, white_bg=white_bg, budget_overflow_frac=overflow,
-        mean_alive_samples=mean_alive,
-    )
+    with tracing.span("tftorch.render.shade"):
+        if top_k:
+            # Appearance only for the top-K weights per ray: exact whenever K
+            # covers every above-threshold sample.  torch.topk may order tied
+            # weights differently from jax.lax.top_k; the render is the same.
+            K = shade_top_k
+            w_sel, idx = torch.topk(weight, K, dim=-1)
+            xyz_sel = torch.take_along_dim(xyz_n, idx[..., None], dim=1).reshape(-1, 3)
+            gate_sel = w_sel > cfg.ray_march_weight_thres
+            if fused:
+                app_feat_sel = field.app_feature_fused(xyz_sel, masks.app)
+            else:
+                app_feat_sel = field.app_feature(xyz_sel, masks.app)
+            rgb_s = shade(xyz_sel, app_feat_sel.reshape(B * K, -1), K)
+            rgb_s = torch.where(gate_sel[..., None], rgb_s, zero)
+            rgb_map = torch.sum(w_sel[..., None] * rgb_s, dim=-2)
+        else:
+            if not fused:
+                app_feat = field.app_feature(xyz_n.reshape(-1, 3), masks.app)
+            rgb_s = shade(xyz_n.reshape(-1, 3), app_feat, N)
+            rgb_s = torch.where(app_gate[..., None], rgb_s, zero)
+            rgb_map = torch.sum(weight[..., None] * rgb_s, dim=-2)
+
+    if tracing.enabled():
+        # the slots each part of the field ran on, and how many of them were of use
+        tracing.count("render.rays", B)
+        tracing.count("render.density_rows", B * N)
+        tracing.count("render.alive", mean_alive, B)
+        tracing.count("render.shade_rows", B * (shade_top_k if top_k else N))
+        tracing.count("render.shaded", num_valid)
+    with tracing.span("tftorch.render.composite"):
+        return _composite(
+            rgb_map, weight, sigma, z_vals, rays, flip, num_valid,
+            is_train=is_train, white_bg=white_bg, budget_overflow_frac=overflow,
+            mean_alive_samples=mean_alive,
+        )
 
 
 def _composite(

@@ -48,6 +48,10 @@ the gradients over the ranks, the parameters are broadcast from rank 0
 after every event that rebuilds them, the evaluations render each frame's
 chunks split over the ranks, the decisions (budget raises, resume) read
 reduced values, and rank 0 alone writes the logfolder's files.
+
+``profile_dir`` has ``reconstruction`` write a ``torch.profiler`` Chrome trace
+of ``profile_steps`` steps from ``profile_start`` and log the sample-slot use
+those steps counted (``_ProfileWindow``, utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -101,6 +105,7 @@ from ..render.culling import (
     stratify_rays_joint,
     update_alpha_mask,
 )
+from ..utils import tracing
 from ..utils.ckpt import load_aux, load_checkpoint, load_opt_leaves, save_checkpoint
 from ..utils.cuda_build import BUILD_DIR
 from ..utils.device import resolve_device
@@ -338,20 +343,21 @@ class TrainState:
     def next_ids(self):
         """The next batch's store ids on the device: one tensor, or with
         strata one per stratum (one upload, split on the device)."""
-        ids = self.sampler.nextids()
-        if self.group is not None and not self.pooled:
-            # every rank drew the global batch: this rank's block of each
-            # sub-batch
-            rank = self.group.rank
-            ids = (tuple(shard_rows(i, rank, self.world) for i in ids) if isinstance(ids, tuple)
-                   else shard_rows(ids, rank, self.world))
-        flat = torch.cat(ids) if isinstance(ids, tuple) else ids
-        if self.device.type == "cuda":
-            # from pinned memory the upload does not wait for the device
-            flat = flat.pin_memory().to(self.device, non_blocking=True)
-        if isinstance(ids, tuple):
-            return torch.split(flat, [len(i) for i in ids])
-        return flat
+        with tracing.span("tftorch.train.sample"):
+            ids = self.sampler.nextids()
+            if self.group is not None and not self.pooled:
+                # every rank drew the global batch: this rank's block of each
+                # sub-batch
+                rank = self.group.rank
+                ids = (tuple(shard_rows(i, rank, self.world) for i in ids)
+                       if isinstance(ids, tuple) else shard_rows(ids, rank, self.world))
+            flat = torch.cat(ids) if isinstance(ids, tuple) else ids
+            if self.device.type == "cuda":
+                # from pinned memory the upload does not wait for the device
+                flat = flat.pin_memory().to(self.device, non_blocking=True)
+            if isinstance(ids, tuple):
+                return torch.split(flat, [len(i) for i in ids])
+            return flat
 
     def drop_optimizer(self) -> None:
         """Free the Adam state and the gradients before the factors change
@@ -498,6 +504,12 @@ def restratify(state: TrainState, iteration: int, log: Callable[[str], None] = p
     the stratified sampler and the per-stratum budgets, lattices and loss
     weights (tensorf_tpu loop.py:611-812).  Returns the plan, or None when
     the run goes unstratified (the plain sampler then draws)."""
+    with tracing.span("tftorch.train.restratify"):
+        return _restratify(state, iteration, log)
+
+
+def _restratify(state: TrainState, iteration: int, log: Callable[[str], None]
+                ) -> Optional[dict]:
     cfg = state.cfg
     n_samples = state.n_samples
     count_args = (state.geometry.aabb_np, state.geometry.step_size, state.near_far)
@@ -899,16 +911,71 @@ def reconstruction(
                         resume_hint="python -m tensorf_tpu_torch ... --resume 1",
                         cache_dirs=[str(BUILD_DIR)]).start()
     writer = None
+    profile = _ProfileWindow(cfg, device, log, group)
     try:
         logfolder = _make_logfolder(cfg, log, group)
         # rank 0 alone writes event files: every rank reads the same scalars
         writer = _summary_writer(logfolder) if is_writer(group) else _NullWriter()
         return _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer,
-                            logfolder, group)
+                            logfolder, group, profile)
     finally:
+        profile.close()
         watchdog.stop()
         if writer is not None:
             writer.close()
+
+
+class _ProfileWindow:
+    """``profile_dir``: a ``torch.profiler`` trace of the ``profile_steps``
+    steps from ``profile_start`` (host ops, the port's ``tftorch.*`` spans
+    and, on a card, the device's activities), written to ``profile_dir`` as
+    a Chrome trace, one file a rank, and a log line of the counters those
+    steps recorded (utils/tracing.py), as the JAX loop brackets its steps
+    with ``jax.profiler``."""
+
+    def __init__(self, cfg: TrainConfig, device: torch.device, log: Callable[[str], None],
+                 group: Optional[RankGroup]):
+        self.dir, self.start = cfg.profile_dir, int(cfg.profile_start)
+        self.last = self.start + max(int(cfg.profile_steps), 1) - 1
+        self.device, self.log, self.group = device, log, group
+        self.prof = None
+
+    def before_step(self, iteration: int) -> None:
+        if not self.dir or iteration != self.start or self.prof is not None:
+            return
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        tracing.take_counts()  # what another profiler left
+        self.prof = profile(activities=activities)
+        self.prof.start()
+
+    def after_step(self, iteration: int) -> None:
+        if self.prof is not None and iteration >= self.last:
+            self.close()
+
+    def close(self) -> None:
+        """Stop and write the trace, if one runs (the run may end first)."""
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        _sync(self.device)
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        rank = f"_rank{self.group.rank}" if self.group is not None else ""
+        path = os.path.join(self.dir, f"trace_{self.start}-{self.last}{rank}.json")
+        prof.export_chrome_trace(path)
+        self.log(f"[profile] trace written to {path}")
+        counts = tracing.take_counts()
+
+        def pct(num: str, den: str) -> str:
+            return f"{100.0 * counts[num] / counts[den]:.3f}%" if counts.get(den) else "n/a"
+
+        calls = counts.get("scatter_add", [])
+        self.log(f"[profile] density slot use {pct('render.alive', 'render.density_rows')}, "
+                 f"shade slot use {pct('render.shaded', 'render.shade_rows')}, scatter_add "
+                 f"{len(calls)} calls, {sum(c[0] for c in calls)} rows")
 
 
 def _reconstruction_rank(group: RankGroup, device, cfg, scene, save_images, log, on_step):
@@ -934,8 +1001,9 @@ def _agreed_ckpt(found, group: Optional[RankGroup], log):
 
 
 def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer, logfolder,
-                 group):
-    """``reconstruction``'s body, inside its watchdog and summary writer."""
+                 group, profile):
+    """``reconstruction``'s body, inside its watchdog, summary writer and
+    profile window."""
     writes = is_writer(group)
     # the figures and images are rank 0's
     save_images = save_images and writes
@@ -1023,6 +1091,7 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
     watchdog.resume_hint = f"python -m tensorf_tpu_torch ... --resume 1 (logfolder {logfolder})"
     for iteration in range(start_iter, cfg.n_iters):
         watchdog.beat()
+        profile.before_step(iteration)
         noise.manual_seed(step_seed(cfg.seed, iteration))
         metrics = step_fn(aabb, state.rays, state.rgbs, iteration, noise, state.alpha_mask,
                           ids=state.next_ids())
@@ -1033,12 +1102,13 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
             on_step(iteration, state)
         if iteration % max(int(cfg.progress_refresh_rate), 1) == 0:
             # the only host read of the metrics: at the progress rate
-            if state.strata_budgets is not None:
-                per_budget = metrics["stratum_overflow"].tolist()
-            else:
-                per_budget = [float(metrics["budget_overflow_frac"])]
-            progress.append(dict(iteration=iteration, psnr=float(metrics["psnr"]),
-                                 mse=float(metrics["mse"]), overflow=per_budget))
+            with tracing.span("tftorch.train.progress"):
+                if state.strata_budgets is not None:
+                    per_budget = metrics["stratum_overflow"].tolist()
+                else:
+                    per_budget = [float(metrics["budget_overflow_frac"])]
+                progress.append(dict(iteration=iteration, psnr=float(metrics["psnr"]),
+                                     mse=float(metrics["mse"]), overflow=per_budget))
             psnrs_window.append(progress[-1]["psnr"])
             _write_scalars(writer, metrics, progress[-1], iteration)
             log(f"Iteration {iteration:05d}: train_psnr = {np.mean(psnrs_window):.2f} "
@@ -1051,6 +1121,7 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
                 plans.append(dict(event="budget_raise", iteration=iteration, raised=raised))
                 step_fn = make_train_step(state.field, build_statics(state), state.optimizer,
                                           group)
+        profile.after_step(iteration)
         boundary = iteration in event_iters or iteration == cfg.n_iters - 1
         if boundary and seg is not None and iteration >= seg["start"]:
             close_segment(seg, iteration)
@@ -1109,6 +1180,7 @@ def _reconstruct(cfg, scene, device, save_images, log, on_step, watchdog, writer
             _save(state, f"{logfolder}/{iteration // 1000}k_{cfg.expname}.npz", iteration,
                   history, dict(psnrs_window=psnrs_window, psnrs_test=psnrs_test))
 
+    profile.close()
     # the final renders are device work too: the watchdog stays armed,
     # beaten per rendered image
     watchdog.beat()

@@ -26,6 +26,11 @@ one-rank loss.  ``make_train_step`` then sums the gradients over the ranks
 in one all-reduce between ``backward`` and the Adam step, and the step's
 metrics ride in the same buffer, so every rank reads the global mse, psnr,
 overflow and sample counts.
+
+The step marks its phases for a profiler (utils/tracing.py):
+``tftorch.train.step`` around ``tftorch.train.batch``, ``.optim`` (zero_grad
+and the Adam step), ``.forward`` (one ``tftorch.train.render`` a render) and
+``.backward`` (with the ranks' gradient sum).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..models.config import ModelConfig
 from ..ops.freq_mask import FreeMasks, free_masks
 from ..parallel.mesh import RankGroup, allreduce_grads, shard_rows
 from ..render.volume import render_rays
+from ..utils import tracing
 from .losses import LossWeights, mse_loss, occlusion_loss, occlusion_mask
 
 
@@ -198,22 +204,23 @@ def loss_fn(
     world = group.world if group is not None else 1
 
     def render(rays_b, u_b, flip_b, **budget):
-        return render_rays(
-            field, rays_b, masks,
-            aabb=aabb,
-            step_size=statics.step_size,
-            is_train=True,
-            white_bg=statics.white_bg,
-            ndc_ray=statics.ndc_ray,
-            shade_top_k=statics.shade_top_k,
-            fused=statics.fused,
-            use_coarse_gate=statics.use_coarse_gate,
-            alpha_mask=alpha_mask,
-            u=None if statics.ndc_ray else u_b,
-            jitter=u_b if statics.ndc_ray else None,
-            flip=flip_b,
-            **budget,
-        )
+        with tracing.span("tftorch.train.render"):
+            return render_rays(
+                field, rays_b, masks,
+                aabb=aabb,
+                step_size=statics.step_size,
+                is_train=True,
+                white_bg=statics.white_bg,
+                ndc_ray=statics.ndc_ray,
+                shade_top_k=statics.shade_top_k,
+                fused=statics.fused,
+                use_coarse_gate=statics.use_coarse_gate,
+                alpha_mask=alpha_mask,
+                u=None if statics.ndc_ray else u_b,
+                jitter=u_b if statics.ndc_ray else None,
+                flip=flip_b,
+                **budget,
+            )
 
     def mse_of(out, target):
         # a rank's share: its squared errors over the global batch's values
@@ -364,33 +371,43 @@ def make_train_step(field, statics: TrainStatics, optimizer, group: Optional[Ran
 
     def step_fn(aabb, rays, rgbs, step: int, generator: Optional[torch.Generator],
                 alpha_mask=None, ids=None, noise=None):
+        with tracing.span("tftorch.train.step"):
+            return _step(aabb, rays, rgbs, step, generator, alpha_mask, ids, noise)
+
+    def _step(aabb, rays, rgbs, step, generator, alpha_mask, ids, noise):
         shares = None
-        if statics.strata_budgets is not None:
-            sizes = [int(i.shape[0]) for i in ids]
-            idx = torch.cat(list(ids))
-            rays, rgbs = torch.split(rays[idx], sizes), torch.split(rgbs[idx], sizes)
-            # the global batch's draws, of which this rank takes its blocks
-            u, flip, shares = noise or draw_strata_noise(
-                generator, statics, [n * world for n in sizes], aabb.device)
+        with tracing.span("tftorch.train.batch"):
+            if statics.strata_budgets is not None:
+                sizes = [int(i.shape[0]) for i in ids]
+                idx = torch.cat(list(ids))
+                rays, rgbs = torch.split(rays[idx], sizes), torch.split(rgbs[idx], sizes)
+                # the global batch's draws, of which this rank takes its blocks
+                u, flip, shares = noise or draw_strata_noise(
+                    generator, statics, [n * world for n in sizes], aabb.device)
+                if multi:
+                    u = tuple(shard_rows(us, group.rank, world) for us in u)
+            else:
+                if ids is not None:
+                    rays, rgbs = rays[ids], rgbs[ids]
+                u, flip = noise or draw_noise(generator, rays.shape[0] * world, rays.device,
+                                              statics.n_samples if statics.ndc_ray else 1)
+                if multi:
+                    u = shard_rows(u, group.rank, world)
+        with tracing.span("tftorch.train.optim"):
+            optimizer.zero_grad()
+        with tracing.span("tftorch.train.forward"):
+            total, metrics = loss_fn(field, statics, aabb, rays, rgbs, step, u, flip,
+                                     alpha_mask, shares, group)
+        with tracing.span("tftorch.train.backward"):
+            total.backward()
+            # detached, so a kept metric holds no graph (nor the parameters)
+            metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+            metrics["total_loss"] = total.detach()
             if multi:
-                u = tuple(shard_rows(us, group.rank, world) for us in u)
-        else:
-            if ids is not None:
-                rays, rgbs = rays[ids], rgbs[ids]
-            u, flip = noise or draw_noise(generator, rays.shape[0] * world, rays.device,
-                                          statics.n_samples if statics.ndc_ray else 1)
-            if multi:
-                u = shard_rows(u, group.rank, world)
-        optimizer.zero_grad()
-        total, metrics = loss_fn(field, statics, aabb, rays, rgbs, step, u, flip, alpha_mask,
-                                 shares, group)
-        total.backward()
-        # detached, so a kept metric holds no graph (nor the parameters)
-        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
-        metrics["total_loss"] = total.detach()
-        if multi:
-            metrics = _reduce_metrics(field, metrics, group)
-        optimizer.step()
+                # the gradients summed over the ranks
+                metrics = _reduce_metrics(field, metrics, group)
+        with tracing.span("tftorch.train.optim"):
+            optimizer.step()
         metrics["psnr"] = -10.0 * torch.log10(metrics["mse"])
         return metrics
 

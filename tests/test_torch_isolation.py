@@ -20,7 +20,7 @@ def test_port_imports_with_jax_blocked():
         "import tensorf_tpu_torch, tensorf_tpu_torch.__main__\n"
         "from tensorf_tpu_torch import convert, ops, models, render, train, data, config, eval\n"
         "from tensorf_tpu_torch.train import loop\n"
-        "from tensorf_tpu_torch.utils import ckpt, import_torch, misc, watchdog\n"
+        "from tensorf_tpu_torch.utils import ckpt, import_torch, misc, tracing, watchdog\n"
         "from tensorf_tpu_torch.models import alpha_mask\n"
         "from tensorf_tpu_torch.ops import resize, sh\n"
         "from tensorf_tpu_torch.render import chunked, culling\n"
