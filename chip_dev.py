@@ -10,6 +10,8 @@
                                          # float32 one
     python3 chip_dev.py scatter_counts   # (no GPU) both entry points' L2 reductions on the
                                          # streams scatter saved, the kernels run on the CPU
+    python3 chip_dev.py shade_route      # the appearance gather routes timed at the rows
+                                         # flower.train's step shades
 
 The scatter modes write under $CHIP_DEV_OUT (default log/chip_dev).
 
@@ -434,9 +436,94 @@ def scatter_counts(cs) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def shade_route(cs) -> None:
+    """The appearance gather routes at the rows flower.train's step shades:
+    portbench's made state of the cell (seed 1), one step run with
+    render_rays' appearance input captured (the samples over the weight
+    threshold), then on those rows the appearance features' forward and
+    backward by each route, timed with CUDA events in turns (A B C C B A,
+    ``ROUNDS`` times, 5 calls a reading): the footprint tables with the
+    one-hot lines (``app_feature_fused`` as the step runs it), the same
+    with the lines' footprint tables, and the direct taps
+    (``app_feature``: grid_sample_2d / grid_sample_1d)."""
+    import statistics
+    import subprocess
+
+    import torch
+
+    from portbench.run import Trainer, load_cell, set_cache_dirs, setup
+    from tensorf_tpu_torch.models import tensorf
+    from tensorf_tpu_torch.ops.scatter_add import KERNEL_NAME
+    from tensorf_tpu_torch.utils.cuda_build import build
+
+    ROUNDS, CALLS = 8, 5
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi, flush=True)
+    set_cache_dirs()
+    build([KERNEL_NAME], force=True)
+    device = torch.device("cuda")
+    s = setup(load_cell("flower.train"), 1, device)
+    tr = Trainer(s, 1, device)
+    field = s.state.field
+    seen = []
+    inner = field.app_feature_fused
+
+    def capture(xyz, mask):
+        seen.append((xyz.detach().clone(), mask))
+        return inner(xyz, mask)
+
+    field.app_feature_fused = capture
+    tr.step()
+    del field.app_feature_fused
+    (pts, mask), = seen
+    cot = torch.randn((pts.shape[0], field.cfg.app_dim), device=device,
+                      generator=torch.Generator(device=device).manual_seed(0))
+    one_hot = tensorf._ONE_HOT_MAX_BYTES
+
+    def footprint_lines(xyz, m):
+        tensorf._ONE_HOT_MAX_BYTES = 0
+        try:
+            return field.app_feature_fused(xyz, m)
+        finally:
+            tensorf._ONE_HOT_MAX_BYTES = one_hot
+
+    routes = {"footprint, one-hot lines": field.app_feature_fused,
+              "footprint, footprint lines": footprint_lines,
+              "direct taps": field.app_feature}
+
+    def reading(route):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(CALLS):
+            field.zero_grad(set_to_none=True)
+            torch.sum(route(pts, mask) * cot).backward()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / CALLS
+
+    outs = {name: route(pts, mask).detach() for name, route in routes.items()}
+    for name in routes:
+        reading(routes[name])  # warm-up
+    ms = {name: [] for name in routes}
+    order = list(routes)
+    for _ in range(ROUNDS):
+        for name in order + order[::-1]:
+            ms[name].append(reading(routes[name]))
+    base = outs[order[0]]
+    print(f"shade_route: {pts.shape[0]} shaded rows of {tr.statics.n_samples} x "
+          f"{s.cfg.batch_size} slots, grid {tuple(s.state.geometry.grid_size)}", flush=True)
+    for name in order:
+        q = statistics.quantiles(ms[name], n=4)
+        print(f"shade_route: {name}: forward+backward median {statistics.median(ms[name]):.4f} "
+              f"ms (quartiles {q[0]:.4f} / {q[2]:.4f}, {len(ms[name])} readings), max |out - "
+              f"{order[0]}| {float((outs[name] - base).abs().max()):.3g}", flush=True)
+
+
 def main(argv) -> None:
     modes = {"flower": flower, "through_resume": through_resume, "slice9": slice9, "dp": dp,
-             "dp_memory": dp_memory, "scatter": scatter, "scatter_counts": scatter_counts}
+             "dp_memory": dp_memory, "scatter": scatter, "scatter_counts": scatter_counts,
+             "shade_route": shade_route}
     if len(argv) != 1 or argv[0] not in modes:
         sys.exit(f"usage: chip_dev.py {{{'|'.join(modes)}}}")
     sys.path.insert(0, os.getcwd())

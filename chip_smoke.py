@@ -109,8 +109,8 @@ each prints its seconds):
      main path's first segment (200 steps at 128^3, full width: 64-channel
      planes): one step's gradients kernel vs plain, launches equal to the
      per-stratum sum, the loss halved; then the kernel against its plain
-     version on the index streams its last step hands it (the packed
-     128^3 table and the top-K path's density and appearance tables);
+     version on the index streams its last step hands it (the top-K
+     path's density and appearance tables at 128^3);
  14. shading: SH, RGB, MLP_PE and MLP heads on configs/synth_sphere.txt's
      first segment (its first SHADING_STEPS steps): for each, one step's
      gradients kernel vs plain, launches equal to the per-stratum sum, a
@@ -294,12 +294,15 @@ DP_COLLECTIVE_TIMEOUT_S = 600.0
 # the keys of each kernel case in the kernels line
 CASE_KEYS = ("case", "M", "dtype", "kernel_ms", "plain_ms", "bound_ms", "library_ms", "share",
              "vs_f32")
-# scatter widths: 4 taps x ranks 16 (density), 48 (appearance), both fused
-STREAM_KINDS = {64: "density", 192: "appearance", 256: "fused"}
-# flower's fused step (ranks [16,4,4]/[48,12,12] packed per axis): the plane
-# footprint tables, 4 taps x 64 (axis 0) and x 16 (axes 1, 2), and the line
-# footprint tables, 2 taps x the same
-FLOWER_STREAMS = {256: "plane0", 64: "plane12", 128: "line0", 32: "line12"}
+# scatter widths: 4 taps x ranks 16 (density), 48 (appearance)
+STREAM_KINDS = {64: "density", 192: "appearance"}
+# flower's fused step (ranks [16,4,4]/[48,12,12]): the density's plane
+# footprint tables, 4 taps x 16 (axis 0) and x 4 (axes 1, 2), and its line
+# footprint tables, 2 taps x the same; the shaded samples' appearance taps,
+# gathered row by row, 48 and 12 wide (the first stream of each width that
+# the backward scatters)
+FLOWER_STREAMS = {64: "plane0", 16: "plane12", 32: "line0", 8: "line12", 48: "app0",
+                  12: "app12"}
 # the eval's chunk (tensorf_tpu evaluation's default), and the uniform
 # render's: the unbudgeted ~1048-sample lattice of 4096 rays is the
 # unstratified train step's width
@@ -562,16 +565,19 @@ def step_parity_phase(torch, dev, cfg, scene, label="step_parity", rel=1e-4):
     from tensorf_tpu_torch.ops import grid_sample
     from tensorf_tpu_torch.ops.scatter_add import (scatter_add, scatter_add_bf16,
                                                    scatter_add_reference)
+    from tensorf_tpu_torch.parallel import parity
 
     field, grid = path_field(torch, dev, cfg, scene)
     statics, aabb, rays, rgbs, u, flip = step_inputs(torch, dev, cfg, scene, grid)
     inputs = (statics, aabb, rays, rgbs, u, flip)
 
     before = (scatter_add.launches, scatter_add_bf16.launches)
-    loss_k, g_kernel = step_grads(torch, field, *inputs)
+    with parity.recording_shaded() as shaded:
+        loss_k, g_kernel = step_grads(torch, field, *inputs)
     want = (scatter_launches_per_step(statics, cfg.model_name, [cfg.batch_size], grid,
-                                      field.line_a_dtype),
-            bf16_launches_per_step(statics, cfg.model_name, [cfg.batch_size], field.grid_dtype))
+                                      field.line_a_dtype, shaded, field.grid_dtype),
+            bf16_launches_per_step(statics, cfg.model_name, [cfg.batch_size], field.grid_dtype,
+                                   shaded))
     got = (scatter_add.launches - before[0], scatter_add_bf16.launches - before[1])
     check(got == want, f"{label}: the kernel step launched (scatter_add, scatter_add_bf16) "
           f"{got} times, not {want}")
@@ -709,66 +715,94 @@ def check_schedule(result, cfg):
     check(any(e.get("refiltered") for e in result.events), "no alpha ray re-filtering")
 
 
-def scatter_launches_per_step(statics, model_name: str, batches, grid, a_dtype=None) -> int:
+def appearance_rows(statics, batches, shaded=None) -> list:
+    """The rows each render of a step gathers appearance for: its rays x
+    the top K where top-K shading is below the render's width, else the
+    render's samples whose weight passes the threshold, ``shaded[r]`` (what
+    ``parity.recording_shaded`` read back; needed only for such a render)."""
+    from tensorf_tpu_torch.train.step import render_widths
+
+    k = statics.shade_top_k
+    rows = []
+    for r, (b, w) in enumerate(zip(batches, render_widths(statics))):
+        if k is not None and k < w:
+            rows.append(b * k)
+        elif shaded is None:
+            raise ValueError("a render without top-K shading shades the samples over the "
+                             "threshold: pass each render's count as ``shaded``")
+        else:
+            rows.append(int(shaded[r]))
+    return rows
+
+
+def scatter_launches_per_step(statics, model_name: str, batches, grid, a_dtype=None,
+                              shaded=None, grid_dtype=None) -> int:
     """The scatter-adds one train step of ``model_name`` launches under
     ``statics`` with ``batches`` rays in each render (the strata's quotas,
-    or the batch) on a ``grid`` (X, Y, Z): one per gathered table.  The
-    fused path gathers each feature pass's three plane tables (TensorCP has
-    none) and samples its three lines by the one-hot matmul, which
-    scatters nothing, except a line that models/tensorf.py's
+    or the batch) on a ``grid`` (X, Y, Z): one per gathered table.  Each
+    render gathers density over its width and appearance apart, over the
+    rows of ``appearance_rows`` (``shaded``: see there); a pass over no rows
+    launches nothing.  The fused path gathers each pass's three plane tables
+    (TensorCP has none) and samples its three lines by the one-hot matmul,
+    which scatters nothing, except a line that models/tensorf.py's
     line_uses_matmul sends to the footprint gather at that pass's points.
-    TensorVMSplit's and TensorVM's fused path packs density and appearance
-    into one pass unless top-K shading below the render's width gathers
-    them apart (a density pass over the width, an appearance pass over the
-    top K).  Unfused, every plane and line is a row gather of its own: 12
-    for the VM models, CP's 6 lines.  ``a_dtype`` is the field's line
-    one-hot dtype (a bf16 one-hot keeps twice the points)."""
+    Unfused, every plane and line is a row gather of its own: 6 a pass for
+    the VM models, CP's 3 lines; so are the shaded rows of a render without
+    top-K where the field runs in float32 (``a_dtype``, the line one-hot's
+    dtype, None and ``grid_dtype`` float32 or None).  A bf16 one-hot keeps
+    twice the points."""
+    import torch
+
     from tensorf_tpu_torch.models.config import VEC_MODE
     from tensorf_tpu_torch.models.tensorf import line_uses_matmul
     from tensorf_tpu_torch.train.step import render_widths
 
-    widths = render_widths(statics)
-    if not statics.fused:
-        return (6 if model_name == "TensorCP" else 12) * len(widths)
     planes = 0 if model_name == "TensorCP" else 3
+    direct = 3 if model_name == "TensorCP" else 6
+    float32 = a_dtype is None and grid_dtype in (None, torch.float32)
+    k = statics.shade_top_k
 
-    def feature_pass(points):
+    def feature_pass(points, fused):
+        if not points:
+            return 0
+        if not fused:
+            return direct
         return planes + sum(not line_uses_matmul(points, grid[v], a_dtype) for v in VEC_MODE)
 
-    k = statics.shade_top_k
-    return sum(feature_pass(b * w) + feature_pass(b * k) if k is not None and k < w
-               else feature_pass(b * w) for b, w in zip(batches, widths))
+    return sum(
+        feature_pass(b * w, statics.fused)
+        + feature_pass(rows, statics.fused and not (float32 and (k is None or k >= w)))
+        for b, w, rows in zip(batches, render_widths(statics),
+                              appearance_rows(statics, batches, shaded)))
 
 
-def bf16_launches_per_step(statics, model_name: str, batches, grid_dtype) -> int:
+def bf16_launches_per_step(statics, model_name: str, batches, grid_dtype, shaded=None) -> int:
     """The scatter-adds of bf16 rows one train step launches: the fused
     path's plane tables, which TensorVMSplit alone casts to ``grid_dtype``
-    (as JAX), three per feature pass; the lines' footprint tables stay
-    float32."""
+    (as JAX), three per feature pass with rows (``shaded``: see
+    appearance_rows); the lines' footprint tables stay float32."""
     import torch
-
-    from tensorf_tpu_torch.train.step import render_widths
 
     if not statics.fused or model_name != "TensorVMSplit" or grid_dtype != torch.bfloat16:
         return 0
-    k = statics.shade_top_k
-    return sum(6 if k is not None and k < w else 3
-               for _, w in zip(batches, render_widths(statics)))
+    return sum(3 + (3 if rows else 0) for rows in appearance_rows(statics, batches, shaded))
 
 
-def launches_of_step(state) -> dict:
+def launches_of_step(state, shaded=None) -> dict:
     """The launches of each kernel that the step the loop's ``state`` takes
     calls for: scatter_add counts both entry points, scatter_add_bf16 the
-    bf16 one."""
+    bf16 one; ``shaded``: the step's renders' shaded samples
+    (``parity.recording_shaded``)."""
     from tensorf_tpu_torch.train.loop import build_statics
 
     statics, field = build_statics(state), state.field
     batches = state.quotas or [state.cfg.batch_size]
     return {
         "scatter_add": scatter_launches_per_step(statics, state.cfg.model_name, batches,
-                                                 state.geometry.grid_size, field.line_a_dtype),
+                                                 state.geometry.grid_size, field.line_a_dtype,
+                                                 shaded, field.grid_dtype),
         "scatter_add_bf16": bf16_launches_per_step(statics, state.cfg.model_name, batches,
-                                                   field.grid_dtype),
+                                                   field.grid_dtype, shaded),
     }
 
 
@@ -779,21 +813,24 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     whose steps call for none, such as TensorCP's, no time at all)."""
     import numpy as np
 
+    from tensorf_tpu_torch.parallel import parity
     from tensorf_tpu_torch.train.loop import reconstruction
 
     want = dict.fromkeys(kernels, 0)
 
     def count(it, state):  # runs after step ``it``, whose statics the state still holds
-        for kernel, n in launches_of_step(state).items():
+        for kernel, n in launches_of_step(state, shaded).items():
             want[kernel] += n
+        shaded.clear()
         if on_step is not None:
             on_step(it, state)
 
     for fn, *_ in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    result = reconstruction(cfg, scene, "cuda", save_images=False, on_step=count,
-                            log=lambda m: print(f"{name}: {m}", flush=True))
+    with parity.recording_shaded() as shaded:
+        result = reconstruction(cfg, scene, "cuda", save_images=False, on_step=count,
+                                log=lambda m: print(f"{name}: {m}", flush=True))
     torch.cuda.synchronize()
     launches = {k: v[0].launches for k, v in kernels.items()}
     print(f"{name}: {steps} steps, test-set evaluations and checkpoint in "
@@ -1377,21 +1414,24 @@ def first_segment(torch, np, name, cfg, scene, kernels, steps, capture=None):
     after (each step's statics say how many it calls for); ``capture(it,
     state)`` runs after each step.  Returns (result, launches, untrained
     test PSNR), the untrained field's PSNR on the same test view."""
+    from tensorf_tpu_torch.parallel import parity
     from tensorf_tpu_torch.train.loop import train_steps
 
     untrained = train_steps(cfg, 0, device="cuda", scene=scene, log=lambda m: None).test_psnr
     want = dict.fromkeys(kernels, 0)
 
     def count(it, state):
-        for kernel, n in launches_of_step(state).items():
+        for kernel, n in launches_of_step(state, shaded).items():
             want[kernel] += n
+        shaded.clear()
         if capture is not None:
             capture(it, state)
 
     for fn, *_ in kernels.values():
         fn.launches = 0
-    result = train_steps(cfg, steps, device="cuda", scene=scene, on_step=count,
-                         log=lambda m: print(f"{name}: {m}", flush=True))
+    with parity.recording_shaded() as shaded:
+        result = train_steps(cfg, steps, device="cuda", scene=scene, on_step=count,
+                             log=lambda m: print(f"{name}: {m}", flush=True))
     torch.cuda.synchronize()
     launches = {k: v[0].launches for k, v in kernels.items()}
     print(f"{name}: {cfg.model_name} {cfg.shadingMode}, {steps} steps at "
@@ -1422,10 +1462,8 @@ def tensorvm_phase(torch, np, kernels, workdir, scene):
     def capture(it, state):
         if it == FIRST_SEGMENT - 1:
             # every stratum's render splits density from appearance here
-            # (top-64 below each width); the packed table is what the same
-            # step gathers where it shades every sample
+            # (top-64 below each width)
             streams.update(capture_streams(torch, state, "tensorvm_128", 0))
-            streams.update(capture_streams(torch, state, "tensorvm_128", 0, shade_top_k=None))
 
     result, launches, untrained = first_segment(torch, np, "tensorvm", cfg, scene, kernels,
                                                 FIRST_SEGMENT, capture)
@@ -1970,8 +2008,9 @@ def dp_path_phase(torch, np, cfg, scene, main_psnr):
               and res["final_checksum"] == got[0]["final_checksum"],
               f"dp_path: rank {r}'s parameter checksums {res['checksums']} differ from rank 0's "
               f"{got[0]['checksums']}")
-        want = sum(n * scatter_launches_per_step(statics, cfg.model_name, batches, grid, a_dtype)
-                   for statics, batches, grid, a_dtype, _, n in res["steps"])
+        want = sum(n * scatter_launches_per_step(statics, cfg.model_name, batches, grid, a_dtype,
+                                                 shaded, grid_dtype)
+                   for statics, batches, grid, a_dtype, grid_dtype, shaded, n in res["steps"])
         n_launch = res["launches"]["scatter_add"]
         check(n_launch == want > 0, f"dp_path: rank {r} launched the kernel {n_launch} times, "
               f"the per-stratum sum of its shares is {want}")

@@ -261,37 +261,6 @@ class TensorVMSplit(_Field):
             coefs.append(p * l)
         return torch.cat(coefs, dim=-1) @ self.basis
 
-    def fused_features(self, xyz: torch.Tensor, den_mask, app_mask):
-        """One gather pass -> (density_feature (M,), app_feature (M, app_dim)).
-
-        Per axis, density+appearance planes are packed channel-wise into one
-        footprint table, so each sample gathers 3 plane rows and 3 line
-        matmul rows.  Equal to density_feature + app_feature for in-bbox
-        samples.
-        """
-        den_feat = torch.zeros(xyz.shape[:-1], dtype=xyz.dtype, device=xyz.device)
-        app_coefs = []
-        for i in range(3):
-            m0, m1 = MAT_MODE[i]
-            rd = self.cfg.density_n_comp[i]
-            packed = torch.cat([self.density_plane[i], self.app_plane[i]], dim=-1)
-            packed = packed.to(self.grid_dtype)
-            H, W, _ = packed.shape
-            pv = footprint_sample_2d(make_footprint_2d(packed), H, W, xyz[..., [m0, m1]])
-            lpacked = torch.cat([self.density_line[i], self.app_line[i]], dim=-1)
-            lv = _sample_line_packed(lpacked, xyz[..., VEC_MODE[i]], self.line_a_dtype)
-            dp, ap = pv[..., :rd], pv[..., rd:]
-            dl, al = lv[..., :rd], lv[..., rd:]
-            if den_mask is not None:
-                dp = dp * den_mask[i]
-                dl = dl * den_mask[i]
-            if app_mask is not None:
-                ap = ap * app_mask[i]
-                al = al * app_mask[i]
-            den_feat = den_feat + torch.sum(dp * dl, dim=-1)
-            app_coefs.append(ap * al)
-        return den_feat, torch.cat(app_coefs, dim=-1) @ self.basis
-
     def density_feature_fused(self, xyz: torch.Tensor, mask) -> torch.Tensor:
         """Density-only footprint path: 3 plane rows + 3 line matmuls."""
         feat = torch.zeros(xyz.shape[:-1], dtype=xyz.dtype, device=xyz.device)
@@ -397,19 +366,6 @@ class TensorCP(_Field):
             prod = prod * mask[0]
         return prod @ self.basis
 
-    def fused_features(self, xyz: torch.Tensor, den_mask, app_mask):
-        """One packed line matmul per axis -> (density (M,), appearance
-        (M, app_dim)): the density and appearance lines share each row."""
-        rd = self.cfg.density_n_comp[0]
-        lines = [torch.cat([self.density_line[i], self.app_line[i]], dim=-1) for i in range(3)]
-        prod = self._line_product_fused(lines, xyz)
-        dprod, aprod = prod[..., :rd], prod[..., rd:]
-        if den_mask is not None:
-            dprod = dprod * den_mask[0]
-        if app_mask is not None:
-            aprod = aprod * app_mask[0]
-        return torch.sum(dprod, dim=-1), aprod @ self.basis
-
     def density_feature_fused(self, xyz: torch.Tensor, mask) -> torch.Tensor:
         """Lines only: already the matmul path."""
         prod = self._line_product_fused(self.density_line, xyz)
@@ -500,22 +456,6 @@ class TensorVM(_Field):
 
     def app_feature(self, xyz: torch.Tensor, mask) -> torch.Tensor:
         return torch.cat(list(self._gather(xyz, 0, self.cfg.app_n_comp[0])), dim=-1) @ self.basis
-
-    def fused_features(self, xyz: torch.Tensor, den_mask, app_mask):
-        """One footprint gather and one line matmul per axis serve both
-        fields: their channel ranges already share the rows."""
-        rd, ra = self.cfg.density_n_comp[0], self.cfg.app_n_comp[0]
-        den_feat = torch.zeros(xyz.shape[:-1], dtype=xyz.dtype, device=xyz.device)
-        app_coefs = []
-        for i in range(3):
-            m0, m1 = MAT_MODE[i]
-            plane = self.plane[i]
-            H, W, _ = plane.shape
-            pv = footprint_sample_2d(make_footprint_2d(plane), H, W, xyz[..., [m0, m1]])
-            lv = _sample_line_packed(self.line[i], xyz[..., VEC_MODE[i]], self.line_a_dtype)
-            den_feat = den_feat + torch.sum(pv[..., -rd:] * lv[..., -rd:], dim=-1)
-            app_coefs.append(pv[..., :ra] * lv[..., :ra])
-        return den_feat, torch.cat(app_coefs, dim=-1) @ self.basis
 
     def density_feature_fused(self, xyz: torch.Tensor, mask) -> torch.Tensor:
         """The density channel range's own footprint tables."""

@@ -12,13 +12,15 @@ the one-rank reference:
   split over the ranks;
 - ``reconstruct``: ``reconstruction`` on a rank, with what a check of the
   ranks' agreement needs (plan lines, parameter checksums after every
-  event, the kernel's launches and the statics each step ran under);
+  event, the kernel's launches, the statics each step ran under and the
+  samples each of its renders shaded, ``recording_shaded``);
 - ``agreed_resume`` and ``fail_on_rank``: the resume agreement and a
   failing rank, for the launch's tests.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -159,6 +161,29 @@ def serve(group: Optional[RankGroup], device, case: dict) -> dict:
     return dict(rgb=rgb, depth=depth, n_valid=int(n_valid), overflow=handle.max_overflow)
 
 
+@contextlib.contextmanager
+def recording_shaded():
+    """A list that receives each train-step render's shaded samples (its
+    ``num_valid_samples``, kept on the device until read), render by
+    render: train/step.py's render_rays wrapped.  A render without a top-K
+    below its width gathers appearance for just those samples, so the
+    scatter-adds a step launches depend on them."""
+    from unittest import mock
+
+    from ..train import step
+
+    shaded = []
+    inner = step.render_rays
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        shaded.append(out.num_valid_samples.detach())
+        return out
+
+    with mock.patch.object(step, "render_rays", recording):
+        yield shaded
+
+
 def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = False) -> dict:
     """``reconstruction`` of ``cfg`` on this rank with the kernel's launch
     count set to 0 just before and read just after.  Records the log lines,
@@ -174,7 +199,8 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
 
     lines = []
     checksums: Dict[int, float] = {}
-    steps = []  # [statics, local batches, grid, line dtype, grid dtype, n_steps]
+    # [statics, local batches, grid, line dtype, grid dtype, shaded a render, n_steps]
+    steps = []
     event_iters = set(cfg.update_AlphaMask_list) | set(cfg.upsamp_list)
     world = group.world if group is not None else 1
 
@@ -182,7 +208,9 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
         # every rank renders 1/W of each global quota
         batches = [q // world for q in (state.quotas or [cfg.batch_size])]
         sig = [build_statics(state), batches, tuple(state.geometry.grid_size),
-               state.field.line_a_dtype, state.field.grid_dtype]
+               state.field.line_a_dtype, state.field.grid_dtype,
+               torch.stack(shaded).tolist() if shaded else []]
+        shaded.clear()
         if steps and steps[-1][:-1] == sig:
             steps[-1][-1] += 1
         else:
@@ -191,8 +219,9 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
             checksums[it] = param_digest(state.field)
 
     scatter_add.launches = scatter_add_bf16.launches = 0
-    result = reconstruction(cfg, scene, device, save_images=False, log=lines.append,
-                            on_step=on_step, group=group)
+    with recording_shaded() as shaded:
+        result = reconstruction(cfg, scene, device, save_images=False, log=lines.append,
+                                on_step=on_step, group=group)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return dict(

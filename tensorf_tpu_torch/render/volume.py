@@ -7,11 +7,12 @@ nearest-neighbour gate is set.  A ``sample_budget`` K below the lattice
 compacts each ray to its K nearest candidate samples before the field is
 queried (the reference's boolean compaction, with a fixed K): exact
 whenever K covers every candidate, and ``budget_overflow_frac`` reports
-the rays where it does not.  Shading runs where the weight passes
-``ray_march_weight_thres`` — over every kept sample, or (``shade_top_k``)
-over the top-K weights per ray only.  Serving renders take their candidate
-windows from the count pass's packed window bits (``cand_window_bits``)
-and build no sample lattice.  NDC rays (forward-facing scenes) sample
+the rays where it does not.  Shading runs only where the weight passes
+``ray_march_weight_thres``: on exactly those samples, compacted to rows
+(one read-back of their number a render, the one shape here that the
+data sets), or (``shade_top_k``) on the top-K weights per ray, gated.
+Serving renders take their candidate windows from the count pass's packed
+window bits (``cand_window_bits``) and build no sample lattice.  NDC rays (forward-facing scenes) sample
 linspace(near, far) with per-sample jitter, scale each distance by the
 ray's direction norm and shade with the normalized direction.
 
@@ -374,17 +375,12 @@ def render_rays(
         return apply_shading(cfg, field.render, pts, view, app_feat, masks).reshape(B, K, 3)
 
     top_k = shade_top_k is not None and shade_top_k < N
+    density_feature = field.density_feature_fused if fused else field.density_feature
+    app_feature = field.app_feature_fused if fused else field.app_feature
 
     with tracing.span("tftorch.render.density"):
         xyz_n = normalize_coord(xyz, aabb)  # (B, n_eff, 3)
-        if fused and not top_k:
-            # One packed gather pass for density + appearance.
-            den_feat, app_feat = field.fused_features(xyz_n.reshape(-1, 3), masks.den, masks.app)
-        elif fused:
-            den_feat = field.density_feature_fused(xyz_n.reshape(-1, 3), masks.den)
-        else:
-            den_feat = field.density_feature(xyz_n.reshape(-1, 3), masks.den)
-        sigma = sigma_of(den_feat)
+        sigma = sigma_of(density_feature(xyz_n.reshape(-1, 3), masks.den))
         _, weight, _ = raw2alpha(sigma, dists * cfg.distance_scale)
         app_gate = weight > cfg.ray_march_weight_thres
         num_valid = torch.sum(app_gate.to(torch.int32))
@@ -395,21 +391,34 @@ def render_rays(
             # covers every above-threshold sample.  torch.topk may order tied
             # weights differently from jax.lax.top_k; the render is the same.
             K = shade_top_k
+            n_shade = B * K
             w_sel, idx = torch.topk(weight, K, dim=-1)
             xyz_sel = torch.take_along_dim(xyz_n, idx[..., None], dim=1).reshape(-1, 3)
             gate_sel = w_sel > cfg.ray_march_weight_thres
-            if fused:
-                app_feat_sel = field.app_feature_fused(xyz_sel, masks.app)
-            else:
-                app_feat_sel = field.app_feature(xyz_sel, masks.app)
+            app_feat_sel = app_feature(xyz_sel, masks.app)
             rgb_s = shade(xyz_sel, app_feat_sel.reshape(B * K, -1), K)
             rgb_s = torch.where(gate_sel[..., None], rgb_s, zero)
             rgb_map = torch.sum(w_sel[..., None] * rgb_s, dim=-2)
         else:
-            if not fused:
-                app_feat = field.app_feature(xyz_n.reshape(-1, 3), masks.app)
-            rgb_s = shade(xyz_n.reshape(-1, 3), app_feat, N)
-            rgb_s = torch.where(app_gate[..., None], rgb_s, zero)
+            # Appearance and the head only on the samples whose weight passes
+            # the threshold (the reference's app_mask), compacted to rows; the
+            # read-back of their number is what the rows' shapes need.  Every
+            # other slot's radiance is exactly zero, as the gate made it.  With
+            # no row passing, the zero rows still give the appearance factors
+            # and the head zero gradients, so Adam steps every leaf.  The rows
+            # gather their taps directly: at so few rows that beats building
+            # and scattering whole footprint tables (``chip_dev.py
+            # shade_route`` times both), and it is the fused path's
+            # arithmetic where that runs in float32.
+            rows = torch.nonzero(app_gate.reshape(-1)).squeeze(-1)
+            n_shade = rows.shape[0]
+            pts = xyz_n.reshape(-1, 3).index_select(0, rows)
+            float32 = field.grid_dtype == torch.float32 and field.line_a_dtype is None
+            app_feat = (field.app_feature if float32 else app_feature)(pts, masks.app)
+            rgb = apply_shading(cfg, field.render, pts, viewdirs.index_select(0, rows // N),
+                                app_feat, masks)
+            rgb_s = torch.zeros((B * N, 3), dtype=rgb.dtype, device=rgb.device)
+            rgb_s = rgb_s.index_put((rows,), rgb).reshape(B, N, 3)
             rgb_map = torch.sum(weight[..., None] * rgb_s, dim=-2)
 
     if tracing.enabled():
@@ -417,7 +426,7 @@ def render_rays(
         tracing.count("render.rays", B)
         tracing.count("render.density_rows", B * N)
         tracing.count("render.alive", mean_alive, B)
-        tracing.count("render.shade_rows", B * (shade_top_k if top_k else N))
+        tracing.count("render.shade_rows", n_shade)
         tracing.count("render.shaded", num_valid)
     with tracing.span("tftorch.render.composite"):
         return _composite(

@@ -489,6 +489,88 @@ def test_budgeted_render_and_counts_on_the_card_match_the_cpu(budget):
 
 
 @pytest.mark.cuda
+def test_compacted_flower_step_on_the_card_matches_the_dense_formula():
+    """One train step of a small flower-like field (NDC rays, TensorVMSplit
+    16/4/4 + 48/12/12, MLP_Fea with PE 0, no top-K), whose shading runs
+    only on the ~1% of slots over the weight threshold, against the dense
+    formula on the card: every slot's features and head, ``where`` on the
+    gate, the weighted sum.  The same loss and every gradient (the shaded
+    rows' appearance gradients sum the same terms by the direct taps'
+    scatters instead of the footprint tables', in another order)."""
+    import dataclasses
+
+    from tensorf_tpu_torch.models import ModelConfig, TensorVMSplit
+    from tensorf_tpu_torch.models.shading import apply_shading
+    from tensorf_tpu_torch.ops.freq_mask import FreeMasks
+    from tensorf_tpu_torch.ops.rays import sample_along_rays_ndc
+    from tensorf_tpu_torch.ops.render_math import raw2alpha
+    from tensorf_tpu_torch.render.volume import feature2density, normalize_coord
+    from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
+
+    _need_gpu()
+    B, N = 2048, 128
+    cfg = ModelConfig(density_n_comp=(16, 4, 4), app_n_comp=(48, 12, 12), app_dim=27,
+                      shading_mode="MLP_Fea", pos_pe=0, view_pe=0, fea_pe=0, feature_c=128,
+                      fea2dense_act="relu", near_far=(0.0, 1.0))
+    field = TensorVMSplit(cfg, (96, 104, 64), "cuda", torch.Generator().manual_seed(6))
+    aabb = torch.tensor([[-1.5, -1.67, -1.0], [1.5, 1.67, 1.0]], device="cuda")
+    rng = np.random.default_rng(8)
+    o = np.concatenate([rng.uniform(-1.2, 1.2, size=(B, 2)), -np.ones((B, 1))], -1)
+    d = np.concatenate([rng.uniform(-0.8, 0.8, size=(B, 2)), 2.0 * np.ones((B, 1))], -1)
+    rays = torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32)).cuda()
+    rgbs = torch.from_numpy(rng.uniform(size=(B, 3)).astype(np.float32)).cuda()
+    jitter = torch.from_numpy(rng.uniform(size=(B, N)).astype(np.float32)).cuda()
+    flip = torch.tensor(1.0, device="cuda")
+
+    def dense_loss():
+        near, far = cfg.near_far
+        xyz, z, valid = sample_along_rays_ndc(rays[:, :3], rays[:, 3:6], aabb, near, far, N,
+                                              jitter)
+        norm = torch.linalg.norm(rays[:, 3:6], dim=-1, keepdim=True)
+        dists = torch.cat([z[:, 1:] - z[:, :-1], torch.zeros_like(z[:, :1])], dim=-1) * norm
+        pts = normalize_coord(xyz, aabb).reshape(-1, 3)
+        sigma = torch.where(valid, feature2density(
+            field.cfg, field.density_feature_fused(pts, None).reshape(B, N)), 0.0)
+        _, weight, _ = raw2alpha(sigma, dists * field.cfg.distance_scale)
+        gate = weight > field.cfg.ray_march_weight_thres
+        view = (rays[:, None, 3:6] / norm[:, None]).expand(B, N, 3).reshape(-1, 3)
+        rgb_s = apply_shading(field.cfg, field.render, pts, view,
+                              field.app_feature_fused(pts, None), FreeMasks()).reshape(B, N, 3)
+        rgb = torch.sum(weight[..., None] * torch.where(gate[..., None], rgb_s, 0.0), dim=-2)
+        rgb = torch.clamp(rgb + flip * (1.0 - torch.sum(weight, dim=-1)[..., None]), 0.0, 1.0)
+        return torch.mean(torch.square(rgb - rgbs)), weight, torch.sum(gate)
+
+    with torch.no_grad():
+        thres = float(torch.quantile(dense_loss()[1].flatten(), 0.99))
+    field.cfg = dataclasses.replace(cfg, ray_march_weight_thres=thres)
+    statics = TrainStatics(n_samples=N, step_size=0.0, white_bg=False, ndc_ray=True,
+                           total_steps=100, lr_factor=1.0, weights=LossWeights(),
+                           shade_top_k=None, fused=True)
+    grads = {}
+    for name in ("compacted", "dense"):
+        field.zero_grad(set_to_none=True)
+        before = scatter_add.launches
+        if name == "compacted":
+            total, metrics = loss_fn(field, statics, aabb, rays, rgbs, 3, jitter, flip)
+            shaded = int(metrics["num_valid_samples"])
+        else:
+            total, _, gate_sum = dense_loss()
+            assert int(gate_sum) == shaded
+        total.backward()
+        torch.cuda.synchronize()
+        # the density's three plane tables; the appearance's three plane tables
+        # over every slot, or the shaded rows' direct taps of three planes and
+        # three lines
+        assert scatter_add.launches - before == {"compacted": 9, "dense": 6}[name]
+        grads[name] = (float(total.detach()),
+                       {n: p.grad.cpu().numpy() for n, p in field.named_parameters()})
+    assert 0 < shaded < B * N // 50
+    assert grads["compacted"][0] == pytest.approx(grads["dense"][0], rel=1e-6)
+    for name, g in grads["dense"][1].items():
+        np.testing.assert_allclose(grads["compacted"][1][name], g, err_msg=name, **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("path", [dict(), dict(use_coarse_gate=False), dict(alive_stage=True)],
                          ids=["resident", "legacy", "legacy_alive_stage"])
 def test_stratified_serving_on_the_card_matches_uniform_and_cpu(path):

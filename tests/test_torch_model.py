@@ -95,14 +95,11 @@ def test_features_match_jax_and_fused_equals_unfused(rng, masked):
         (field.density_feature_fused(x, td), JM.density_feature_fused(CFG, params, xyz, jd)),
         (field.app_feature_fused(x, ta), JM.app_feature_fused(CFG, params, xyz, ja)),
     ]
-    fd, fa = field.fused_features(x, td, ta)
-    jfd, jfa = JM.fused_features(CFG, params, xyz, jd, ja)
-    pairs += [(fd, jfd), (fa, jfa)]
     for got, want in pairs:
         close(got, want)
     # fused == unfused inside the port (tests/test_fused.py's invariant)
-    close(fd, field.density_feature(x, td), dict(rtol=1e-4, atol=1e-5))
-    close(fa, field.app_feature(x, ta), dict(rtol=1e-4, atol=1e-5))
+    close(pairs[2][0], pairs[0][0], dict(rtol=1e-4, atol=1e-5))
+    close(pairs[3][0], pairs[1][0], dict(rtol=1e-4, atol=1e-5))
 
 
 def test_regularizers_match_jax():

@@ -112,8 +112,6 @@ def test_features_match_jax(rng, model, masked):
         (field.app_feature(x, ta), JM.app_feature(cfg, params, xyz, ja)),
         (field.density_feature_fused(x, td), JM.density_feature_fused(cfg, params, xyz, jd)),
         (field.app_feature_fused(x, ta), JM.app_feature_fused(cfg, params, xyz, ja)),
-        (field.fused_features(x, td, ta)[0], JM.fused_features(cfg, params, xyz, jd, ja)[0]),
-        (field.fused_features(x, td, ta)[1], JM.fused_features(cfg, params, xyz, jd, ja)[1]),
     ]
     for got, want in pairs:
         close(got, want)
@@ -121,8 +119,8 @@ def test_features_match_jax(rng, model, masked):
         # TensorVM reads no rank mask, in either package
         for got, plain in ((field.density_feature(x, td), field.density_feature(x, None)),
                            (field.app_feature_fused(x, ta), field.app_feature_fused(x, None)),
-                           (field.fused_features(x, td, ta)[0],
-                            field.fused_features(x, None, None)[0])):
+                           (field.density_feature_fused(x, td),
+                            field.density_feature_fused(x, None))):
             assert torch.equal(got, plain)
     if masked and model == "TensorCP":
         # CP's mask applies once, its first entry, to the line product
@@ -136,12 +134,9 @@ def test_fused_equals_unfused(rng, model, masked):
     x = t(rng.uniform(-1, 1, size=(200, 3)).astype(np.float32))
     td = rank_masks(rng, cfg.density_n_comp)[1] if masked else None
     ta = rank_masks(rng, cfg.app_n_comp)[1] if masked else None
-    fd, fa = field.fused_features(x, td, ta)
     tol = dict(rtol=1e-4, atol=1e-5)
-    close(fd, field.density_feature(x, td), tol)
-    close(fa, field.app_feature(x, ta), tol)
-    close(field.density_feature_fused(x, td), fd, tol)
-    close(field.app_feature_fused(x, ta), fa, tol)
+    close(field.density_feature_fused(x, td), field.density_feature(x, td), tol)
+    close(field.app_feature_fused(x, ta), field.app_feature(x, ta), tol)
 
 
 @pytest.mark.parametrize("model", MODELS)

@@ -313,18 +313,19 @@ def test_line_dispatch_takes_the_footprint_above_its_bounds(monkeypatch):
 
         field.zero_grad(set_to_none=True)
         with mock.patch.object(tgs, "scatter_add", counting):
-            den, app = field.fused_features(xyz, None, None)
+            den = field.density_feature_fused(xyz, None)
+            app = field.app_feature_fused(xyz, None)
             (den.sum() + app.sum()).backward()
         return den.detach(), app.detach(), calls
 
     den, app, calls = run()
-    assert len(calls) == 3  # the three packed plane tables
+    assert len(calls) == 6  # the three density and three appearance plane tables
     # a bound below 50 points x the shortest line (8) x 4 B: every line above it
     monkeypatch.setattr(ttensorf, "_ONE_HOT_MAX_BYTES", 50 * 7 * 4)
     f_den, f_app, f_calls = run()
-    # the plane tables (4 taps x 7, 5, 5 packed ranks), then the line tables
-    # (2 taps x the same)
-    assert sorted(f_calls) == sorted([28, 20, 20, 14, 10, 10])
+    # the plane tables (4 taps x 3, 2, 2 density and 4, 3, 3 appearance
+    # ranks), then the line tables (2 taps x the same)
+    assert sorted(f_calls) == sorted([12, 8, 8, 16, 12, 12, 6, 4, 4, 8, 6, 6])
     np.testing.assert_allclose(f_den.numpy(), den.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(f_app.numpy(), app.numpy(), rtol=1e-5, atol=1e-6)
 

@@ -115,6 +115,7 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
     from tensorf_tpu_torch.models import tensorf
     from tensorf_tpu_torch.ops import grid_sample
     from tensorf_tpu_torch.ops.scatter_add import scatter_add_reference
+    from tensorf_tpu_torch.parallel import parity
     from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
 
     ranks = (3, 3, 3) if model == "TensorVMSplit" else (3,)
@@ -143,16 +144,18 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
         calls = []
 
         def counting(idx, g, n_rows):
-            calls.append(g.shape[1])
+            if idx.shape[0]:  # the card launches nothing for no rows
+                calls.append(g.shape[1])
             return scatter_add_reference(idx, g, n_rows)
 
         field.zero_grad(set_to_none=True)
-        with mock.patch.object(grid_sample, "scatter_add", counting):
+        with mock.patch.object(grid_sample, "scatter_add", counting), \
+                parity.recording_shaded() as shaded:
             total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
             total.backward()
         batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
         assert len(calls) == chip_smoke.scatter_launches_per_step(statics, model, batches,
-                                                                  (10, 11, 12))
+                                                                  (10, 11, 12), shaded=shaded)
 
 
 @pytest.mark.parametrize("model", ["TensorVMSplit", "TensorCP", "TensorVM"])
@@ -169,6 +172,7 @@ def test_bf16_launches_per_step_count_the_bf16_gathers(model, fused, top_k):
     from tensorf_tpu_torch.models import FIELD_MODELS
     from tensorf_tpu_torch.ops import grid_sample
     from tensorf_tpu_torch.ops.scatter_add import scatter_add_reference
+    from tensorf_tpu_torch.parallel import parity
     from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
 
     ranks = (3, 3, 3) if model == "TensorVMSplit" else (3,)
@@ -196,18 +200,20 @@ def test_bf16_launches_per_step_count_the_bf16_gathers(model, fused, top_k):
         calls = []
 
         def counting(idx, g, n_rows):
-            calls.append(g.dtype)
+            if idx.shape[0]:  # the card launches nothing for no rows
+                calls.append(g.dtype)
             return scatter_add_reference(idx, g, n_rows)
 
         field.zero_grad(set_to_none=True)
-        with mock.patch.object(grid_sample, "scatter_add", counting):
+        with mock.patch.object(grid_sample, "scatter_add", counting), \
+                parity.recording_shaded() as shaded:
             total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
             total.backward()
         batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
         assert len(calls) == chip_smoke.scatter_launches_per_step(
-            statics, model, batches, (10, 11, 12), field.line_a_dtype)
+            statics, model, batches, (10, 11, 12), field.line_a_dtype, shaded, field.grid_dtype)
         assert calls.count(torch.bfloat16) == chip_smoke.bf16_launches_per_step(
-            statics, model, batches, field.grid_dtype)
+            statics, model, batches, field.grid_dtype, shaded)
         assert (calls.count(torch.bfloat16) > 0) == (model == "TensorVMSplit" and fused)
 
 

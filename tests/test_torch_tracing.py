@@ -150,7 +150,15 @@ def test_serve_spans_nest_in_the_view(scene, coarse):
 
 
 @pytest.mark.parametrize("stratified", [False, True], ids=["uniform", "strata"])
-def test_render_counters_equal_the_step_counts(scene, stratified):
+def test_render_counters_equal_the_step_counts(scene, stratified, monkeypatch):
+    calls = []
+    count = tracing.count
+
+    def recording(name, value, scale=1.0):
+        calls.append((name, float(value) * scale))
+        count(name, value, scale)
+
+    monkeypatch.setattr(tracing, "count", recording)
     state = _state(scene, **({} if stratified else dict(stratify=0)))
     assert (state.strata_budgets is not None) == stratified
     with profile(activities=[ProfilerActivity.CPU]):
@@ -163,8 +171,14 @@ def test_render_counters_equal_the_step_counts(scene, stratified):
     top = statics.shade_top_k
     assert counts["render.rays"] == batch == sum(sizes)
     assert counts["render.density_rows"] == sum(n * w for n, w in zip(sizes, widths))
-    assert counts["render.shade_rows"] == sum(
-        n * (top if top is not None and top < w else w) for n, w in zip(sizes, widths))
+    # a render shades its rays' top-K slots, or without a top-K below its
+    # width just the samples whose weight passes the threshold
+    per_render = {name: [v for n, v in calls if n == name]
+                  for name in ("render.shade_rows", "render.shaded")}
+    assert per_render["render.shade_rows"] == [
+        n * top if top is not None and top < w else shaded
+        for n, w, shaded in zip(sizes, widths, per_render["render.shaded"])]
+    assert counts["render.shade_rows"] == sum(per_render["render.shade_rows"])
     assert counts["render.shaded"] == float(m["num_valid_samples"]) > 0
     np.testing.assert_allclose(counts["render.alive"], float(m["mean_alive_samples"]) * batch,
                                rtol=1e-6)
