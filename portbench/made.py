@@ -12,15 +12,14 @@ each event would have left behind:
 * the grid is ``n_to_reso`` of the segment's voxel count on that box;
 * the alpha mask is the scene's occupancy on the mask's lattice, dilated
   3x3x3 as the mask update dilates it;
-* the density factors hold signed slab profiles of the occupancy: rank r of
-  axis i is +A on the columns of slab r that meet an object and -A on the
-  others, times the slab's indicator along the line, so the sum over the
-  three axes reaches 3A inside the objects and stays at or below A outside
-  the visual hull of the slabs; only the ranks that FreeNeRF's mask leaves
-  visible at the segment's first step get a slab;
-* every factor adds the init draw (0.1 randn) from the seed, the basis and
-  the MLP take the port's init distributions from the seed; the first
-  segment is that init draw alone, step 0 of a reconstruction;
+* the field's factors come from its module (``fields/<model_name>.py``,
+  ``make_factors``): the init draw from the seed, and in a late segment a
+  profile of the occupancy on the density ranks that FreeNeRF's mask
+  leaves visible at the segment's first step, whose sum reaches about 3A
+  inside the objects; the first segment is the init draw alone, step 0 of
+  a reconstruction;
+* the basis and the MLP take the port's init distributions from the seed,
+  after the factors;
 * Adam's moments are zero and the LR is the segment's own.
 
 Everything here is the benchmark's: the port gets the result
@@ -37,9 +36,6 @@ import torch
 import torch.nn.functional as F
 
 from .scene import Scene, occupancy
-
-MAT_MODE = ((0, 1), (0, 2), (1, 2))
-VEC_MODE = (2, 1, 0)
 
 
 def n_to_reso(n_voxels: int, aabb) -> tuple:
@@ -162,56 +158,24 @@ def visible_ranks(cfg, n_comp: int, step: int) -> int:
     return max(1, min(n_comp, int(math.floor(ptr)) * 4))
 
 
-def slab_profiles(occ_xyz: torch.Tensor, axis: int, ranks: int, amplitude: float):
-    """Signed slab profiles of one axis: (plane (H, W, ranks), line (L, ranks))."""
-    m0, m1 = MAT_MODE[axis]
-    a = VEC_MODE[axis]
-    L = occ_xyz.shape[a]
-    planes, lines = [], []
-    edges = np.linspace(0, L, ranks + 1).round().astype(int)
-    for r in range(ranks):
-        sl = [slice(None)] * 3
-        sl[a] = slice(int(edges[r]), int(max(edges[r + 1], edges[r] + 1)))
-        proj = occ_xyz[tuple(sl)].any(dim=a)  # over the two plane axes, in axis order
-        # axes left after the reduction, in order; the plane is (m1, m0)
-        left = [x for x in range(3) if x != a]
-        plane = proj if left == [m1, m0] else proj.T
-        planes.append(torch.where(plane, amplitude, -amplitude))
-        line = torch.zeros(L, device=occ_xyz.device)
-        line[sl[a]] = 1.0
-        lines.append(line)
-    return torch.stack(planes, -1), torch.stack(lines, -1)
-
-
 class Made(NamedTuple):
     segment: Segment
     params: Dict[str, torch.Tensor]  # the port's parameter names
     mask: Optional[torch.Tensor]  # (Z, Y, X) float {0, 1}, or None
 
 
-def make(cfg, spec: dict, scene: Scene, segment: Segment, seed: int, device) -> Made:
-    """The segment's field and mask from ``seed``: a card-side generator,
-    one draw per factor."""
+def make(field, cfg, spec: dict, scene: Scene, segment: Segment, seed: int, device) -> Made:
+    """The segment's state and mask from ``seed``: a card-side generator,
+    one draw per factor (``field``: the configuration's field module)."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    grid = segment.grid
-    occ = occupancy_grid(scene, segment.aabb, grid, device) if segment.iteration > 0 else None
-    params: Dict[str, torch.Tensor] = {}
-    amp = float(spec["density_amplitude"])
-    for field, ranks in (("density", cfg.n_lamb_sigma), ("app", cfg.n_lamb_sh)):
-        for i, (m0, m1) in enumerate(MAT_MODE):
-            H, W, L, R = grid[m1], grid[m0], grid[VEC_MODE[i]], int(ranks[i])
-            plane = 0.1 * torch.randn((H, W, R), generator=g, device=device)
-            line = 0.1 * torch.randn((L, R), generator=g, device=device)
-            if field == "density" and segment.iteration > 0:
-                # a late segment's field; the first segment starts from the
-                # init draw alone, as a reconstruction does
-                k = visible_ranks(cfg, R, segment.iteration)
-                p, l = slab_profiles(occ, i, k, amp)
-                plane[..., :k] += p
-                line[:, :k] += l
-            params[f"{field}_plane.{i}"] = plane
-            params[f"{field}_line.{i}"] = line
+    # a late segment's field; the first segment starts from the init draw
+    # alone, as a reconstruction does
+    occ = (occupancy_grid(scene, segment.aabb, segment.grid, device) if segment.iteration > 0
+           else None)
+    params = field.make_factors(cfg, segment.grid, occ,
+                                lambda r: visible_ranks(cfg, r, segment.iteration),
+                                float(spec["density_amplitude"]), g, device)
     del occ
     fan = int(sum(cfg.n_lamb_sh))
     params["basis"] = uniform(g, (fan, cfg.data_dim_color), fan, device)

@@ -1,14 +1,12 @@
-"""The plain reference: TensoRF's VM field, volume rendering, loss and Adam
+"""The plain reference: TensoRF's field, volume rendering, loss and Adam
 in plain PyTorch, written from the model's equations.  It imports nothing
 of the port and takes no weights the port made: the benchmark hands it the
 same made tensors it hands the port.
 
 The model as the configurations state it:
-* TensorVMSplit: per axis i, density = sum_r plane_ir(u, v) line_ir(w)
-  over the three axes, bilinear / linear, align_corners, zeros outside;
-  appearance features = the concatenated plane x line products times a
-  bias-free basis; FreeNeRF's decomposition masks multiply both factors of
-  rank r.
+* the field's density feature and appearance features come from its
+  module, ``fields/<model_name>.py`` (``Model.field``), which alone knows
+  the factor layout; the appearance features times a bias-free basis;
 * sigma = softplus(feature - 10) or relu(feature); samples on a lattice
   from the box entry, step ``step_size``, jittered by one uniform per ray
   (NDC: linspace(near, far) with one jitter per sample, distances scaled
@@ -20,7 +18,7 @@ The model as the configurations state it:
   viewdir, PE(feat), PE(viewdir)] -> 128 -> 128 -> 3, sigmoid.
 * white background (or, in training on a dataset without one, a flip per
   stratum), rgb clamped to [0, 1]; depth = sum w z + (1 - acc) * rays[:, -1].
-* loss = the strata-weighted MSE plus the Ortho, L1 and TV terms; Adam
+* loss = the strata-weighted MSE plus the field's Ortho, L1 and TV terms; Adam
   (0.9, 0.99, eps 1e-8) in two groups, the LR decaying by ``lr_factor`` a
   step.
 
@@ -35,9 +33,6 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
-
-MAT_MODE = ((0, 1), (0, 2), (1, 2))
-VEC_MODE = (2, 1, 0)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -74,7 +69,9 @@ class Precision(NamedTuple):
 
 
 class Model(NamedTuple):
-    """What the reference needs of a configuration."""
+    """What the reference needs of a configuration; ``field`` is its field
+    module (``fields.load``)."""
+    field: object
     density_ranks: tuple
     app_ranks: tuple
     relu: bool
@@ -174,19 +171,15 @@ def linear(line: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return ((1 - w1) * b0)[:, None] * line[i0] + (w1 * b1)[:, None] * line[i1]
 
 
-def vm_products(P: Dict[str, torch.Tensor], kind: str, xyz: torch.Tensor, masks):
-    out = []
-    for i, (m0, m1) in enumerate(MAT_MODE):
-        p = bilinear(P[f"{kind}_plane.{i}"], xyz[:, m0], xyz[:, m1])
-        l = linear(P[f"{kind}_line.{i}"], xyz[:, VEC_MODE[i]])
-        if masks is not None:
-            p, l = p * masks[i], l * masks[i]
-        out.append(p * l)
-    return out
+def tv2d(p: torch.Tensor) -> torch.Tensor:
+    """Squared-difference TV of a plane (H, W, C), the counts over C too."""
+    H, W, C = p.shape
+    return 2.0 * (torch.sum(torch.square(p[1:] - p[:-1])) / ((H - 1) * W * C)
+                  + torch.sum(torch.square(p[:, 1:] - p[:, :-1])) / (H * (W - 1) * C))
 
 
 def density(m: Model, P, xyz: torch.Tensor, masks: Masks) -> torch.Tensor:
-    feat = sum(torch.sum(x, dim=-1) for x in vm_products(P, "density", xyz, masks.den))
+    feat = m.field.density_feature(P, xyz, masks.den)
     if m.relu:
         return torch.relu(feat)
     return F.softplus(feat + m.density_shift)
@@ -199,7 +192,7 @@ def pe(x: torch.Tensor, freqs: int) -> torch.Tensor:
 
 
 def radiance(m: Model, P, prec: Precision, xyz, viewdirs, masks: Masks) -> torch.Tensor:
-    feat = prec.matmul(torch.cat(vm_products(P, "app", xyz, masks.app), dim=-1), P["basis"])
+    feat = prec.matmul(m.field.app_features(P, xyz, masks.app), P["basis"])
     x = [feat, viewdirs]
     if m.fea_pe > 0:
         e = pe(feat, m.fea_pe)
@@ -328,31 +321,18 @@ class Loss(NamedTuple):
     lr_factor: float
 
 
-def tv2d(p: torch.Tensor) -> torch.Tensor:
-    H, W, C = p.shape
-    return 2.0 * (torch.sum(torch.square(p[1:] - p[:-1])) / ((H - 1) * W * C)
-                  + torch.sum(torch.square(p[:, 1:] - p[:, :-1])) / (H * (W - 1) * C))
-
-
-def regularizers(P, lw: Loss, step: int, prec: Precision) -> torch.Tensor:
+def regularizers(m: Model, P, lw: Loss, step: int, prec: Precision) -> torch.Tensor:
+    """The field's terms (``lw.ortho`` is 0 where the field has none)."""
     total = torch.zeros((), device=P["basis"].device)
-    lines = [P[f"{k}_line.{i}"] for k in ("density", "app") for i in range(3)]
     if lw.ortho > 0:
-        reg = 0.0
-        for line in lines:
-            gram = prec.matmul(line.T, line)
-            r = gram.shape[0]
-            reg = reg + (torch.sum(torch.abs(gram)) - torch.sum(torch.abs(torch.diagonal(gram)))
-                         ) / (r * r - r)
-        total = total + lw.ortho * reg
+        total = total + lw.ortho * m.field.ortho(P, prec)
     if lw.l1 > 0:
-        total = total + lw.l1 * sum(torch.mean(torch.abs(P[f"density_{k}.{i}"]))
-                                    for i in range(3) for k in ("plane", "line"))
+        total = total + lw.l1 * m.field.l1(P)
     decay = float(torch.pow(torch.tensor(lw.lr_factor, dtype=torch.float32),
                             torch.tensor(step + 1.0, dtype=torch.float32)))
     for kind, wt in (("density", lw.tv_density), ("app", lw.tv_app)):
         if wt > 0:
-            total = total + sum(tv2d(P[f"{kind}_plane.{i}"]) * 1e-2 for i in range(3)) * wt * decay
+            total = total + m.field.tv(P, kind) * wt * decay
     return total
 
 
@@ -375,7 +355,7 @@ def step_loss(m: Model, P, g: Geometry, lw: Loss, step: int, strata: Sequence[di
             part = s["weight"] * torch.sum(torch.square(out.rgb - s["rgbs"][sl])) / (n * 3)
             part.backward()
             total += float(part.detach())
-    reg = regularizers(P, lw, step, prec)
+    reg = regularizers(m, P, lw, step, prec)
     if reg.requires_grad:
         reg.backward()
     return total + float(reg.detach())

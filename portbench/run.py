@@ -83,6 +83,7 @@ def log(msg: str) -> None:
 
 class Setup(NamedTuple):
     cfg: object
+    field: object  # the configuration's field module (``fields/<model_name>.py``)
     scene: object
     state: object
     made: object
@@ -97,12 +98,14 @@ def sync(device) -> None:
 
 
 def setup(cell: Cell, seed: int, device) -> Setup:
-    """The scene, the port's state over it and the made segment."""
+    """The field module, the scene, the port's state over it and the made
+    segment."""
     import torch
 
     from tensorf_tpu_torch.config import load_config
     from tensorf_tpu_torch.train.loop import TrainState, restratify
 
+    from . import fields
     from . import made as made_mod
     from .scene import make_scene
 
@@ -118,20 +121,21 @@ def setup(cell: Cell, seed: int, device) -> Setup:
 
     # the run's seed also seeds the port's ray sampler
     cfg = load_config(None, dict(cell.config["train"], seed=int(seed)))
+    field = fields.load(cfg.model_name, cfg.shadingMode)
     scene = make_scene(cell.config["scene"], device)
     phase("scene")
     state = TrainState(cfg, device, scene.loader_scene)
     phase("rays")
     seg = made_mod.walk_schedule(cfg, state.train_ds.scene_bbox, scene, cell.traffic["segment"],
                                  device)
-    made = made_mod.make(cfg, cell.config, scene, seg, seed, device)
+    made = made_mod.make(field, cfg, cell.config, scene, seg, seed, device)
     made_mod.install(state, made)
     p0 = {k: v.detach().cpu() for k, v in made.params.items()}
     made = made._replace(params={})
     phase("state")
     restratify(state, seg.iteration, log=lambda s: None)
     phase("restratify")
-    return Setup(cfg, scene, state, made, p0, phases)
+    return Setup(cfg, field, scene, state, made, p0, phases)
 
 
 # ---- training ---------------------------------------------------------------
@@ -287,13 +291,13 @@ def train_window(tr: Trainer, seconds: float):
 # ---- the reference side -----------------------------------------------------
 
 
-def ref_model(cfg, state) -> "object":
+def ref_model(cfg, state, field) -> "object":
     from . import reference as ref
     top = cfg.shade_top_k if (cfg.shade_top_k > 0 and state.alpha_mask is not None) else None
     if state.alpha_mask is None and cfg.prefilter_shade_top_k > 0:
         top = cfg.prefilter_shade_top_k
     return ref.Model(
-        density_ranks=tuple(cfg.n_lamb_sigma), app_ranks=tuple(cfg.n_lamb_sh),
+        field=field, density_ranks=tuple(cfg.n_lamb_sigma), app_ranks=tuple(cfg.n_lamb_sh),
         relu=cfg.fea2denseAct == "relu", view_pe=cfg.view_pe, fea_pe=cfg.fea_pe,
         white_bg=bool(state.white_bg), ndc=bool(cfg.ndc_ray), near=float(state.near_far[0]),
         far=float(state.near_far[1]), shade_top_k=top, free_reg=bool(cfg.free_reg),
@@ -316,10 +320,10 @@ def ref_geometry(cfg, made, device):
                         mask_aabb, dil)
 
 
-def ref_loss(cfg, made) -> "object":
+def ref_loss(cfg, made, field) -> "object":
     from . import reference as ref
     decay_iters = cfg.lr_decay_iters if cfg.lr_decay_iters > 0 else cfg.n_iters
-    return ref.Loss(ortho=cfg.Ortho_weight if "VM" in cfg.model_name else 0.0,
+    return ref.Loss(ortho=cfg.Ortho_weight if field.HAS_ORTHO else 0.0,
                     l1=made.segment.l1_weight, tv_density=cfg.TV_weight_density,
                     tv_app=cfg.TV_weight_app,
                     lr_factor=cfg.lr_decay_target_ratio ** (1 / decay_iters))
@@ -394,9 +398,10 @@ class TrainCheck(NamedTuple):
 def train_check(cell: Cell, s: Setup, kept) -> Tuple[float, TrainCheck]:
     """(store_gap, the reference's inputs); frees the port's state."""
     from . import reference as ref
-    model = ref_model(s.cfg, s.state)
+    model = ref_model(s.cfg, s.state, s.field)
     gap = store_rows(s, kept)
-    chk = TrainCheck(model, ref_geometry(s.cfg, s.made, s.state.device), ref_loss(s.cfg, s.made),
+    chk = TrainCheck(model, ref_geometry(s.cfg, s.made, s.state.device),
+                     ref_loss(s.cfg, s.made, s.field),
                      ref_steps(kept, model), ref.group_lrs(list(s.p0), s.cfg.lr_init,
                                                            s.cfg.lr_basis),
                      s.p0, int(cell.traffic["reference_block"]))
@@ -501,7 +506,7 @@ def step_work(cell: Cell, s: Setup, profiled, device) -> float:
     from . import reference as ref
     from .counts import step_flops
     rows, params = profiled
-    model = ref_model(s.cfg, s.state)
+    model = ref_model(s.cfg, s.state, s.field)
     geom = ref_geometry(s.cfg, s.made, device)
     P = {k: v.to(device) for k, v in params.items()}
     block = int(cell.traffic["reference_block"])
@@ -515,7 +520,7 @@ def step_work(cell: Cell, s: Setup, profiled, device) -> float:
                                u=None if model.ndc else u[sl], jitter=u[sl] if model.ndc else None)
                 alive += int(r.alive.sum())
                 shaded += int(r.shaded.sum())
-    return step_flops(s.cfg, alive, shaded) / len(rows)
+    return step_flops(s.field, s.cfg, alive, shaded) / len(rows)
 
 
 # ---- serving ----------------------------------------------------------------
@@ -570,7 +575,7 @@ def serve_check(cell: Cell, sv: Serving, served, checked, device) -> ServeCheck:
     """The reference's inputs for the ``checked`` entries of ``served``;
     frees the port's state."""
     s = sv.s
-    model = ref_model(s.cfg, s.state)
+    model = ref_model(s.cfg, s.state, s.field)
     geom = ref_geometry(s.cfg, s.made, device)
     free_program(s)
     P = {k: v.to(device) for k, v in s.p0.items()}
@@ -626,7 +631,7 @@ def run_serve(cell: Cell, seed: int, seconds: float, trace: bool, device) -> dic
                 alive += int(r.alive.sum())
                 shaded += int(r.shaded.sum())
         from .counts import forward_flops
-        out["context"]["flops_per_unit"] = forward_flops(sv.s.cfg, alive, shaded)
+        out["context"]["flops_per_unit"] = forward_flops(sv.s.field, sv.s.cfg, alive, shaded)
     out.update(attempted=len(served), failed=failed, peak=peak,
                numbers=serve_numbers(chk.model, chk.P, chk.geom, chk.views, ref.Precision(),
                                      chk.block))

@@ -2,23 +2,25 @@
 
 from types import SimpleNamespace
 
-from portbench import counts
+from portbench import counts, fields
 
 
 def test_density_and_shading_flops_of_synth_full():
+    vm = fields.load("TensorVMSplit", "MLP_Fea")
+    cfg = SimpleNamespace(n_lamb_sigma=(16, 16, 16), n_lamb_sh=(48, 48, 48), data_dim_color=27,
+                          view_pe=2, fea_pe=2, featureC=128)
     # 14 FLOPs a rank: 4 plane taps and 2 line taps (a multiply-add each),
     # the product and the sum over ranks
-    assert counts.density_flops((16, 16, 16)) == 672
+    assert vm.density_flops(cfg) == 672
     # 13 a rank for the appearance reads (no sum), the 144 x 27 basis, the
     # MLP_Fea 150 -> 128 -> 128 -> 3 (150 = 12 view PE + 108 feature PE
     # + 3 + 27)
+    assert vm.app_read_flops(cfg) == 13 * 144
     assert counts.mlp_in(2, 2, 27) == 150
-    assert counts.shade_flops((48, 48, 48), 27, 2, 2, 128) == (
+    assert counts.shade_flops(vm, cfg) == (
         13 * 144 + 2 * 144 * 27 + 2 * (150 * 128 + 128 * 128 + 128 * 3))
-    cfg = SimpleNamespace(n_lamb_sigma=(16, 16, 16), n_lamb_sh=(48, 48, 48), data_dim_color=27,
-                          view_pe=2, fea_pe=2, featureC=128)
-    assert counts.forward_flops(cfg, 1000, 10) == 1000 * 672 + 10 * 81584
-    assert counts.step_flops(cfg, 1000, 10) == 3 * (1000 * 672 + 10 * 81584)
+    assert counts.forward_flops(vm, cfg, 1000, 10) == 1000 * 672 + 10 * 81584
+    assert counts.step_flops(vm, cfg, 1000, 10) == 3 * (1000 * 672 + 10 * 81584)
 
 
 def test_flower_mlp_width():

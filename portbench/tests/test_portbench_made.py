@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import made, reference as ref
+from portbench import fields, made, reference as ref
 from portbench.scene import COMPOSITE_SPHERES, make_scene
 
 from .tiny import assert_agrees, tiny_cell
@@ -14,10 +14,11 @@ def test_slab_profiles_sum_to_three_amplitudes_inside_the_objects():
     occ = torch.zeros((8, 8, 8), dtype=torch.bool)
     occ[2:5, 3:6, 1:4] = True
     total = torch.zeros((8, 8, 8))
+    vm = fields.load("TensorVMSplit", "MLP_Fea")
     for i in range(3):
-        plane, line = made.slab_profiles(occ, i, 2, 10.0)
-        m0, m1 = made.MAT_MODE[i]
-        a = made.VEC_MODE[i]
+        plane, line = vm.slab_profiles(occ, i, 2, 10.0)
+        m0, m1 = vm.MAT_MODE[i]
+        a = vm.VEC_MODE[i]
         x, y, z = torch.meshgrid(torch.arange(8), torch.arange(8), torch.arange(8), indexing="ij")
         idx = (x, y, z)
         total += (plane[idx[m1], idx[m0]] * line[idx[a]]).sum(-1)
