@@ -31,6 +31,7 @@ from ..ops.grid_sample import (
     make_footprint_2d,
 )
 from ..ops.resize import resize_bilinear_align_corners, resize_linear_align_corners
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .config import MAT_MODE, VEC_MODE, ModelConfig
 from .shading import init_shading, torch_dtype
@@ -73,12 +74,31 @@ def line_uses_matmul(n_points: int, length: int, a_dtype: Optional[torch.dtype] 
     return length <= _LINE_MATMUL_MAX_LEN and n_points * length * size <= _ONE_HOT_MAX_BYTES
 
 
+# Every line read runs inside the span ``tftorch.field.line`` and, while a
+# profiler runs, records its shape as ``line``: (points, texels, channels,
+# route), route 1 for the one-hot matmul and 0 for the taps or the
+# footprint gather (utils/tracing.py).
+LINE_SPAN = "tftorch.field.line"
+
+
 def _sample_line_packed(lpacked: torch.Tensor, coord: torch.Tensor,
                         a_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    L = lpacked.shape[0]
-    if line_uses_matmul(coord.numel(), L, a_dtype):
-        return line_sample_matmul(lpacked, coord, a_dtype)
-    return footprint_sample_1d(make_footprint_1d(lpacked), L, coord)
+    L, C = lpacked.shape
+    matmul = line_uses_matmul(coord.numel(), L, a_dtype)
+    with tracing.span(LINE_SPAN):
+        if tracing.enabled():
+            tracing.count_shape("line", (coord.numel(), L, C, int(matmul)))
+        if matmul:
+            return line_sample_matmul(lpacked, coord, a_dtype)
+        return footprint_sample_1d(make_footprint_1d(lpacked), L, coord)
+
+
+def _line_taps(line: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
+    """A line read by its two taps a point (grid_sample_1d)."""
+    with tracing.span(LINE_SPAN):
+        if tracing.enabled():
+            tracing.count_shape("line", (coord.numel(), *line.shape, 0))
+        return grid_sample_1d(line, coord)
 
 
 def _off_diag_mean_abs(line: torch.Tensor) -> torch.Tensor:
@@ -240,7 +260,7 @@ class TensorVMSplit(_Field):
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             p = grid_sample_2d(self.density_plane[i], xyz[..., [m0, m1]])
-            l = grid_sample_1d(self.density_line[i], xyz[..., VEC_MODE[i]])
+            l = _line_taps(self.density_line[i], xyz[..., VEC_MODE[i]])
             if mask is not None:
                 # mask applied to both factors (squared), as the reference intends
                 p = p * mask[i]
@@ -254,7 +274,7 @@ class TensorVMSplit(_Field):
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             p = grid_sample_2d(self.app_plane[i], xyz[..., [m0, m1]])
-            l = grid_sample_1d(self.app_line[i], xyz[..., VEC_MODE[i]])
+            l = _line_taps(self.app_line[i], xyz[..., VEC_MODE[i]])
             if mask is not None:
                 p = p * mask[i]
                 l = l * mask[i]
@@ -340,9 +360,9 @@ class TensorCP(_Field):
 
     @staticmethod
     def _line_product(lines, xyz: torch.Tensor) -> torch.Tensor:
-        prod = grid_sample_1d(lines[0], xyz[..., VEC_MODE[0]])
-        prod = prod * grid_sample_1d(lines[1], xyz[..., VEC_MODE[1]])
-        return prod * grid_sample_1d(lines[2], xyz[..., VEC_MODE[2]])  # (M, R)
+        prod = _line_taps(lines[0], xyz[..., VEC_MODE[0]])
+        prod = prod * _line_taps(lines[1], xyz[..., VEC_MODE[1]])
+        return prod * _line_taps(lines[2], xyz[..., VEC_MODE[2]])  # (M, R)
 
     def _line_product_fused(self, lines, xyz: torch.Tensor) -> torch.Tensor:
         prod = None
@@ -434,7 +454,7 @@ class TensorVM(_Field):
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             p = grid_sample_2d(self.plane[i][:, :, lo:hi], xyz[..., [m0, m1]])
-            l = grid_sample_1d(self.line[i][:, lo:hi], xyz[..., VEC_MODE[i]])
+            l = _line_taps(self.line[i][:, lo:hi], xyz[..., VEC_MODE[i]])
             yield p * l
 
     def _fused(self, xyz: torch.Tensor, lo: int, hi: int):
