@@ -12,6 +12,8 @@
                                          # streams scatter saved, the kernels run on the CPU
     python3 chip_dev.py shade_route      # the appearance gather routes timed at the rows
                                          # flower.train's step shades
+    python3 chip_dev.py line_lerp        # the line-lerp kernels' cases, then the routes of
+                                         # the line reads in a step or view of each cell
 
 The scatter modes write under $CHIP_DEV_OUT (default log/chip_dev).
 
@@ -37,12 +39,11 @@ def flower(cs) -> None:
     import numpy as np
     import torch
 
-    from tensorf_tpu_torch.ops.scatter_add import KERNEL_NAME, KERNEL_SOURCE, scatter_add
     from tensorf_tpu_torch.utils.cuda_build import build
 
-    kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, "", [])}
+    kernels = cs.port_kernels()
     t0 = time.perf_counter()
-    build([*kernels], force=True)
+    build(["scatter_add", "line_lerp"], force=True)
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     work = tempfile.mkdtemp()
     try:
@@ -71,14 +72,11 @@ def slice9(cs) -> None:
 
     from tensorf_tpu_torch.config import load_config
     from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
-    from tensorf_tpu_torch.ops.scatter_add import (KERNEL_NAME, KERNEL_SOURCE, scatter_add,
-                                                   scatter_add_bf16)
     from tensorf_tpu_torch.utils.cuda_build import build
 
-    kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, "", []),
-               "scatter_add_bf16": (scatter_add_bf16, KERNEL_SOURCE, "", [])}
+    kernels = cs.port_kernels()
     t0 = time.perf_counter()
-    for res in build([KERNEL_NAME, "marching"], force=True).values():
+    for res in build(["scatter_add", "line_lerp", "marching"], force=True).values():
         print(f"build[{res.name}] {res.seconds:.1f} s", flush=True)
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -135,16 +133,13 @@ def dp(cs) -> None:
 
     from tensorf_tpu_torch.config import load_config
     from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
-    from tensorf_tpu_torch.ops.scatter_add import (KERNEL_NAME, KERNEL_SOURCE, scatter_add,
-                                                   scatter_add_bf16)
     from tensorf_tpu_torch.parallel import spawn
     from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES
     from tensorf_tpu_torch.utils.cuda_build import build
 
-    kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, "", []),
-               "scatter_add_bf16": (scatter_add_bf16, KERNEL_SOURCE, "", [])}
+    kernels = cs.port_kernels()
     t0 = time.perf_counter()
-    build([KERNEL_NAME], force=True)
+    build(["scatter_add", "line_lerp"], force=True)
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"gloo on cuda:0, two ranks: {spawn(gloo_probe, (), ['cuda:0', 'cuda:0'], timeout_s=300)}",
           flush=True)
@@ -286,9 +281,7 @@ def scatter(cs) -> None:
                 captured.update(cs.capture_streams(torch, state, "bf16_128",
                                                    int(np.argmax(rows))))
 
-        kernels = {sa.KERNEL_NAME: (sa.scatter_add, sa.KERNEL_SOURCE, "", []),
-                   "scatter_add_bf16": (sa.scatter_add_bf16, sa.KERNEL_SOURCE, "", [])}
-        cs.drive(torch, "bf16_path", cfg, scene, kernels, cfg.n_iters, capture)
+        cs.drive(torch, "bf16_path", cfg, scene, cs.port_kernels(), cfg.n_iters, capture)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -520,10 +513,69 @@ def shade_route(cs) -> None:
               f"{order[0]}| {float((outs[name] - base).abs().max()):.3g}", flush=True)
 
 
+def line_lerp(cs) -> None:
+    """The line-lerp kernels built (ptxas's registers and spills printed)
+    and held to the plain gather-lerp at the cells' shapes with their
+    times (chip_smoke's line_lerp_phase); then, in each cell of portbench
+    at seed 1, one step (one view) under a profiler: its line reads by
+    route (0 taps or footprint, 1 one-hot, 2 line-lerp kernel) and the
+    kernel's launches in it, which must be one a route-2 read (two in
+    training, the backward's too)."""
+    import subprocess
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.run import Trainer, load_cell, serve_view, serving, set_cache_dirs, setup
+    from tensorf_tpu_torch.ops import line_lerp as ll
+    from tensorf_tpu_torch.ops.scatter_add import KERNEL_NAME
+    from tensorf_tpu_torch.utils import tracing
+    from tensorf_tpu_torch.utils.cuda_build import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi, flush=True)
+    set_cache_dirs()
+    built = build([ll.KERNEL_NAME, KERNEL_NAME], force=True)
+    for line in built[ll.KERNEL_NAME].log.splitlines():
+        if "registers" in line or "spill" in line or "line_lerp" in line:
+            print(f"build[line_lerp]: {line.strip()}", flush=True)
+    cs.line_lerp_phase(torch)
+    device = torch.device("cuda")
+    for name in ("cp384.train", "synth_full.train", "synth_full.serve", "flower.train"):
+        cell = load_cell(name)
+        serve = cell.traffic["kind"] == "serve"
+        if serve:
+            sv = serving(cell, 1, device)
+            work = lambda: serve_view(sv, 1)  # noqa: E731
+        else:
+            tr = Trainer(setup(cell, 1, device), 1, device)
+            tr.step()
+            work = tr.step
+        torch.cuda.synchronize()
+        tracing.take_counts()
+        before = ll.line_lerp.launches
+        with profile(activities=[ProfilerActivity.CPU]):
+            work()
+            torch.cuda.synchronize()
+        launches = ll.line_lerp.launches - before
+        reads = tracing.take_counts().get("line", [])
+        by_route = {r: sum(1 for x in reads if x[3] == r) for r in (0, 1, 2)}
+        want = by_route[2] * (1 if serve else 2)
+        print(f"line_routes {name}: reads by route {by_route}, line_lerp launches {launches} "
+              f"(want {want}), route-2 shapes {sorted({x[1:3] for x in reads if x[3] == 2})}, "
+              f"rows {sum(x[0] for x in reads if x[3] == 2)}", flush=True)
+        if launches != want or by_route[1]:
+            raise SystemExit(f"line_lerp: {name}: a route-1 read or launches {launches} != {want}")
+        del cell
+        sv = tr = work = None
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> None:
     modes = {"flower": flower, "through_resume": through_resume, "slice9": slice9, "dp": dp,
              "dp_memory": dp_memory, "scatter": scatter, "scatter_counts": scatter_counts,
-             "shade_route": shade_route}
+             "shade_route": shade_route, "line_lerp": line_lerp}
     if len(argv) != 1 or argv[0] not in modes:
         sys.exit(f"usage: chip_dev.py {{{'|'.join(modes)}}}")
     sys.path.insert(0, os.getcwd())

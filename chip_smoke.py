@@ -14,9 +14,20 @@ each prints its seconds):
      ragged_M, odd_C, one_row) and on its own branches (C = 12, rows 8
      bytes off a 16-byte boundary), each bf16 case timed in turns with the
      float32 entry point on the same values widened (vs_f32) and beside its
-     bound (share);
+     bound (share); the line-lerp kernels (line_lerp_case) at cp384's and
+     synth_full's line shapes against the plain gather-lerp, forward and
+     backward, timed beside their bytes bound, the one-hot matmul they
+     replace on the card and torch's grid_sample (the library yardstick);
   3. step parity: one synth_full train step with the kernels and one with
-     the plain versions, same params, batch and jitter; gradients must agree;
+     the plain versions (the scatter-add's and the line lerp's), same
+     params, batch and jitter; gradients must agree; the kernel step runs
+     under a profiler, so the port records each line read's route: no
+     float32 read may take the one-hot on the card, and the line lerp must
+     launch twice a route-2 read with a backward (once one without), as
+     often as the step's statics call for (line_lerp_launches_per_step).
+     Every path below counts the line lerp's launches too: its steps' as
+     their statics call for, plus one for each read with no graph
+     (graphless_line_reads: evaluations, alpha masks, mesh export);
   4. main path: ``reconstruction`` of configs/synth_full.txt as written
      (ray stratification, sample budgets 160/384, top-32 shading,
      stratified serving in every evaluation) at full width (ranks 16/48, app_dim 27, MLP_Fea
@@ -67,8 +78,9 @@ each prints its seconds):
  10. mesh: the CLI's mesh export (``--export_mesh 1 --ckpt``) of the main
      path's final checkpoint (its n_to_reso(300^3) grid, before the
      unstratified drive replaces that logfolder) and of synth_sphere's: each
-     writes its .ply and nothing else, launches no kernel (no train step),
-     and runs the native marching library; the sphere's mean vertex radius
+     writes its .ply and nothing else, launches no scatter-add (no train
+     step) and the line lerp once for each of its alpha grid's reads, and
+     runs the native marching library; the sphere's mean vertex radius
      about its centre must lie within 0.05 of 0.8.  Prints vertex and face
      counts, the alpha grid's ms (host clock, device synchronised) and the
      host ms of marching.  th_import: the main path's final field written
@@ -92,9 +104,11 @@ each prints its seconds):
      on the composite scene with Blender's 100/200 views at 800x800, its
      schedule cut to 600 steps (profile_step.LEGO_CUT: the upsample and
      alpha mask at 2000 move to 400).  TensorCP has no plane, so its steps
-     launch no scatter-add: one step's gradients on the card are held to
-     the same step on the CPU (rtol/atol 1e-4) instead, and the run must
-     launch the kernel 0 times, the per-stratum sum.  Every segment
+     launch no scatter-add; its lines read by the line lerp: one step's
+     gradients on the card are held to the same step on the CPU
+     (rtol/atol 1e-4), and the run must launch the scatter-add 0 times,
+     the per-stratum sum, and the line lerp as its steps and reads call
+     for.  Every segment
      stratified, the loss no higher than LEGO_LOSS_RATIO of its start by
      400 (as written the L1 term holds the density at its initial plateau
      on this scene, in both packages), every eval overflow 0.0, the final
@@ -152,14 +166,17 @@ each prints its seconds):
  18. dp_step_parity: synth_full's first step at full width on DP_RANKS
      gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card)
      against one rank, from an Adam state in progress: parameters within
-     rel 1e-5 / abs 1e-6 and bit-identical on the ranks, the kernel
-     launched on each rank as often as on one, on its share of the rows;
+     rel 1e-5 / abs 1e-6 and bit-identical on the ranks, the scatter-add
+     launched on each rank as often as on one, on its share of the rows,
+     and the line lerp as often as on one;
  19. dp_path: ``reconstruction`` of the main path's config and cut
      schedule on those ranks (parallel/parity.py::reconstruct, each rank's
      counts set to 0 just before and read just after): plan and event
      lines and parameter checksums equal on the ranks after every event,
-     every eval overflow 0.0, each rank's launches the per-stratum sum of
-     its shares, the final PSNR within DP_MAX_DPSNR of the main path's;
+     every eval overflow 0.0, each rank's scatter-add launches the
+     per-stratum sum of its shares and its line-lerp launches at least its
+     steps' (its evaluations' reads add one each), the final PSNR within
+     DP_MAX_DPSNR of the main path's;
      each rank's ms/step and peak GiB;
  20. dp_nccl: the CLI with ``--distributed 1`` at world size 1 through
      the TFTPU_* variables, NCCL on the card, DP_NCCL_STEPS steps; with
@@ -167,6 +184,10 @@ each prints its seconds):
      one, a line says it was not run).
 Each kernel case also prints its index stream's mean run length and mean
 distinct rows per 64-row tile: what the kernel's run aggregation exploits.
+The last line but one is the kernels line: an entry for each kernel of
+port_kernels, with its launches on the main path and on every path
+(launches_by_path), its headline case's ms, bound and library ms and all
+its cases.
 
 Cuts (each is printed): 8 train and 2 test views instead of 40 and 8,
 200x200 pixels instead of 800x800, and synth_full's 30000-step schedule cut
@@ -186,6 +207,7 @@ prints no result.  The last line of stdout is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -433,6 +455,128 @@ def kernel_case(torch, name, idx, g, n_rows):
     return row
 
 
+# (L, C, M) of the line reads the line-lerp kernels take (the cells'
+# shapes): cp384's density lines (430 and 538 texels x 96 ranks, ~300k rows
+# a stratum), synth_full's density (~300 x 16) and top-32 appearance
+# (~300 x 48, 4096 rays x 32) lines
+LINE_LERP_CASES = {"cp384_538x96": (538, 96, 300_000), "cp384_430x96": (430, 96, 300_000),
+                   "vm_density_300x16": (300, 16, 262_144),
+                   "vm_app_top32_300x48": (300, 48, 131_072)}
+
+
+def device_ms(torch, fn, reps: int, key: str) -> float:
+    """Device ms a call of the kernels whose names hold ``key``, summed from
+    a profile of ``reps`` calls after one warm-up call (a small call's host
+    cost, which ``time_ms`` includes, left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type.name == "CUDA" and key in e.name)
+    return us / 1e3 / reps
+
+
+def line_lerp_case(torch, name, L, C, M):
+    """The line-lerp kernels against the plain gather-lerp on one (L, C)
+    line at M coordinates along rays: the rows and the line's gradient;
+    each entry point's ms a call back to back (``fwd_ms``, ``bwd_ms``: host
+    cost included) and its kernels' device ms (``*_device_ms``; the
+    backward's zero fill included) beside its bytes bound (``*_share``: the
+    bound over the device ms); the one-hot matmul's ms, forward (build and
+    product) and with its backward (the transposed product), which the
+    kernels replace on the card; torch's
+    grid_sample on the line as a (1, C, L, 1) image (the library yardstick;
+    the port never calls it)."""
+    import torch.nn.functional as F
+
+    from tensorf_tpu_torch.ops import line_lerp as ll
+    from tensorf_tpu_torch.ops.grid_sample import line_sample_matmul
+
+    gen = torch.Generator().manual_seed(L * C)
+    n = M // 256 + 1
+    start = torch.rand((n, 1), generator=gen) * 2.2 - 1.1
+    slope = (torch.rand((n, 1), generator=gen) - 0.5) * 0.8
+    coord = (start + slope * torch.linspace(0, 1, 256)).reshape(-1)[:M].cuda()
+    line = torch.randn((L, C), generator=gen).cuda()
+    cot = torch.randn((M, C), generator=gen).cuda()
+    t = line.clone().requires_grad_()
+    out = ll.line_lerp(t, coord)
+    out.backward(cot)
+    r = line.clone().requires_grad_()
+    want = ll.line_lerp_reference(r, coord)
+    want.backward(cot)
+    torch.cuda.synchronize()
+    fwd_err = float((out.detach() - want.detach()).abs().max())
+    fwd_tol = 1e-6 + 1e-6 * float(line.abs().max())
+    grad_err = float((t.grad - r.grad).abs().max())
+    a = line.clone().requires_grad_()
+    ll.line_lerp_reference(a, coord).backward(cot.abs())
+    grad_tol = 1e-5 + 1e-6 * float(a.grad.max())
+    del out, want, t, r, a
+    reps = 20
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: ll._forward(line, coord), reps)
+        fwd_device = device_ms(torch, lambda: ll._forward(line, coord), reps, "line_lerp")
+        one_hot_fwd_ms = time_ms(torch, lambda: line_sample_matmul(line, coord), reps)
+    bwd_ms = time_ms(torch, lambda: ll._backward(cot, coord, L), reps)
+    bwd_device = device_ms(torch, lambda: ll._backward(cot, coord, L), reps, "line_lerp")
+    one_hot = line.clone().requires_grad_()
+
+    def one_hot_fwd_bwd():
+        one_hot.grad = None
+        line_sample_matmul(one_hot, coord).backward(cot)
+
+    one_hot_fwd_bwd_ms = time_ms(torch, one_hot_fwd_bwd, reps)
+    del one_hot
+    image = line.T.reshape(1, C, L, 1).contiguous().requires_grad_()
+    grid = torch.stack([torch.zeros_like(coord), coord], dim=-1).reshape(1, M, 1, 2)
+
+    def library():
+        return F.grid_sample(image, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    with torch.no_grad():
+        library_fwd_ms = time_ms(torch, library, reps)
+    lib_cot = cot.T.reshape(1, C, M, 1).contiguous()
+
+    def library_fwd_bwd():
+        image.grad = None
+        library().backward(lib_cot)
+
+    library_fwd_bwd_ms = time_ms(torch, library_fwd_bwd, reps)
+    del image, grid, lib_cot
+    fwd_bytes = 4 * (M + L * C + M * C)
+    bwd_bytes = 4 * (M + M * C + L * C)
+    fwd_bound = fwd_bytes / HBM_BYTES_PER_S * 1e3
+    bwd_bound = bwd_bytes / HBM_BYTES_PER_S * 1e3
+    row = dict(case=name, L=L, C=C, M=M,
+               fwd_err=fwd_err, fwd_tol=fwd_tol, grad_err=grad_err, grad_tol=grad_tol,
+               fwd_ms=fwd_ms, fwd_device_ms=fwd_device, fwd_bound_ms=fwd_bound,
+               fwd_share=fwd_bound / fwd_device,
+               bwd_ms=bwd_ms, bwd_device_ms=bwd_device, bwd_bound_ms=bwd_bound,
+               bwd_share=bwd_bound / bwd_device,
+               one_hot_fwd_ms=one_hot_fwd_ms, one_hot_fwd_bwd_ms=one_hot_fwd_bwd_ms,
+               library_fwd_ms=library_fwd_ms, library_fwd_bwd_ms=library_fwd_bwd_ms,
+               bound_by="bytes")
+    print("line_lerp_case " + json.dumps(row), flush=True)
+    check(fwd_err <= fwd_tol, f"line_lerp {name}: max |kernel - plain| rows {fwd_err} > {fwd_tol}")
+    check(grad_err <= grad_tol,
+          f"line_lerp {name}: max |kernel - plain| gradient {grad_err} > {grad_tol}")
+    return row
+
+
+def line_lerp_phase(torch) -> list:
+    """line_lerp_case at every shape of LINE_LERP_CASES."""
+    rows = [line_lerp_case(torch, name, *shape) for name, shape in LINE_LERP_CASES.items()]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_rays(torch, dev, scene):
     """4096 training rays of the scene, drawn from a seed: the batch whose
     sample lattice gives the density kernel cases their index streams."""
@@ -559,33 +703,58 @@ def step_grads(torch, field, statics, aabb, rays, rgbs, u, flip):
 def step_parity_phase(torch, dev, cfg, scene, label="step_parity", rel=1e-4):
     """One first-segment step's gradients of ``cfg``'s model, kernel vs
     plain, same inputs: each leaf within ``rel`` of its largest plain
-    gradient."""
+    gradient.  The kernel step runs under a profiler, so the port records
+    its line reads: every float32 read within the one-hot's bounds must
+    take the line-lerp kernel (route 2, none left on route 1), and the
+    kernel must launch twice for each read with a backward and once for
+    each without, as often as the step's statics call for."""
     from unittest import mock
 
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorf_tpu_torch.models import tensorf
     from tensorf_tpu_torch.ops import grid_sample
+    from tensorf_tpu_torch.ops.line_lerp import line_lerp, line_lerp_reference
     from tensorf_tpu_torch.ops.scatter_add import (scatter_add, scatter_add_bf16,
                                                    scatter_add_reference)
     from tensorf_tpu_torch.parallel import parity
+    from tensorf_tpu_torch.utils import tracing
 
     field, grid = path_field(torch, dev, cfg, scene)
     statics, aabb, rays, rgbs, u, flip = step_inputs(torch, dev, cfg, scene, grid)
     inputs = (statics, aabb, rays, rgbs, u, flip)
 
-    before = (scatter_add.launches, scatter_add_bf16.launches)
-    with parity.recording_shaded() as shaded:
+    before = (scatter_add.launches, scatter_add_bf16.launches, line_lerp.launches)
+    tracing.take_counts()
+    with parity.recording_shaded() as shaded, graphless_line_reads(torch) as graphless, \
+            profile(activities=[ProfilerActivity.CPU]):
         loss_k, g_kernel = step_grads(torch, field, *inputs)
+    reads = tracing.take_counts().get("line", [])
     want = (scatter_launches_per_step(statics, cfg.model_name, [cfg.batch_size], grid,
                                       field.line_a_dtype, shaded, field.grid_dtype),
             bf16_launches_per_step(statics, cfg.model_name, [cfg.batch_size], field.grid_dtype,
-                                   shaded))
-    got = (scatter_add.launches - before[0], scatter_add_bf16.launches - before[1])
-    check(got == want, f"{label}: the kernel step launched (scatter_add, scatter_add_bf16) "
-          f"{got} times, not {want}")
-    before = scatter_add.launches
-    with mock.patch.object(grid_sample, "scatter_add", scatter_add_reference):
+                                   shaded),
+            line_lerp_launches_per_step(statics, cfg.model_name, [cfg.batch_size], grid,
+                                        field.line_a_dtype, shaded, field.grid_dtype)
+            + graphless[0])
+    got = tuple(n - b for n, b in zip((scatter_add.launches, scatter_add_bf16.launches,
+                                       line_lerp.launches), before))
+    check(got == want, f"{label}: the kernel step launched (scatter_add, scatter_add_bf16, "
+          f"line_lerp) {got} times, not {want}")
+    lerp_reads = sum(r[3] == 2 for r in reads)
+    check(got[2] == 2 * lerp_reads - graphless[0],
+          f"{label}: line_lerp launched {got[2]} times for {lerp_reads} route-2 reads, "
+          f"{graphless[0]} of them without a backward")
+    check(field.line_a_dtype is not None or not any(r[3] == 1 for r in reads),
+          f"{label}: a float32 line read took the one-hot on the card: {reads}")
+    before = (scatter_add.launches, line_lerp.launches)
+    with mock.patch.object(grid_sample, "scatter_add", scatter_add_reference), \
+            mock.patch.object(tensorf, "line_lerp", line_lerp_reference):
         loss_p, g_plain = step_grads(torch, field, *inputs)
-    check(scatter_add.launches == before, f"{label}: the plain step launched the kernel")
-    # the forward has no scatter: the two losses agree to rounding
+    check((scatter_add.launches, line_lerp.launches) == before,
+          f"{label}: the plain step launched a kernel")
+    # the forward's lerps round an FMA where the plain one rounds two
+    # products: the two losses agree to rounding
     check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p),
           f"{label}: step losses differ: {loss_k} vs {loss_p}")
     worst = 0.0
@@ -596,16 +765,18 @@ def step_parity_phase(torch, dev, cfg, scene, label="step_parity", rel=1e-4):
         tol = rel * float(gp.abs().max()) + 1e-12
         check(err <= tol, f"{label} gradient {name}: max |kernel - plain| {err} > {tol}")
         worst = max(worst, err / tol)
-    print(f"{label}: {cfg.model_name} {cfg.shadingMode}, (scatter_add, scatter_add_bf16) "
-          f"{want} launches a step, loss {loss_k:.6f}, {len(g_kernel)} leaves, max err/tol "
-          f"{worst:.3g} (tol = {rel:g} x max|grad| per leaf)", flush=True)
+    print(f"{label}: {cfg.model_name} {cfg.shadingMode}, (scatter_add, scatter_add_bf16, "
+          f"line_lerp) {want} launches a step, line reads by route "
+          f"{[sum(r[3] == k for r in reads) for k in (0, 1, 2)]}, loss {loss_k:.6f}, "
+          f"{len(g_kernel)} leaves, max err/tol {worst:.3g} (tol = {rel:g} x max|grad| per leaf)",
+          flush=True)
 
 
 def device_parity_phase(torch, cfg, scene, label):
     """One first-segment step's gradients of ``cfg``'s model on the card
     against the same step on the CPU, within rtol/atol 1e-4 elementwise:
-    for a path that launches no kernel, this holds its card run to the
-    plain path."""
+    this holds the card's step, its kernels and their routes included,
+    to the plain path."""
     import copy
 
     dev = torch.device("cuda")
@@ -636,11 +807,14 @@ def capture_streams(torch, state, suffix, stratum=None, kinds=STREAM_KINDS, **st
     segment's statics, its mask) receives, by case name, on the host.  With
     ``stratum`` the step is that stratum's sub-batch alone, at its quota,
     budget and lattice; ``statics_over``
-    replaces fields of the step's statics.  The step's backward runs the
-    plain version, so capturing launches no kernel."""
+    replaces fields of the step's statics.  The step runs the plain
+    versions (its line reads and its backward's scatter-adds), so
+    capturing launches no kernel."""
     from unittest import mock
 
+    from tensorf_tpu_torch.models import tensorf
     from tensorf_tpu_torch.ops import grid_sample
+    from tensorf_tpu_torch.ops.line_lerp import line_lerp_reference
     from tensorf_tpu_torch.ops.scatter_add import scatter_add_reference
     from tensorf_tpu_torch.train.loop import build_statics
     from tensorf_tpu_torch.train.step import draw_noise, loss_fn
@@ -678,7 +852,8 @@ def capture_streams(torch, state, suffix, stratum=None, kinds=STREAM_KINDS, **st
 
     field = state.field
     field.zero_grad(set_to_none=True)
-    with mock.patch.object(grid_sample, "scatter_add", recorder):
+    with mock.patch.object(grid_sample, "scatter_add", recorder), \
+            mock.patch.object(tensorf, "line_lerp", line_lerp_reference):
         total, _ = loss_fn(field, statics, state.aabb, *batch[:2], cfg.n_iters - 1, *batch[2:],
                            state.alpha_mask)
         total.backward()
@@ -776,6 +951,61 @@ def scatter_launches_per_step(statics, model_name: str, batches, grid, a_dtype=N
                               appearance_rows(statics, batches, shaded)))
 
 
+def line_lerp_launches_per_step(statics, model_name: str, batches, grid, a_dtype=None,
+                                shaded=None, grid_dtype=None) -> int:
+    """The line-lerp launches one train step of ``model_name`` makes under
+    ``statics`` (the arguments as scatter_launches_per_step's): a forward
+    and a backward for each float32 line (``a_dtype`` None) that a fused
+    feature pass with rows reads within the one-hot's bounds
+    (models/tensorf.py's line_uses_matmul), three a pass for every model.
+    A bf16 one-hot, the footprint gather and the unfused row gathers take
+    no kernel; neither do the reads a step makes with no graph (see
+    graphless_line_reads)."""
+    import torch
+
+    from tensorf_tpu_torch.models.config import VEC_MODE
+    from tensorf_tpu_torch.models.tensorf import line_uses_matmul
+    from tensorf_tpu_torch.train.step import render_widths
+
+    if a_dtype is not None:
+        return 0
+    float32 = grid_dtype in (None, torch.float32)
+    k = statics.shade_top_k
+
+    def feature_pass(points, fused):
+        if not points or not fused:
+            return 0
+        return 2 * sum(line_uses_matmul(points, grid[v]) for v in VEC_MODE)
+
+    return sum(
+        feature_pass(b * w, statics.fused)
+        + feature_pass(rows, statics.fused and not (float32 and (k is None or k >= w)))
+        for b, w, rows in zip(batches, render_widths(statics),
+                              appearance_rows(statics, batches, shaded)))
+
+
+@contextlib.contextmanager
+def graphless_line_reads(torch):
+    """Counts the line reads that take the line-lerp kernel with no graph
+    to differentiate (evaluations, alpha masks, mesh export, a step's
+    passes under no_grad): each launches it once, where a train step's read
+    launches it twice.  Yields a one-element list, the count."""
+    from unittest import mock
+
+    from tensorf_tpu_torch.models import tensorf
+
+    n = [0]
+    kernel = tensorf.line_lerp
+
+    def counted(line, coord):
+        if not (torch.is_grad_enabled() and line.requires_grad):
+            n[0] += 1
+        return kernel(line, coord)
+
+    with mock.patch.object(tensorf, "line_lerp", counted):
+        yield n
+
+
 def bf16_launches_per_step(statics, model_name: str, batches, grid_dtype, shaded=None) -> int:
     """The scatter-adds of bf16 rows one train step launches: the fused
     path's plane tables, which TensorVMSplit alone casts to ``grid_dtype``
@@ -791,8 +1021,8 @@ def bf16_launches_per_step(statics, model_name: str, batches, grid_dtype, shaded
 def launches_of_step(state, shaded=None) -> dict:
     """The launches of each kernel that the step the loop's ``state`` takes
     calls for: scatter_add counts both entry points, scatter_add_bf16 the
-    bf16 one; ``shaded``: the step's renders' shaded samples
-    (``parity.recording_shaded``)."""
+    bf16 one, line_lerp the line reads' forwards and backwards; ``shaded``:
+    the step's renders' shaded samples (``parity.recording_shaded``)."""
     from tensorf_tpu_torch.train.loop import build_statics
 
     statics, field = build_statics(state), state.field
@@ -803,6 +1033,9 @@ def launches_of_step(state, shaded=None) -> dict:
                                                  shaded, field.grid_dtype),
         "scatter_add_bf16": bf16_launches_per_step(statics, state.cfg.model_name, batches,
                                                    field.grid_dtype, shaded),
+        "line_lerp": line_lerp_launches_per_step(statics, state.cfg.model_name, batches,
+                                                 state.geometry.grid_size, field.line_a_dtype,
+                                                 shaded, field.grid_dtype),
     }
 
 
@@ -810,7 +1043,9 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     """One path through ``reconstruction``: the launch counts set to 0
     just before it and read just after; each kernel must have launched on
     every step, as many times as that step's statics call for (on a path
-    whose steps call for none, such as TensorCP's, no time at all)."""
+    whose steps call for none, such as TensorCP's scatter-adds, no time at
+    all), the line lerp besides once for each read with no graph (the
+    evaluations', the events')."""
     import numpy as np
 
     from tensorf_tpu_torch.parallel import parity
@@ -828,10 +1063,11 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     for fn, *_ in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with parity.recording_shaded() as shaded:
+    with parity.recording_shaded() as shaded, graphless_line_reads(torch) as graphless:
         result = reconstruction(cfg, scene, "cuda", save_images=False, on_step=count,
                                 log=lambda m: print(f"{name}: {m}", flush=True))
     torch.cuda.synchronize()
+    want["line_lerp"] += graphless[0]
     launches = {k: v[0].launches for k, v in kernels.items()}
     print(f"{name}: {steps} steps, test-set evaluations and checkpoint in "
           f"{time.perf_counter() - t0:.2f} s, launches {launches} (want {want})", flush=True)
@@ -852,14 +1088,37 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     return result, launches
 
 
+def port_kernels() -> dict:
+    """The port's CUDA kernels, name: (wrapper, source, TPU kernel
+    replaced, grids each call enqueues).  scatter_add and scatter_add_bf16
+    are entry points of csrc/scatter_add.cu: scatter_add counts every
+    launch, scatter_add_bf16 those of the bf16 entry point (a bf16 g).
+    line_lerp counts the calls of csrc/line_lerp.cu's forward (one grid)
+    and backward (a fill, then the sums); the JAX package's line read is an
+    XLA einsum, no kernel."""
+    from tensorf_tpu_torch.ops.line_lerp import KERNEL_NAME as LERP_NAME
+    from tensorf_tpu_torch.ops.line_lerp import KERNEL_SOURCE as LERP_SOURCE
+    from tensorf_tpu_torch.ops.line_lerp import line_lerp
+    from tensorf_tpu_torch.ops.scatter_add import (KERNEL_NAME, KERNEL_SOURCE, scatter_add,
+                                                   scatter_add_bf16)
+
+    replaces = "tensorf_tpu/ops/pallas/scatter_add2.py:156"
+    grids = ["zero_fill_kernel", "scatter_add_runs_kernel"]
+    return {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, replaces, grids),
+            "scatter_add_bf16": (scatter_add_bf16, KERNEL_SOURCE, replaces, grids),
+            LERP_NAME: (line_lerp, LERP_SOURCE,
+                        "none (XLA einsum: tensorf_tpu/ops/grid_sample.py::line_sample_matmul)",
+                        ["line_lerp_fwd_kernel", "line_lerp_fill_kernel", "line_lerp_bwd_kernel"])}
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script needs one NVIDIA GPU")
     try:
-        from tensorf_tpu_torch.ops.scatter_add import (KERNEL_NAME, KERNEL_SOURCE, scatter_add,
-                                                       scatter_add_bf16)
+        from tensorf_tpu_torch.ops.line_lerp import KERNEL_NAME as LERP_NAME
+        from tensorf_tpu_torch.ops.scatter_add import KERNEL_NAME
         from tensorf_tpu_torch.utils.cuda_build import build
     except ImportError as exc:
         fail(f"run from the root of a tensorf_tpu checkout ({exc})")
@@ -875,19 +1134,14 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # name: (wrapper, source, TPU kernel replaced, grids each call enqueues).
-    # Both are entry points of csrc/scatter_add.cu: scatter_add counts every
-    # launch, scatter_add_bf16 those of the bf16 entry point (a bf16 g)
-    replaces = "tensorf_tpu/ops/pallas/scatter_add2.py:156"
-    grids = ["zero_fill_kernel", "scatter_add_runs_kernel"]
-    kernels = {KERNEL_NAME: (scatter_add, KERNEL_SOURCE, replaces, grids),
-               "scatter_add_bf16": (scatter_add_bf16, KERNEL_SOURCE, replaces, grids)}
+    kernels = port_kernels()
     t0 = time.perf_counter()
-    # the kernels' library (nvcc, sm_90a) and the host marching library
+    # the kernels' libraries (nvcc, sm_90a) and the host marching library
     # (g++) of mesh export, all at once
-    built = build([KERNEL_NAME, "marching"], force=True)
-    print(f"build: {len(kernels)} kernel entry points in csrc/scatter_add.cu with nvcc sm_90a "
-          f"and the marching library with g++ in {time.perf_counter() - t0:.2f} s", flush=True)
+    built = build([KERNEL_NAME, LERP_NAME, "marching"], force=True)
+    print(f"build: {len(kernels)} kernel entry points in csrc/scatter_add.cu and "
+          f"csrc/line_lerp.cu with nvcc sm_90a and the marching library with g++ in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for res in built.values():
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1191,10 +1445,10 @@ def ply_vertices(np, path):
 
 def mesh_export(torch, np, kernels, name, config, ckpt, min_verts=1):
     """The CLI's mesh export of ``ckpt``: it must write the .ply beside it
-    and nothing else, launch no kernel (it takes no train step), run the
-    native marching library and write at least ``min_verts`` vertices.
-    Returns the CLI's JSON line and the .ply's vertices."""
-    import contextlib
+    and nothing else, launch no scatter-add (it takes no train step) and
+    the line lerp only for the alpha grid's reads (no graph: once each),
+    run the native marching library and write at least ``min_verts``
+    vertices.  Returns the CLI's JSON line and the .ply's vertices."""
     import io
     import os
 
@@ -1206,7 +1460,7 @@ def mesh_export(torch, np, kernels, name, config, ckpt, min_verts=1):
         fn.launches = 0
     out = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), graphless_line_reads(torch) as graphless:
         rc = cli.main(["--config", config, "--export_mesh", "1", "--ckpt", ckpt,
                        "--save_images", "0"])
     seconds = time.perf_counter() - t0
@@ -1219,15 +1473,16 @@ def mesh_export(torch, np, kernels, name, config, ckpt, min_verts=1):
     check(added == {os.path.basename(row["ply"])},
           f"{name}: the mesh export wrote {sorted(added)}, want only the .ply")
     launched = {k: v[0].launches for k, v in kernels.items()}
-    check(not any(launched.values()), f"{name}: the mesh export launched kernels {launched}: "
-          "it took a train step")
+    check(dict(launched, line_lerp=launched["line_lerp"] - graphless[0])
+          == dict.fromkeys(launched, 0), f"{name}: the mesh export launched kernels "
+          f"{launched} for {graphless[0]} line reads: it took a train step")
     check(row["native"], f"{name}: the mesh export ran the numpy marching, not the native library")
     verts = ply_vertices(np, row["ply"])
     check(len(verts) == row["verts"] >= min_verts and (row["faces"] > 0 or not min_verts)
           and np.all(np.isfinite(verts)), f"{name}: the .ply holds {len(verts)} vertices, the "
           f"CLI reported {row['verts']}, want at least {min_verts}")
     print(f"{name}: {row['verts']} vertices, {row['faces']} faces, native marching "
-          f"{row['native']}; alpha grid {row['alpha_ms']:.1f} ms on the card (host clock, "
+          f"{row['native']}; launches {launched}; alpha grid {row['alpha_ms']:.1f} ms on the card (host clock, "
           f"synchronised), marching and .ply {row['march_ms']:.1f} ms on the host; export "
           f"{seconds:.2f} s in all", flush=True)
     return row, verts
@@ -1324,14 +1579,17 @@ def selected_test_split(scene, idxs):
 def lego_phase(torch, np, kernels, workdir):
     """configs/lego.txt through ``reconstruction`` as written but for the
     cut schedule (profile_step.LEGO_CUT) on Blender's split sizes.
-    TensorCP launches no kernel, so its card step is held to the CPU's,
-    and its run to 0 scatter-adds, the loss bar, every segment stratified,
+    TensorCP gathers no plane, so it launches no scatter-add; its lines
+    read by the line-lerp kernel.  Its card step is held to the CPU's,
+    and its run to 0 scatter-adds, line-lerp launches as its steps and
+    reads call for, the loss bar, every segment stratified,
     eval overflow 0.0 and a render-only re-render of the final checkpoint;
     then its mesh export.  As written, the config's L1 term holds the CP
     density at its initial plateau on this scene (in both packages; PERF.md
     §6 PR 7), so the same path's first segment runs again with the L1
     weights at 0: its loss must fall to LEGO_L1_OFF_LOSS_RATIO and its test
-    view beat the untrained field's.  Returns the launch counts of both."""
+    view beat the untrained field's.  Returns the launches of both (each
+    kernel's count)."""
     import dataclasses
 
     from tensorf_tpu_torch.config import load_config
@@ -1359,7 +1617,8 @@ def lego_phase(torch, np, kernels, workdir):
     torch.cuda.empty_cache()
 
     result, launches = drive(torch, "lego_path", cfg, scene, kernels, cfg.n_iters)
-    check(launches["scatter_add"] == 0, f"lego_path: TensorCP launched {launches} scatter-adds")
+    check(launches["scatter_add"] == 0 and launches["line_lerp"] > 0,
+          f"lego_path: TensorCP launched {launches}: no scatter-add, the line lerp")
     check(all(seg["strata"] > 0 for seg in result.segments),
           "lego_path: a segment ran unstratified")
     for e in result.events:
@@ -1405,13 +1664,14 @@ def lego_phase(torch, np, kernels, workdir):
           f"lego_l1_off: the loss fell to {last / first:.4f} of its start (bar "
           f"{LEGO_L1_OFF_LOSS_RATIO}), test psnr {res.test_psnr} against {untrained} untrained")
     phase_done("lego_path", t0)
-    return launches["scatter_add"], off_launches["scatter_add"]
+    return launches, off_launches
 
 
 def first_segment(torch, np, name, cfg, scene, kernels, steps, capture=None):
     """``steps`` first-segment steps of ``cfg``'s path through
     ``train_steps``, the launch counts set to 0 just before and read just
-    after (each step's statics say how many it calls for); ``capture(it,
+    after (each step's statics say how many it calls for, and the line
+    lerp launches once more for each read with no graph); ``capture(it,
     state)`` runs after each step.  Returns (result, launches, untrained
     test PSNR), the untrained field's PSNR on the same test view."""
     from tensorf_tpu_torch.parallel import parity
@@ -1429,10 +1689,11 @@ def first_segment(torch, np, name, cfg, scene, kernels, steps, capture=None):
 
     for fn, *_ in kernels.values():
         fn.launches = 0
-    with parity.recording_shaded() as shaded:
+    with parity.recording_shaded() as shaded, graphless_line_reads(torch) as graphless:
         result = train_steps(cfg, steps, device="cuda", scene=scene, on_step=count,
                              log=lambda m: print(f"{name}: {m}", flush=True))
     torch.cuda.synchronize()
+    want["line_lerp"] += graphless[0]
     launches = {k: v[0].launches for k, v in kernels.items()}
     print(f"{name}: {cfg.model_name} {cfg.shadingMode}, {steps} steps at "
           f"{result.grid_size}, {result.step_ms:.3f} ms/step, launches {launches} (want "
@@ -1483,7 +1744,7 @@ def shading_phase(torch, np, kernels, workdir, scene):
     """Each shading mode of SHADING_MODES on configs/synth_sphere.txt's
     first segment: one step's gradients kernel vs plain, the launch sum, a
     falling loss, and a test PSNR above the untrained field's.  Returns the
-    launch counts by mode."""
+    launches by mode (each kernel's count)."""
     from tensorf_tpu_torch.config import load_config
 
     t0 = time.perf_counter()
@@ -1505,7 +1766,7 @@ def shading_phase(torch, np, kernels, workdir, scene):
         check(last < first, f"shading_{mode}: the loss did not fall")
         check(result.test_psnr > untrained, f"shading_{mode}: test psnr {result.test_psnr} does "
               f"not beat the untrained field's {untrained}")
-        out[mode] = launches["scatter_add"]
+        out[mode] = launches
         torch.cuda.empty_cache()
     phase_done("shading", t0)
     return out
@@ -1513,7 +1774,8 @@ def shading_phase(torch, np, kernels, workdir, scene):
 
 def line_impls(grid, points):
     """Which implementation samples each of the three lines (VEC_MODE
-    order) at ``points`` points: "matmul" (the one-hot) or "footprint"."""
+    order) at ``points`` points: "matmul" (within the one-hot's bounds: on
+    the card a float32 line reads by the line-lerp kernel) or "footprint"."""
     from tensorf_tpu_torch.models.config import VEC_MODE
     from tensorf_tpu_torch.models.tensorf import line_uses_matmul
 
@@ -1529,8 +1791,8 @@ def flower_phase(torch, np, kernels, workdir):
     handle with ms per frame, their PSNR over the untrained field's and
     FLOWER_MIN_PSNR, FLOWER_SPIRAL spiral poses, render-only of the final
     checkpoint within 1e-4 dB) and the kernel against its plain version on
-    the last segment's plane and line footprint streams.  Returns (launches
-    of the path, kernel case rows)."""
+    the last segment's plane and line footprint streams.  Returns (the
+    path's launches of each kernel, kernel case rows)."""
     import dataclasses
 
     from tensorf_tpu_torch.config import load_config
@@ -1642,7 +1904,7 @@ def flower_phase(torch, np, kernels, workdir):
     cases = [kernel_case(torch, name, *stream) for name, stream in streams.items()]
     check({c["C"] for c in cases} == set(FLOWER_STREAMS), f"flower streams {sorted(streams)}")
     phase_done("flower_streams", t0)
-    return launches["scatter_add"], cases
+    return launches, cases
 
 
 def write_reference_th(torch, np, path, field, aabb, alpha_mask=None) -> None:
@@ -1701,7 +1963,6 @@ def write_reference_th(torch, np, path, field, aabb, alpha_mask=None) -> None:
 def cli_line(argv):
     """Run the port's CLI on ``argv`` with its stdout captured; returns
     (exit code, its last JSON line)."""
-    import contextlib
     import io
 
     from tensorf_tpu_torch import __main__ as cli
@@ -1941,8 +2202,9 @@ def dp_step_parity_phase(torch, np, cfg, scene) -> None:
     ranks sharing cuda:0 against the same step on one rank: the same global
     batch and noise, an Adam state in progress (parity.adam_in_progress),
     the parameters after it within rel 1e-5 / abs 1e-6 and bit-identical on
-    the ranks; the kernel launched on every rank as often as on one, each
-    time on its 1/DP_RANKS of the rows."""
+    the ranks; the scatter-add launched on every rank as often as on one,
+    each time on its 1/DP_RANKS of the rows, and the line lerp as often as
+    on one rank."""
     from tensorf_tpu_torch.parallel import parity, spawn
 
     t0 = time.perf_counter()
@@ -1960,6 +2222,9 @@ def dp_step_parity_phase(torch, np, cfg, scene) -> None:
         check(res["launches"] == want["launches"] > 0 and len(res["rows"]) == len(want["rows"]),
               f"dp_step_parity: rank {r} launched the kernel {res['launches']} times, one rank "
               f"{want['launches']}")
+        check(res["line_lerp_launches"] == want["line_lerp_launches"] > 0,
+              f"dp_step_parity: rank {r} launched the line lerp {res['line_lerp_launches']} "
+              f"times, one rank {want['line_lerp_launches']}")
         check(sum(res["rows"]) * DP_RANKS == sum(want["rows"]),
               f"dp_step_parity: rank {r} scattered {sum(res['rows'])} rows, one rank "
               f"{sum(want['rows'])}")
@@ -1972,7 +2237,8 @@ def dp_step_parity_phase(torch, np, cfg, scene) -> None:
     print(f"dp_step_parity: {DP_RANKS} gloo ranks on cuda:0 vs one rank, synth_full's first step "
           f"at full width (quotas {[len(i) for i in case['ids']]}): max |delta param| {worst:.3g}, "
           f"mse {got[0]['metrics']['mse']:.8f} vs {want['metrics']['mse']:.8f}; kernel launches "
-          f"per rank {[res['launches'] for res in got]} (one rank {want['launches']}), rows per "
+          f"per rank {[res['launches'] for res in got]} (one rank {want['launches']}), line-lerp "
+          f"launches per rank {[res['line_lerp_launches'] for res in got]}, rows per "
           f"rank {[sum(res['rows']) for res in got]} (one rank {sum(want['rows'])})", flush=True)
     phase_done("dp_step_parity", t0)
 
@@ -1981,11 +2247,13 @@ def dp_path_phase(torch, np, cfg, scene, main_psnr):
     """dp_path: ``reconstruction`` of the main path's config on DP_RANKS
     gloo ranks sharing cuda:0 (parallel/parity.py::reconstruct): every plan
     and event line and a parameter checksum after every event equal on the
-    ranks, every eval's overflow 0.0, each rank's kernel launches equal to
-    the per-stratum sum of its shares, the final PSNR within DP_MAX_DPSNR
+    ranks, every eval's overflow 0.0, each rank's scatter-add launches equal
+    to the per-stratum sum of its shares and its line-lerp launches at
+    least its steps' (its share of each evaluation's reads adds one each),
+    the final PSNR within DP_MAX_DPSNR
     of the main path's.  Prints each rank's ms/step and peak GiB per
     segment (two processes time-slicing one card: no model of two cards).
-    Returns each rank's launches."""
+    Returns each rank's launches of each kernel."""
     from tensorf_tpu_torch.parallel import parity, spawn
 
     t0 = time.perf_counter()
@@ -2014,7 +2282,13 @@ def dp_path_phase(torch, np, cfg, scene, main_psnr):
         n_launch = res["launches"]["scatter_add"]
         check(n_launch == want > 0, f"dp_path: rank {r} launched the kernel {n_launch} times, "
               f"the per-stratum sum of its shares is {want}")
-        launches.append(n_launch)
+        lerp_want = sum(n * line_lerp_launches_per_step(statics, cfg.model_name, batches, grid,
+                                                        a_dtype, shaded, grid_dtype)
+                        for statics, batches, grid, a_dtype, grid_dtype, shaded, n in res["steps"])
+        n_lerp = res["launches"]["line_lerp"]
+        check(n_lerp >= lerp_want > 0, f"dp_path: rank {r} launched the line lerp {n_lerp} "
+              f"times, its steps call for {lerp_want}")
+        launches.append(res["launches"])
         result = res["result"]
         check(all(v == 0.0 for v in result.eval_overflow.values()),
               f"dp_path: rank {r}'s evaluations overflowed: {result.eval_overflow}")
@@ -2027,7 +2301,7 @@ def dp_path_phase(torch, np, cfg, scene, main_psnr):
     psnrs = [float(np.mean(res["result"].final_psnrs)) for res in got]
     check(len(set(psnrs)) == 1, f"dp_path: the ranks' final test PSNRs differ: {psnrs}")
     print(f"dp_path: checksums equal on the ranks after every event "
-          f"({sorted(got[0]['checksums'])}); kernel launches per rank {launches}; eval overflow "
+          f"({sorted(got[0]['checksums'])}); launches per rank {launches}; eval overflow "
           f"{got[0]['result'].eval_overflow}; final test psnr {psnrs[0]:.4f} dB, the main path's "
           f"{main_psnr:.4f} (within {DP_MAX_DPSNR})", flush=True)
     check(abs(psnrs[0] - main_psnr) <= DP_MAX_DPSNR,
@@ -2099,6 +2373,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
     """Phases 2-17; prints the kernels line."""
     from tensorf_tpu_torch.config import load_config
     from tensorf_tpu_torch.data.synthetic import make_synthetic_scene_arrays
+    from tensorf_tpu_torch.ops import line_lerp as lerp
     from tensorf_tpu_torch.profile_step import CUT_SCHEDULE, OVERRIDES, UNSTRATIFIED
     from tensorf_tpu_torch.seed_spread import SEEDS
     from tensorf_tpu_torch.train.loop import build_statics
@@ -2128,6 +2403,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
         bf16_synthetic.append(kernel_case(torch, name, idx, g, n_rows))
         del idx, g
     torch.cuda.empty_cache()
+    lerp_cases = line_lerp_phase(torch)
     phase_done("kernels", t0)
 
     t0 = time.perf_counter()
@@ -2141,8 +2417,10 @@ def run_paths(torch, np, kernels, workdir) -> None:
           "main_path: a segment ran unstratified")
     last = result.progress[-1]
     print(f"main_path: {main_launches['scatter_add']} scatter-add launches, the per-stratum sum over "
-          f"{cfg.n_iters} steps; last progress read (iteration {last['iteration']}) overflow per "
-          f"stratum {last['overflow']} (max {MAX_FINAL_OVERFLOW})", flush=True)
+          f"{cfg.n_iters} steps, and {main_launches['line_lerp']} line-lerp launches; last "
+          f"progress read (iteration {last['iteration']}) overflow per stratum "
+          f"{last['overflow']} (max {MAX_FINAL_OVERFLOW})", flush=True)
+    check(main_launches["line_lerp"] > 0, "main_path: no line read took the line lerp")
     check(max(last["overflow"]) <= MAX_FINAL_OVERFLOW,
           f"main_path: a stratum overflows {max(last['overflow'])} at the last read")
     main_psnr = float(np.mean(result.final_psnrs))
@@ -2187,9 +2465,10 @@ def run_paths(torch, np, kernels, workdir) -> None:
 
     flat_cfg = load_config("configs/synth_full.txt",
                            {**OVERRIDES, **CUT_SCHEDULE, **UNSTRATIFIED, "basedir": workdir})
-    result, launches = full_path(torch, np, "unstratified", flat_cfg, scene, kernels, at_step)
-    check(launches["scatter_add"] == UNSTRATIFIED_LAUNCHES_PER_STEP * flat_cfg.n_iters,
-          f"unstratified: scatter_add launched {launches['scatter_add']} times, want "
+    result, flat_launches = full_path(torch, np, "unstratified", flat_cfg, scene, kernels,
+                                      at_step)
+    check(flat_launches["scatter_add"] == UNSTRATIFIED_LAUNCHES_PER_STEP * flat_cfg.n_iters,
+          f"unstratified: scatter_add launched {flat_launches['scatter_add']} times, want "
           f"{UNSTRATIFIED_LAUNCHES_PER_STEP} x {flat_cfg.n_iters}")
     streams.update(capture_streams(torch, result.state, "300_real"))
     del result
@@ -2255,11 +2534,12 @@ def run_paths(torch, np, kernels, workdir) -> None:
     phase_done("resume", t0)
 
     # ---- the slice's paths: lego (TensorCP, MLP), TensorVM, every shading mode ----
-    by_path = {"main_path": main_launches["scatter_add"],
-               "sphere_path": sphere_launches["scatter_add"]}
+    # each path's launches of each kernel; dp_path's a list, one per rank
+    by_path = {"main_path": main_launches, "unstratified": flat_launches,
+               "sphere_path": sphere_launches}
     by_path["lego_path"], by_path["lego_l1_off"] = lego_phase(torch, np, kernels, workdir)
     vm_streams, vm_launches = tensorvm_phase(torch, np, kernels, workdir, scene)
-    by_path["tensorvm"] = vm_launches["scatter_add"]
+    by_path["tensorvm"] = vm_launches
     t0 = time.perf_counter()
     vm_cases = [kernel_case(torch, name, *stream) for name, stream in vm_streams.items()]
     del vm_streams
@@ -2271,7 +2551,7 @@ def run_paths(torch, np, kernels, workdir) -> None:
 
     # ---- slice 9: the bf16 path, LPIPS ----
     bf16_launches, bf16_cases = bf16_phase(torch, np, kernels, workdir, scene)
-    by_path["bf16_path"] = bf16_launches["scatter_add"]
+    by_path["bf16_path"] = bf16_launches
     frame = sphere_scene["test"]["frames"][0]["image"]
     lpips_phase(torch, np, workdir, frame[..., :3] / 255.0)
 
@@ -2301,6 +2581,10 @@ def run_paths(torch, np, kernels, workdir) -> None:
     bf16_head = next((c for c in bf16_only if c["case"] == "density_bf16_128"), None)
     check(bf16_head is not None, "the bf16 path's density stream is missing")
 
+    def of(name):
+        return {path: [r[name] for r in n] if isinstance(n, list) else n[name]
+                for path, n in by_path.items()}
+
     def entry(name, launches, head, shapes, own):
         """``own``: the cases that ran this entry point."""
         _, src, replaces, grids = kernels[name]
@@ -2313,11 +2597,16 @@ def run_paths(torch, np, kernels, workdir) -> None:
             "shapes": [{k: c[k] for k in CASE_KEYS if k in c} for c in shapes],
         }
 
+    # the line lerp's headline: the main path's density read (synth_full's
+    # ~300-texel lines x 16), forward and backward, as a train step reads
+    # it; "plain_ms" the one-hot matmul it replaces on the card, "library_ms"
+    # torch's grid_sample on the line as an image (the yardstick)
+    lerp_head = next(c for c in lerp_cases if c["case"] == "vm_density_300x16")
     line = {"kernels": [
         dict(entry("scatter_add", main_launches["scatter_add"], head, main_cases, main_cases),
              # each path's launches, its counts set to 0 just before it;
              # TensorCP (lego_path) gathers no plane, so none
-             launches_by_path=by_path,
+             launches_by_path=of("scatter_add"),
              tensorvm_shapes=[{k: c[k] for k in CASE_KEYS if k in c} for c in vm_cases],
              # flower's last segment: the packed plane and the line footprint tables
              flower_shapes=[{k: c[k] for k in CASE_KEYS if k in c} for c in flower_cases]),
@@ -2325,6 +2614,20 @@ def run_paths(torch, np, kernels, workdir) -> None:
                    bf16_only),
              launches_by_path={"main_path": main_launches["scatter_add_bf16"],
                                "bf16_path": bf16_launches["scatter_add_bf16"]}),
+        {"name": lerp.KERNEL_NAME, "route": "cuda", "source": kernels[lerp.KERNEL_NAME][1],
+         "replaces": kernels[lerp.KERNEL_NAME][2], "grids": kernels[lerp.KERNEL_NAME][3],
+         "launches": main_launches[lerp.KERNEL_NAME],
+         # every path's launches, its counts set to 0 just before it: a
+         # forward and a backward a train step's read, one launch each read
+         # with no graph (evaluations, alpha masks); the bf16 path reads
+         # its lines by the bf16 one-hot
+         "launches_by_path": of(lerp.KERNEL_NAME),
+         "max_abs_err": max(max(c["fwd_err"], c["grad_err"]) for c in lerp_cases),
+         "ms": lerp_head["fwd_device_ms"] + lerp_head["bwd_device_ms"],
+         "plain_ms": lerp_head["one_hot_fwd_bwd_ms"],
+         "bound_ms": lerp_head["fwd_bound_ms"] + lerp_head["bwd_bound_ms"],
+         "bound_by": "bytes", "library_ms": lerp_head["library_fwd_bwd_ms"],
+         "shapes": lerp_cases},
     ]}
     print(json.dumps(line), flush=True)
 

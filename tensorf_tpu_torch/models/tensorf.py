@@ -30,6 +30,7 @@ from ..ops.grid_sample import (
     make_footprint_1d,
     make_footprint_2d,
 )
+from ..ops.line_lerp import line_lerp
 from ..ops.resize import resize_bilinear_align_corners, resize_linear_align_corners
 from ..utils import tracing
 from ..utils.device import resolve_device
@@ -51,7 +52,10 @@ from .shading import init_shading, torch_dtype
 # 351..400 segment (6,336,512 samples) samples its lines of 315 and 472
 # texels by the one-hot (3.99e9 and 5.98e9 B) and that of 526 by the
 # footprint (6.67e9 B); its last segment (9,474,048 samples; 471, 706, 786
-# texels: 8.92e9 B and up) takes the footprint throughout.
+# texels: 8.92e9 B and up) takes the footprint throughout.  On the card a
+# float32 read within both bounds builds no matrix: it takes the line-lerp
+# kernel (``_sample_line_packed``), and the bounds still decide which reads
+# do.
 _LINE_MATMUL_MAX_LEN = 1024
 _ONE_HOT_MAX_BYTES = 6 * 2**30
 
@@ -76,8 +80,8 @@ def line_uses_matmul(n_points: int, length: int, a_dtype: Optional[torch.dtype] 
 
 # Every line read runs inside the span ``tftorch.field.line`` and, while a
 # profiler runs, records its shape as ``line``: (points, texels, channels,
-# route), route 1 for the one-hot matmul and 0 for the taps or the
-# footprint gather (utils/tracing.py).
+# route), route 1 for the one-hot matmul, 2 for the line-lerp kernel and 0
+# for the taps or the footprint gather (utils/tracing.py).
 LINE_SPAN = "tftorch.field.line"
 
 
@@ -85,9 +89,15 @@ def _sample_line_packed(lpacked: torch.Tensor, coord: torch.Tensor,
                         a_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     L, C = lpacked.shape
     matmul = line_uses_matmul(coord.numel(), L, a_dtype)
+    # on the card a float32 read that the one-hot would take reads its two
+    # texels by the line-lerp kernel (ops/line_lerp.py); the CPU keeps the
+    # one-hot, the JAX package's arithmetic
+    lerp = matmul and a_dtype is None and lpacked.is_cuda
     with tracing.span(LINE_SPAN):
         if tracing.enabled():
-            tracing.count_shape("line", (coord.numel(), L, C, int(matmul)))
+            tracing.count_shape("line", (coord.numel(), L, C, 2 if lerp else int(matmul)))
+        if lerp:
+            return line_lerp(lpacked, coord)
         if matmul:
             return line_sample_matmul(lpacked, coord, a_dtype)
         return footprint_sample_1d(make_footprint_1d(lpacked), L, coord)

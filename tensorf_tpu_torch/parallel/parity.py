@@ -79,9 +79,11 @@ def one_step(group: Optional[RankGroup], device, case: dict) -> dict:
     ``step`` and either ``noise`` (the global batch's draws as numpy:
     (u, flip) or (u per stratum, flip per stratum, shares or None)) or
     ``seed`` (the noise generator's).  Returns the parameters after Adam
-    (numpy), the metrics, and the kernel's launches with the rows of each."""
+    (numpy), the metrics, the scatter-add's launches with the rows of each,
+    and the line lerp's launches."""
     from ..convert import optimizer_from_jax
     from ..ops import grid_sample
+    from ..ops.line_lerp import line_lerp
     from ..ops.scatter_add import scatter_add
     from ..train.optim import make_optimizer
     from ..train.step import make_train_step
@@ -123,7 +125,7 @@ def one_step(group: Optional[RankGroup], device, case: dict) -> dict:
         return real(idx, g, n_rows)
 
     grid_sample.scatter_add = recording
-    scatter_add.launches = 0
+    scatter_add.launches = line_lerp.launches = 0
     try:
         metrics = step_fn(dev(case["aabb"]), dev(case["rays"]),
                           dev(case["rgbs"]), int(case["step"]), generator, _mask(case, device),
@@ -140,6 +142,7 @@ def one_step(group: Optional[RankGroup], device, case: dict) -> dict:
         metric_bytes=max(v.untyped_storage().nbytes() for v in metrics.values()),
         launches=int(scatter_add.launches),
         rows=rows,
+        line_lerp_launches=int(line_lerp.launches),
         checksum=param_digest(field),
     )
 
@@ -185,8 +188,8 @@ def recording_shaded():
 
 
 def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = False) -> dict:
-    """``reconstruction`` of ``cfg`` on this rank with the kernel's launch
-    count set to 0 just before and read just after.  Records the log lines,
+    """``reconstruction`` of ``cfg`` on this rank with the kernels' launch
+    counts set to 0 just before and read just after.  Records the log lines,
     a parameter checksum after each event (read at the next step, after the
     broadcast and that step's all-reduce) and at the end, and the statics
     of every step with this rank's share of each sub-batch (from which the
@@ -194,6 +197,7 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
     ranks draw as a distributed run's do, each from its own id pool."""
     if pooled:
         group = group._replace(pooled=True)
+    from ..ops.line_lerp import line_lerp
     from ..ops.scatter_add import scatter_add, scatter_add_bf16
     from ..train.loop import build_statics, reconstruction
 
@@ -218,7 +222,7 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
         if it - 1 in event_iters or it == cfg.n_iters - 1:
             checksums[it] = param_digest(state.field)
 
-    scatter_add.launches = scatter_add_bf16.launches = 0
+    scatter_add.launches = scatter_add_bf16.launches = line_lerp.launches = 0
     with recording_shaded() as shaded:
         result = reconstruction(cfg, scene, device, save_images=False, log=lines.append,
                                 on_step=on_step, group=group)
@@ -226,7 +230,8 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
         torch.cuda.synchronize(device)
     return dict(
         launches={"scatter_add": int(scatter_add.launches),
-                  "scatter_add_bf16": int(scatter_add_bf16.launches)},
+                  "scatter_add_bf16": int(scatter_add_bf16.launches),
+                  "line_lerp": int(line_lerp.launches)},
         lines=lines, checksums=checksums, steps=steps,
         final_checksum=param_digest(result.state.field),
         result=result._replace(state=None),

@@ -8,7 +8,9 @@
 // A block's threads are std::threads meeting at a std::barrier for
 // __syncthreads; blocks run one after another on the same threads, so
 // `__shared__` (here a function-local static) is one block's shared memory
-// at a time.  Device memory is host memory.  Atomics take a lock and are
+// at a time, and so is a launch's dynamic shared memory
+// (`cuda_cpu::dynamic_smem()`, which a test puts in place of the source's
+// `extern __shared__` array).  Device memory is host memory.  Atomics take a lock and are
 // counted: cuda_cpu_reductions() returns (and clears) the number of float
 // and float4 atomicAdds since the last call, the L2 reductions the kernel
 // would send.  cuda_cpu_set_sm_count sets what the device reports as its
@@ -60,6 +62,7 @@ enum {
   cudaErrorInvalidConfiguration = 9,
   cudaDevAttrMultiProcessorCount = 16,
   cudaLaunchAttributeProgrammaticStreamSerialization = 5,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
 };
 struct cudaLaunchAttributeValue {
   int programmaticStreamSerializationAllowed;
@@ -81,14 +84,19 @@ inline std::barrier<>* block_barrier = nullptr;
 inline std::mutex atomic_lock;
 inline long long reductions = 0;
 inline int sm_count = 132;
+inline std::vector<float> dynamic_smem_buf;
+
+// The running block's dynamic shared memory.
+inline float* dynamic_smem() { return dynamic_smem_buf.data(); }
 
 // Runs `kernel(args...)` over `grid` blocks of `block` threads: block.x
 // std::threads take every block in turn.  A thread that returns leaves the
 // block's barrier (it waits at none of its later __syncthreads), then all
 // meet at the block's end, where the next block's index and barrier are set.
 template <typename... P, typename... A>
-cudaError_t run(dim3 grid, dim3 block, void (*kernel)(P...), A... args) {
+cudaError_t run(dim3 grid, dim3 block, size_t smem, void (*kernel)(P...), A... args) {
   if (block.x < 1 || block.x > 1024 || grid.y > 65535) return cudaErrorInvalidConfiguration;
+  dynamic_smem_buf.assign((smem + sizeof(float) - 1) / sizeof(float), 0.0f);
   gridDim = grid;
   blockDim = block;
   const unsigned long long n_blocks = static_cast<unsigned long long>(grid.x) * grid.y;
@@ -125,22 +133,27 @@ template <typename... P>
 struct Launch {
   void (*kernel)(P...);
   dim3 grid, block;
+  size_t smem;
   template <typename... A>
   void operator()(A... args) const {
-    run(grid, block, kernel, args...);
+    run(grid, block, smem, kernel, args...);
   }
 };
 
 template <typename... P>
-Launch<P...> launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t = 0,
+Launch<P...> launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem = 0,
                     cudaStream_t = nullptr) {
-  return Launch<P...>{kernel, grid, block};
+  return Launch<P...>{kernel, grid, block, smem};
 }
 }  // namespace cuda_cpu
 
 template <typename... P, typename... A>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...), A... args) {
-  return cuda_cpu::run(cfg->gridDim, cfg->blockDim, kernel, args...);
+  return cuda_cpu::run(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, kernel, args...);
+}
+template <typename K>
+cudaError_t cudaFuncSetAttribute(K*, int, int) {
+  return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* dev) {
@@ -161,6 +174,11 @@ template <typename T>
 T __ldcs(const T* p) {
   return *p;
 }
+// float32 arithmetic rounded step by step, never contracted into an FMA
+// (g++ in an ISO mode contracts nothing)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __uint_as_float(unsigned u) {
   float f;
   std::memcpy(&f, &u, sizeof f);

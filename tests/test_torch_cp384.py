@@ -172,8 +172,8 @@ def test_the_cp_flop_counts_match_hand_counts(cell):
 
 @pytest.mark.cuda
 def test_the_tiny_cp_cell_on_the_card():
-    """The same cut on the card: the one-hot's GEMMs in cuBLAS and the
-    taps' scatter-add kernel against the reference."""
+    """The same cut on the card: the density lines' reads by the line-lerp
+    kernels and the taps' scatter-add kernel against the reference."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the port's CUDA kernels run only there")
     from portbench.tests.tiny import assert_agrees

@@ -280,6 +280,181 @@ def test_gather_backward_launches_the_kernel():
     )
 
 
+def _line_coords(M, gen):
+    """M coordinates on the card: the edges (-1, 1, -0, beyond +-1, 0),
+    then samples along rays in order, some beyond [-1, 1]."""
+    n = M // 256 + 1
+    start = torch.rand((n, 1), generator=gen) * 2.4 - 1.2
+    slope = (torch.rand((n, 1), generator=gen) - 0.5) * 1.2
+    rays = (start + slope * torch.linspace(0, 1, 256)).reshape(-1)
+    edges = torch.tensor([-1.0, 1.0, -0.0, 1.5, -1.5, 1e30, -1e30, 0.0])
+    return torch.cat([edges, rays])[:M].cuda()
+
+
+def _lerp_grads(read, line, coord, cot):
+    t = line.detach().clone().requires_grad_()
+    out = read(t, coord)
+    out.backward(cot)
+    return out.detach(), t.grad
+
+
+# The kernel's lerp is one FMA after a product where the plain versions
+# round both products: an ulp apart.  Its gradient is the same float32 sums
+# in another (atomic) order: 1e-5 relative, and 1e-6 of the largest sum of
+# |terms| landing on one texel.
+LERP_FWD = dict(rtol=1e-6, atol=1e-6)
+
+
+def _lerp_grad_tol(line, coord, cot):
+    from tensorf_tpu_torch.ops.line_lerp import line_lerp_reference
+
+    _, abs_sum = _lerp_grads(line_lerp_reference, line, coord, cot.abs())
+    return dict(rtol=1e-5, atol=1e-5 + 1e-6 * float(abs_sum.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,C,M", [(538, 96, 300_000), (430, 96, 300_000), (300, 16, 400_000),
+                                   (300, 48, 131_072)],
+                         ids=["cp384_538x96", "cp384_430x96", "vm_density", "vm_app_top32"])
+def test_line_lerp_kernel_matches_the_one_hot_and_the_gather(L, C, M):
+    """The line-lerp kernels at the cells' shapes (cp384's lines of 430 and
+    538 texels x 96 on ~300k density rows; synth_full's ~300-texel density
+    lines x 16 and top-32 appearance lines x 48), against the one-hot matmul
+    (cuBLAS, float32) and the plain gather-lerp on the card: the rows and
+    the line's gradient; one launch a forward and one a backward."""
+    from tensorf_tpu_torch.ops.grid_sample import line_sample_matmul
+    from tensorf_tpu_torch.ops.line_lerp import line_lerp, line_lerp_reference
+
+    _need_gpu()
+    gen = torch.Generator().manual_seed(L + C)
+    line = torch.randn((L, C), generator=gen).cuda()
+    coord = _line_coords(M, gen)
+    cot = torch.randn((M, C), generator=gen).cuda()
+    t = line.clone().requires_grad_()
+    before = line_lerp.launches
+    out = line_lerp(t, coord)
+    torch.cuda.synchronize()
+    assert line_lerp.launches == before + 1
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert line_lerp.launches == before + 2
+    tol = _lerp_grad_tol(line, coord, cot)
+    for read in (line_lerp_reference, line_sample_matmul):
+        want, want_grad = _lerp_grads(read, line, coord, cot)
+        np.testing.assert_allclose(out.detach().cpu().numpy(), want.cpu().numpy(), **LERP_FWD)
+        np.testing.assert_allclose(t.grad.cpu().numpy(), want_grad.cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_line_lerp_kernel_edges():
+    """Coordinates at -1, 1, on texels and beyond +-1 (held to the one-hot);
+    NaN and +-inf (a zero row and no gradient); two texels; M = 0 (no
+    launch); the coordinate as a strided column of an (M, 3) xyz (read in
+    place: the same rows and gradient as its copy)."""
+    from tensorf_tpu_torch.ops.grid_sample import line_sample_matmul
+    from tensorf_tpu_torch.ops.line_lerp import line_lerp, line_lerp_reference
+
+    _need_gpu()
+    gen = torch.Generator().manual_seed(1)
+    L, C = 430, 96
+    line = torch.randn((L, C), generator=gen).cuda()
+    texels = 2.0 * torch.arange(0, L, 7) / (L - 1) - 1.0
+    coord = torch.cat([torch.tensor([-1.0, 1.0, -1.5, 1.5, 3e38, -3e38]), texels]).cuda()
+    out = line_lerp(line, coord)
+    np.testing.assert_allclose(out.cpu().numpy(), line_sample_matmul(line, coord).cpu().numpy(),
+                               **LERP_FWD)
+    assert torch.equal(out[0], line[0]) and torch.equal(out[1], line[-1])
+    # NaN and +-inf among finite rows
+    coord = _line_coords(20_000, gen)
+    bad = torch.arange(3, 20_000, 41, device="cuda")
+    for value in (float("nan"), float("inf"), float("-inf")):
+        c = coord.clone()
+        c[bad] = value
+        cot = torch.randn((20_000, C), generator=gen).cuda()
+        cot[bad] = 1e6
+        out, grad = _lerp_grads(line_lerp, line, c, cot)
+        assert not out[bad].any()
+        keep = torch.ones(20_000, dtype=torch.bool, device="cuda")
+        keep[bad] = False
+        want, want_grad = _lerp_grads(line_lerp_reference, line, c[keep], cot[keep])
+        np.testing.assert_allclose(out[keep].cpu().numpy(), want.cpu().numpy(), **LERP_FWD)
+        np.testing.assert_allclose(grad.cpu().numpy(), want_grad.cpu().numpy(),
+                                   **_lerp_grad_tol(line, c[keep], cot[keep]))
+    out, grad = _lerp_grads(line_lerp, line, torch.full((64,), float("nan"), device="cuda"),
+                            torch.ones((64, C), device="cuda"))
+    assert not out.any() and not grad.any()
+    # two texels
+    two = torch.randn((2, 8), generator=gen).cuda()
+    c = _line_coords(5_000, gen)
+    cot = torch.randn((5_000, 8), generator=gen).cuda()
+    got, got_grad = _lerp_grads(line_lerp, two, c, cot)
+    want, want_grad = _lerp_grads(line_sample_matmul, two, c, cot)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **LERP_FWD)
+    np.testing.assert_allclose(got_grad.cpu().numpy(), want_grad.cpu().numpy(),
+                               **_lerp_grad_tol(two, c, cot))
+    # no rows: no launch, an empty result and a zero gradient
+    before = line_lerp.launches
+    out, grad = _lerp_grads(line_lerp, line, torch.zeros(0, device="cuda"),
+                            torch.zeros((0, C), device="cuda"))
+    assert out.shape == (0, C) and not grad.any() and line_lerp.launches == before
+    # a strided view: column 1 of an (M, 3) xyz
+    xyz = torch.rand((40_000, 3), generator=gen).cuda() * 2.2 - 1.1
+    cot = torch.randn((40_000, C), generator=gen).cuda()
+    col = xyz[:, 1]
+    assert col.stride() == (3,)
+    got, got_grad = _lerp_grads(line_lerp, line, col, cot)
+    want, want_grad = _lerp_grads(line_lerp, line, col.contiguous(), cot)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got_grad.cpu().numpy(), want_grad.cpu().numpy(),
+                               **_lerp_grad_tol(line, col, cot))
+
+
+@pytest.mark.cuda
+def test_a_float32_line_read_on_the_card_takes_the_kernel_under_its_names():
+    """A field's float32 line read on the card records route 2 and launches
+    the kernels once forward and once backward; their names hold
+    ``line_lerp`` and none of the names the GEMM and scatter-add readers
+    look for, and the training reader reads a share in (0, 100]."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.trace import read as read_trace
+    from tensorf_tpu_torch.models import tensorf
+    from tensorf_tpu_torch.ops.line_lerp import line_lerp
+    from tensorf_tpu_torch.utils import tracing
+
+    _need_gpu()
+    gen = torch.Generator().manual_seed(2)
+    line = torch.randn((538, 96), generator=gen).cuda().requires_grad_()
+    xyz = (torch.rand((300_000, 3), generator=gen) * 2 - 1).cuda()
+    cot = torch.randn((300_000, 96), generator=gen).cuda()
+    tensorf._sample_line_packed(line, xyz[..., 0]).backward(cot)  # warm: the build
+    torch.cuda.synchronize()
+    before = line_lerp.launches
+    tracing.take_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tensorf._sample_line_packed(line, xyz[..., 0]).backward(cot)
+        torch.cuda.synchronize()
+    counts = tracing.take_counts()
+    assert counts["line"] == [(300_000, 538, 96, 2)]
+    assert line_lerp.launches == before + 2
+    trace = read_trace(prof)
+    names = [n for n in trace.kernels if "line_lerp" in n]
+    assert any("fwd" in n for n in names) and any("bwd" in n for n in names), names
+    for n in names:
+        assert not any(k in n.lower() for k in ("gemm", "gemv", "splitkreduce",
+                                                "scatter_add_runs_kernel", "zero_fill_kernel"))
+    path = Path(__file__).resolve().parents[1] / "portbench" / "metrics"
+    spec = importlib.util.spec_from_file_location(
+        "lerp_reader", path / "line_lerp_roofline_pct.train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    share = mod.read(dict(kind="train", trace=trace, port_counts=counts))
+    assert 0 < share <= 100, share
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,C", [(786, 64), (471, 16), (1100, 8)],
                          ids=["flower_axis0", "flower_axis2", "over_1024"])

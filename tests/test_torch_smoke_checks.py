@@ -158,6 +158,89 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
                                                                   (10, 11, 12), shaded=shaded)
 
 
+@pytest.mark.parametrize("one_hot_bytes", [None, 30_000], ids=["one_hot", "footprint_lines"])
+@pytest.mark.parametrize("model", ["TensorVMSplit", "TensorCP", "TensorVM"])
+@pytest.mark.parametrize("fused,top_k", [(True, 16), (True, None), (False, 16)],
+                         ids=["fused_topk", "fused_all", "unfused"])
+def test_line_lerp_launches_per_step_count_each_models_float32_one_hot_reads(
+        model, fused, top_k, one_hot_bytes, monkeypatch):
+    """chip_smoke.py's expected line-lerp launches of a step equal twice the
+    float32 line reads that the CPU's step takes by the one-hot matmul with
+    a graph (the reads the card's kernel takes, a forward and a backward
+    each), and each such read gets its backward: every model, strata or
+    not, every line on the one-hot and the wide passes' lines on the
+    footprint gather."""
+    from unittest import mock
+
+    from tensorf_tpu_torch.models import FIELD_MODELS
+    from tensorf_tpu_torch.models import tensorf
+    from tensorf_tpu_torch.parallel import parity
+    from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
+
+    ranks = (3, 3, 3) if model == "TensorVMSplit" else (3,)
+    cfg = ModelConfig(model_name=model, density_n_comp=ranks, app_n_comp=ranks, app_dim=6,
+                      shading_mode="MLP_Fea", feature_c=8, density_shift=-3.0)
+    field = FIELD_MODELS[model](cfg, (10, 11, 12), "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    o = rng.normal(size=(48, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True) + 0.1 * rng.normal(size=(48, 3))
+    rays = torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32))
+    rgbs = torch.rand((48, 3), generator=torch.Generator().manual_seed(2))
+    u = torch.rand((48, 1), generator=torch.Generator().manual_seed(3))
+    common = dict(n_samples=64, step_size=0.06, white_bg=True, ndc_ray=False, total_steps=10,
+                  lr_factor=1.0, weights=LossWeights(), shade_top_k=top_k, fused=fused)
+    cases = [
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0)),
+        (TrainStatics(**common, strata_budgets=(16, None), strata_n_samples=(64, 64),
+                      strata_loss_weights=(0.5, 0.5)),
+         (rays[:24], rays[24:]), (rgbs[:24], rgbs[24:]), (u[:24], u[24:]),
+         (torch.tensor(0.0), torch.tensor(0.0))),
+    ]
+    if one_hot_bytes is not None:
+        monkeypatch.setattr(tensorf, "_ONE_HOT_MAX_BYTES", one_hot_bytes)
+    matmul = tensorf.line_sample_matmul
+    for statics, rays_, rgbs_, u_, flip in cases:
+        forwards, backwards = [], []
+
+        def counting(line, coord, a_dtype=None):
+            out = matmul(line, coord, a_dtype)
+            if a_dtype is None and torch.is_grad_enabled() and line.requires_grad:
+                forwards.append(line.shape)
+                out.register_hook(lambda g: backwards.append(g.shape))
+            return out
+
+        field.zero_grad(set_to_none=True)
+        with mock.patch.object(tensorf, "line_sample_matmul", counting), \
+                parity.recording_shaded() as shaded:
+            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
+            total.backward()
+        batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
+        want = chip_smoke.line_lerp_launches_per_step(statics, model, batches, (10, 11, 12),
+                                                      shaded=shaded)
+        assert len(backwards) == len(forwards)
+        assert 2 * len(forwards) == want
+        if one_hot_bytes is None:
+            assert (want > 0) == fused
+
+
+def test_graphless_line_reads_count_the_reads_with_no_graph():
+    """chip_smoke.py's count of the line reads that launch the line lerp
+    once: those under no_grad or of a line that needs no gradient, not
+    those a backward follows; the port's read is restored after."""
+    from tensorf_tpu_torch.models import tensorf
+
+    line = torch.randn((30, 4), generator=torch.Generator().manual_seed(0))
+    coord = torch.linspace(-1, 1, 7)
+    real = tensorf.line_lerp
+    with chip_smoke.graphless_line_reads(torch) as n:
+        tensorf.line_lerp(line.clone().requires_grad_(), coord).sum().backward()
+        with torch.no_grad():
+            tensorf.line_lerp(line.clone().requires_grad_(), coord)
+        tensorf.line_lerp(line, coord)
+    assert n == [2] and tensorf.line_lerp is real
+
+
 @pytest.mark.parametrize("model", ["TensorVMSplit", "TensorCP", "TensorVM"])
 @pytest.mark.parametrize("fused,top_k", [(True, 16), (True, None), (False, 16)],
                          ids=["fused_topk", "fused_all", "unfused"])
