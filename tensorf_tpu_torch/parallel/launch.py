@@ -21,6 +21,7 @@ from __future__ import annotations
 import os
 import queue as queue_mod
 import shutil
+import sys
 import tempfile
 import time
 import traceback
@@ -103,20 +104,35 @@ def join_from_env(n_devices: int, device=None,
     return init_group(rank, world, dev, init_method, backend, pooled=True, timeout_s=timeout_s)
 
 
+def _report(results, report) -> None:
+    # what the rank printed is out before the parent may kill it (spawn
+    # kills a rank still exiting after its join timeout)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    results.put(report)
+
+
 def _rank_main(fn, rank, world, device, init_method, backend, timeout_s, args, results):
+    for stream in (sys.stdout, sys.stderr):
+        # the ranks share the launch's stdout and stderr: a line leaves in
+        # one write, so it arrives whole beside the other ranks' lines
+        # (unbuffered, print writes the text and the newline apart) and
+        # as soon as it is printed
+        if hasattr(stream, "reconfigure"):
+            stream.reconfigure(line_buffering=True, write_through=False)
     if torch.device(device).type == "cpu":
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # the ranks share the threads their launch was given
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
     try:
         group = init_group(rank, world, device, init_method, backend, timeout_s=timeout_s)
         try:
             value = fn(group, torch.device(device), *args)
         finally:
             destroy_group()
-        results.put((rank, True, value))
+        _report(results, (rank, True, value))
     except BaseException as exc:  # noqa: BLE001 - reported to the parent, then re-raised
         code = exc.code if isinstance(exc, SystemExit) and isinstance(exc.code, int) else 1
-        results.put((rank, False, (code, traceback.format_exc())))
+        _report(results, (rank, False, (code, traceback.format_exc())))
         raise SystemExit(code or 1)
 
 

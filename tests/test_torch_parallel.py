@@ -419,3 +419,49 @@ def test_pooled_ranks_run_the_schedule(tmp_path):
     assert any("own id pool" in m for m in got[1]["lines"])
     psnr = [float(np.mean(res["result"].final_psnrs)) for res in (one, *got)]
     assert psnr[1] == psnr[2] and abs(psnr[1] - psnr[0]) < 0.75, psnr
+
+
+
+# a launch whose two ranks print LINES lines each, each line at the same
+# moment on both (a barrier before it), then return and are killed right
+# after their report: as spawn kills a rank still exiting when its join
+# times out, before the rank's own exit would flush its stdout
+LINES = 200
+RANK_LINES = """
+import multiprocessing.util, os, signal
+import torch.distributed as dist
+from tensorf_tpu_torch.parallel.launch import spawn
+
+
+def print_lines(group, device, n):
+    for i in range(n):
+        dist.barrier()
+        print(f"[port] rank {group.rank} of {group.world}: line {i} of the same length")
+    # after the results queue's feeder (-5) has sent the report
+    multiprocessing.util.Finalize(None, os.kill, (os.getpid(), signal.SIGKILL), exitpriority=-10)
+
+
+if __name__ == "__main__":
+    spawn(print_lines, (%d,), ["cpu", "cpu"], timeout_s=60.0, collective_timeout_s=30.0)
+""" % LINES
+
+
+@pytest.mark.parametrize("unbuffered", [0, 1])
+def test_rank_lines_reach_a_shared_pipe_whole(tmp_path, unbuffered):
+    """Every line both ranks print reaches the launch's stdout, a pipe,
+    whole: block-buffered, though each rank dies right after its report;
+    unbuffered (PYTHONUNBUFFERED), though print writes a line's text and
+    its newline apart and the two ranks print at the same moment."""
+    script = tmp_path / "ranks.py"
+    script.write_text(RANK_LINES)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONUNBUFFERED"}
+    env["PYTHONPATH"] = os.pathsep.join([ROOT, *filter(None, [env.get("PYTHONPATH")])])
+    if unbuffered:
+        env["PYTHONUNBUFFERED"] = "1"
+    proc = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = sorted(line for line in proc.stdout.splitlines() if line)
+    want = sorted(f"[port] rank {r} of 2: line {i} of the same length"
+                  for r in range(2) for i in range(LINES))
+    assert lines == want, [line for line in lines if line not in want][:5]
