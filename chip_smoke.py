@@ -14,9 +14,10 @@ each prints its seconds):
      ragged_M, odd_C, one_row) and on its own branches (C = 12, rows 8
      bytes off a 16-byte boundary), each bf16 case timed in turns with the
      float32 entry point on the same values widened (vs_f32) and beside its
-     bound (share); the line-lerp kernels (line_lerp_case) at cp384's and
-     synth_full's line shapes against the plain gather-lerp, forward and
-     backward, timed beside their bytes bound, the one-hot matmul they
+     bound (share); the line-lerp kernels (line_lerp_case) at cp384's,
+     synth_full's and flower's line shapes against the plain gather-lerp,
+     forward and backward (the field's read of each shape taking them),
+     timed beside their bytes bound, the one-hot matmul they
      replace on the card and torch's grid_sample (the library yardstick);
   3. step parity: one synth_full train step with the kernels and one with
      the plain versions (the scatter-add's and the line lerp's), same
@@ -137,18 +138,23 @@ each prints its seconds):
      at 250).  flower_parity: one first-segment step kernel vs plain (the
      same 1e-4-of-max rule, launches per scatter_launches_per_step) and
      card vs CPU (rtol/atol 1e-4).  flower_path: every segment's grid,
-     samples a step, line implementation (one-hot matmul or footprint
-     gather, models/tensorf.py::line_uses_matmul), ms/step and peak GiB;
-     the last segment's lines must take the footprint; the loss must fall
-     to FLOWER_LOSS_RATIO by 200.  flower_serving: the test views served
+     lattice slots a step, the line implementation at that many points
+     (one-hot matmul or footprint gather,
+     models/tensorf.py::line_uses_matmul), ms/step and peak GiB; the last
+     segment must be masked; the loss must fall to FLOWER_LOSS_RATIO by
+     200.  flower_serving: the test views served
      uniform through the eval's handle on render-only's lattice (the
      geometry's; the run's differs by a few samples, which moves every NDC
      sample), ms per frame, their PSNR above the untrained field's and
      FLOWER_MIN_PSNR; FLOWER_SPIRAL spiral poses; render-only of the final
      checkpoint within 1e-4 dB of the served views (render-only scores
-     every test view, the handle serves FLOWER_SERVED).  Then the kernel
-     against its plain version on the last segment's plane and line
-     footprint streams;
+     every test view, the handle serves FLOWER_SERVED).  Then one more
+     step of the last segment: its density must run on the slots the mask
+     admits alone (fewer than the lattice's), its three line reads at that
+     many points on the route line_uses_matmul gives them (the line-lerp
+     kernel within the one-hot's bounds, else the footprint gather); and
+     the kernel against its plain version on that step's footprint streams
+     (the lines' only where they took the footprint);
  16. bf16: configs/synth_full.txt as written but with grid_dtype,
      line_dtype and compute_dtype bfloat16 (profile_step.BF16) over the
      main path's first segment (BF16_STEPS at 128^3): one step's gradients
@@ -320,7 +326,8 @@ CASE_KEYS = ("case", "M", "dtype", "kernel_ms", "plain_ms", "bound_ms", "library
 STREAM_KINDS = {64: "density", 192: "appearance"}
 # flower's fused step (ranks [16,4,4]/[48,12,12]): the density's plane
 # footprint tables, 4 taps x 16 (axis 0) and x 4 (axes 1, 2), and its line
-# footprint tables, 2 taps x the same; the shaded samples' appearance taps,
+# footprint tables, 2 taps x the same (where the admitted slots are too many
+# for the one-hot's bounds); the shaded samples' appearance taps,
 # gathered row by row, 48 and 12 wide (the first stream of each width that
 # the backward scatters)
 FLOWER_STREAMS = {64: "plane0", 16: "plane12", 32: "line0", 8: "line12", 48: "app0",
@@ -458,10 +465,14 @@ def kernel_case(torch, name, idx, g, n_rows):
 # (L, C, M) of the line reads the line-lerp kernels take (the cells'
 # shapes): cp384's density lines (430 and 538 texels x 96 ranks, ~300k rows
 # a stratum), synth_full's density (~300 x 16) and top-32 appearance
-# (~300 x 48, 4096 rays x 32) lines
+# (~300 x 48, 4096 rays x 32) lines, and flower's last-segment density
+# lines (355 x 16, 814 x 4 and 906 x 4) at the 1,266,993 slots its mask
+# admits in a step of flower.train (seed 1)
 LINE_LERP_CASES = {"cp384_538x96": (538, 96, 300_000), "cp384_430x96": (430, 96, 300_000),
                    "vm_density_300x16": (300, 16, 262_144),
-                   "vm_app_top32_300x48": (300, 48, 131_072)}
+                   "vm_app_top32_300x48": (300, 48, 131_072),
+                   "flower_355x16": (355, 16, 1_266_993), "flower_814x4": (814, 4, 1_266_993),
+                   "flower_906x4": (906, 4, 1_266_993)}
 
 
 def device_ms(torch, fn, reps: int, key: str) -> float:
@@ -483,8 +494,9 @@ def device_ms(torch, fn, reps: int, key: str) -> float:
 
 def line_lerp_case(torch, name, L, C, M):
     """The line-lerp kernels against the plain gather-lerp on one (L, C)
-    line at M coordinates along rays: the rows and the line's gradient;
-    each entry point's ms a call back to back (``fwd_ms``, ``bwd_ms``: host
+    line at M coordinates along rays: the rows and the line's gradient,
+    and the field's read of that shape (``_sample_line_packed``), which
+    must take them (route 2); each entry point's ms a call back to back (``fwd_ms``, ``bwd_ms``: host
     cost included) and its kernels' device ms (``*_device_ms``; the
     backward's zero fill included) beside its bytes bound (``*_share``: the
     bound over the device ms); the one-hot matmul's ms, forward (build and
@@ -493,9 +505,12 @@ def line_lerp_case(torch, name, L, C, M):
     grid_sample on the line as a (1, C, L, 1) image (the library yardstick;
     the port never calls it)."""
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
+    from tensorf_tpu_torch.models import tensorf
     from tensorf_tpu_torch.ops import line_lerp as ll
     from tensorf_tpu_torch.ops.grid_sample import line_sample_matmul
+    from tensorf_tpu_torch.utils import tracing
 
     gen = torch.Generator().manual_seed(L * C)
     n = M // 256 + 1
@@ -518,6 +533,11 @@ def line_lerp_case(torch, name, L, C, M):
     ll.line_lerp_reference(a, coord).backward(cot.abs())
     grad_tol = 1e-5 + 1e-6 * float(a.grad.max())
     del out, want, t, r, a
+    tracing.take_counts()
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        tensorf._sample_line_packed(line, coord)
+        torch.cuda.synchronize()
+    routes = tracing.take_counts().get("line", [])
     reps = 20
     with torch.no_grad():
         fwd_ms = time_ms(torch, lambda: ll._forward(line, coord), reps)
@@ -554,7 +574,7 @@ def line_lerp_case(torch, name, L, C, M):
     bwd_bytes = 4 * (M + M * C + L * C)
     fwd_bound = fwd_bytes / HBM_BYTES_PER_S * 1e3
     bwd_bound = bwd_bytes / HBM_BYTES_PER_S * 1e3
-    row = dict(case=name, L=L, C=C, M=M,
+    row = dict(case=name, L=L, C=C, M=M, routes=routes,
                fwd_err=fwd_err, fwd_tol=fwd_tol, grad_err=grad_err, grad_tol=grad_tol,
                fwd_ms=fwd_ms, fwd_device_ms=fwd_device, fwd_bound_ms=fwd_bound,
                fwd_share=fwd_bound / fwd_device,
@@ -567,6 +587,8 @@ def line_lerp_case(torch, name, L, C, M):
     check(fwd_err <= fwd_tol, f"line_lerp {name}: max |kernel - plain| rows {fwd_err} > {fwd_tol}")
     check(grad_err <= grad_tol,
           f"line_lerp {name}: max |kernel - plain| gradient {grad_err} > {grad_tol}")
+    check(routes == [(M, L, C, 2)], f"line_lerp {name}: the field's read recorded {routes}, "
+          f"want route 2")
     return row
 
 
@@ -726,16 +748,16 @@ def step_parity_phase(torch, dev, cfg, scene, label="step_parity", rel=1e-4):
 
     before = (scatter_add.launches, scatter_add_bf16.launches, line_lerp.launches)
     tracing.take_counts()
-    with parity.recording_shaded() as shaded, graphless_line_reads(torch) as graphless, \
+    with parity.recording_renders() as renders, graphless_line_reads(torch) as graphless, \
             profile(activities=[ProfilerActivity.CPU]):
         loss_k, g_kernel = step_grads(torch, field, *inputs)
     reads = tracing.take_counts().get("line", [])
     want = (scatter_launches_per_step(statics, cfg.model_name, [cfg.batch_size], grid,
-                                      field.line_a_dtype, shaded, field.grid_dtype),
+                                      field.line_a_dtype, renders, field.grid_dtype),
             bf16_launches_per_step(statics, cfg.model_name, [cfg.batch_size], field.grid_dtype,
-                                   shaded),
+                                   renders),
             line_lerp_launches_per_step(statics, cfg.model_name, [cfg.batch_size], grid,
-                                        field.line_a_dtype, shaded, field.grid_dtype)
+                                        field.line_a_dtype, renders, field.grid_dtype)
             + graphless[0])
     got = tuple(n - b for n, b in zip((scatter_add.launches, scatter_add_bf16.launches,
                                        line_lerp.launches), before))
@@ -890,11 +912,25 @@ def check_schedule(result, cfg):
     check(any(e.get("refiltered") for e in result.events), "no alpha ray re-filtering")
 
 
-def appearance_rows(statics, batches, shaded=None) -> list:
+def density_rows(statics, batches, renders=None) -> list:
+    """The rows each render of a step runs the density on: what
+    ``parity.recording_renders`` read (``renders[r][0]``), else its rays x
+    its width, as a render whose budget packed its slots or whose lattice
+    no mask gates runs it (one that gates its whole lattice runs it on the
+    admitted slots alone, and needs ``renders``)."""
+    from tensorf_tpu_torch.train.step import render_widths
+
+    if renders is not None:
+        return [rows for rows, _ in renders]
+    return [b * w for b, w in zip(batches, render_widths(statics))]
+
+
+def appearance_rows(statics, batches, renders=None) -> list:
     """The rows each render of a step gathers appearance for: its rays x
     the top K where top-K shading is below the render's width, else the
-    render's samples whose weight passes the threshold, ``shaded[r]`` (what
-    ``parity.recording_shaded`` read back; needed only for such a render)."""
+    render's samples whose weight passes the threshold, ``renders[r][1]``
+    (what ``parity.recording_renders`` read back; needed only for such a
+    render)."""
     from tensorf_tpu_torch.train.step import render_widths
 
     k = statics.shade_top_k
@@ -902,25 +938,26 @@ def appearance_rows(statics, batches, shaded=None) -> list:
     for r, (b, w) in enumerate(zip(batches, render_widths(statics))):
         if k is not None and k < w:
             rows.append(b * k)
-        elif shaded is None:
+        elif renders is None:
             raise ValueError("a render without top-K shading shades the samples over the "
-                             "threshold: pass each render's count as ``shaded``")
+                             "threshold: pass each render's counts as ``renders``")
         else:
-            rows.append(int(shaded[r]))
+            rows.append(int(renders[r][1]))
     return rows
 
 
 def scatter_launches_per_step(statics, model_name: str, batches, grid, a_dtype=None,
-                              shaded=None, grid_dtype=None) -> int:
+                              renders=None, grid_dtype=None) -> int:
     """The scatter-adds one train step of ``model_name`` launches under
     ``statics`` with ``batches`` rays in each render (the strata's quotas,
     or the batch) on a ``grid`` (X, Y, Z): one per gathered table.  Each
-    render gathers density over its width and appearance apart, over the
-    rows of ``appearance_rows`` (``shaded``: see there); a pass over no rows
-    launches nothing.  The fused path gathers each pass's three plane tables
-    (TensorCP has none) and samples its three lines by the one-hot matmul,
-    which scatters nothing, except a line that models/tensorf.py's
-    line_uses_matmul sends to the footprint gather at that pass's points.
+    render gathers density over the rows of ``density_rows`` and appearance
+    apart, over the rows of ``appearance_rows`` (``renders``: see there); a
+    pass over no rows launches nothing.  The fused path gathers each pass's
+    three plane tables (TensorCP has none) and samples its three lines by
+    the one-hot matmul, which scatters nothing, except a line that
+    models/tensorf.py's line_uses_matmul sends to the footprint gather at
+    that pass's points.
     Unfused, every plane and line is a row gather of its own: 6 a pass for
     the VM models, CP's 3 lines; so are the shaded rows of a render without
     top-K where the field runs in float32 (``a_dtype``, the line one-hot's
@@ -945,14 +982,14 @@ def scatter_launches_per_step(statics, model_name: str, batches, grid, a_dtype=N
         return planes + sum(not line_uses_matmul(points, grid[v], a_dtype) for v in VEC_MODE)
 
     return sum(
-        feature_pass(b * w, statics.fused)
+        feature_pass(dens, statics.fused)
         + feature_pass(rows, statics.fused and not (float32 and (k is None or k >= w)))
-        for b, w, rows in zip(batches, render_widths(statics),
-                              appearance_rows(statics, batches, shaded)))
+        for dens, w, rows in zip(density_rows(statics, batches, renders), render_widths(statics),
+                                 appearance_rows(statics, batches, renders)))
 
 
 def line_lerp_launches_per_step(statics, model_name: str, batches, grid, a_dtype=None,
-                                shaded=None, grid_dtype=None) -> int:
+                                renders=None, grid_dtype=None) -> int:
     """The line-lerp launches one train step of ``model_name`` makes under
     ``statics`` (the arguments as scatter_launches_per_step's): a forward
     and a backward for each float32 line (``a_dtype`` None) that a fused
@@ -978,10 +1015,10 @@ def line_lerp_launches_per_step(statics, model_name: str, batches, grid, a_dtype
         return 2 * sum(line_uses_matmul(points, grid[v]) for v in VEC_MODE)
 
     return sum(
-        feature_pass(b * w, statics.fused)
+        feature_pass(dens, statics.fused)
         + feature_pass(rows, statics.fused and not (float32 and (k is None or k >= w)))
-        for b, w, rows in zip(batches, render_widths(statics),
-                              appearance_rows(statics, batches, shaded)))
+        for dens, w, rows in zip(density_rows(statics, batches, renders), render_widths(statics),
+                                 appearance_rows(statics, batches, renders)))
 
 
 @contextlib.contextmanager
@@ -1006,23 +1043,27 @@ def graphless_line_reads(torch):
         yield n
 
 
-def bf16_launches_per_step(statics, model_name: str, batches, grid_dtype, shaded=None) -> int:
+def bf16_launches_per_step(statics, model_name: str, batches, grid_dtype, renders=None) -> int:
     """The scatter-adds of bf16 rows one train step launches: the fused
     path's plane tables, which TensorVMSplit alone casts to ``grid_dtype``
-    (as JAX), three per feature pass with rows (``shaded``: see
-    appearance_rows); the lines' footprint tables stay float32."""
+    (as JAX), three per feature pass with rows (``renders``: see
+    density_rows and appearance_rows); the lines' footprint tables stay
+    float32."""
     import torch
 
     if not statics.fused or model_name != "TensorVMSplit" or grid_dtype != torch.bfloat16:
         return 0
-    return sum(3 + (3 if rows else 0) for rows in appearance_rows(statics, batches, shaded))
+    return sum((3 if dens else 0) + (3 if rows else 0)
+               for dens, rows in zip(density_rows(statics, batches, renders),
+                                     appearance_rows(statics, batches, renders)))
 
 
-def launches_of_step(state, shaded=None) -> dict:
+def launches_of_step(state, renders=None) -> dict:
     """The launches of each kernel that the step the loop's ``state`` takes
     calls for: scatter_add counts both entry points, scatter_add_bf16 the
-    bf16 one, line_lerp the line reads' forwards and backwards; ``shaded``:
-    the step's renders' shaded samples (``parity.recording_shaded``)."""
+    bf16 one, line_lerp the line reads' forwards and backwards; ``renders``:
+    the step's renders' density rows and shaded samples
+    (``parity.recording_renders``)."""
     from tensorf_tpu_torch.train.loop import build_statics
 
     statics, field = build_statics(state), state.field
@@ -1030,12 +1071,12 @@ def launches_of_step(state, shaded=None) -> dict:
     return {
         "scatter_add": scatter_launches_per_step(statics, state.cfg.model_name, batches,
                                                  state.geometry.grid_size, field.line_a_dtype,
-                                                 shaded, field.grid_dtype),
+                                                 renders, field.grid_dtype),
         "scatter_add_bf16": bf16_launches_per_step(statics, state.cfg.model_name, batches,
-                                                   field.grid_dtype, shaded),
+                                                   field.grid_dtype, renders),
         "line_lerp": line_lerp_launches_per_step(statics, state.cfg.model_name, batches,
                                                  state.geometry.grid_size, field.line_a_dtype,
-                                                 shaded, field.grid_dtype),
+                                                 renders, field.grid_dtype),
     }
 
 
@@ -1054,16 +1095,16 @@ def drive(torch, name, cfg, scene, kernels, steps, on_step=None):
     want = dict.fromkeys(kernels, 0)
 
     def count(it, state):  # runs after step ``it``, whose statics the state still holds
-        for kernel, n in launches_of_step(state, shaded).items():
+        for kernel, n in launches_of_step(state, renders).items():
             want[kernel] += n
-        shaded.clear()
+        renders.clear()
         if on_step is not None:
             on_step(it, state)
 
     for fn, *_ in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with parity.recording_shaded() as shaded, graphless_line_reads(torch) as graphless:
+    with parity.recording_renders() as renders, graphless_line_reads(torch) as graphless:
         result = reconstruction(cfg, scene, "cuda", save_images=False, on_step=count,
                                 log=lambda m: print(f"{name}: {m}", flush=True))
     torch.cuda.synchronize()
@@ -1681,15 +1722,15 @@ def first_segment(torch, np, name, cfg, scene, kernels, steps, capture=None):
     want = dict.fromkeys(kernels, 0)
 
     def count(it, state):
-        for kernel, n in launches_of_step(state, shaded).items():
+        for kernel, n in launches_of_step(state, renders).items():
             want[kernel] += n
-        shaded.clear()
+        renders.clear()
         if capture is not None:
             capture(it, state)
 
     for fn, *_ in kernels.values():
         fn.launches = 0
-    with parity.recording_shaded() as shaded, graphless_line_reads(torch) as graphless:
+    with parity.recording_renders() as renders, graphless_line_reads(torch) as graphless:
         result = train_steps(cfg, steps, device="cuda", scene=scene, on_step=count,
                              log=lambda m: print(f"{name}: {m}", flush=True))
     torch.cuda.synchronize()
@@ -1790,16 +1831,24 @@ def flower_phase(torch, np, kernels, workdir):
     bar), flower_serving (the test views served uniform through the eval's
     handle with ms per frame, their PSNR over the untrained field's and
     FLOWER_MIN_PSNR, FLOWER_SPIRAL spiral poses, render-only of the final
-    checkpoint within 1e-4 dB) and the kernel against its plain version on
-    the last segment's plane and line footprint streams.  Returns (the
-    path's launches of each kernel, kernel case rows)."""
+    checkpoint within 1e-4 dB) and flower_streams (one more step of the
+    last segment: its density on the admitted slots alone, its line reads'
+    routes, the kernel against its plain version on the step's footprint
+    streams).  Returns (the path's launches of each kernel, kernel case
+    rows)."""
     import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
 
     from tensorf_tpu_torch.config import load_config
     from tensorf_tpu_torch.eval.evaluation import evaluation_path
     from tensorf_tpu_torch.eval.metrics import psnr
+    from tensorf_tpu_torch.models.config import VEC_MODE
+    from tensorf_tpu_torch.models.tensorf import line_uses_matmul
+    from tensorf_tpu_torch.parallel import parity
     from tensorf_tpu_torch.profile_step import FLOWER, FLOWER_CUT, PATHS, path_scene
     from tensorf_tpu_torch.train.loop import make_handle, render_test, train_steps
+    from tensorf_tpu_torch.utils import tracing
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -1835,13 +1884,11 @@ def flower_phase(torch, np, kernels, workdir):
         print("flower_path: event " + json.dumps(e), flush=True)
     for seg in result.segments:
         print(f"flower_path: segment {seg['start']}..{seg['end']}: grid {seg['grid']}, n_samples "
-              f"{seg['n_samples']}, samples/step {seg['samples_per_step']}, lines (density pass) "
+              f"{seg['n_samples']}, samples/step {seg['samples_per_step']}, lines over them "
               f"{line_impls(seg['grid'], seg['samples_per_step'])}, masked {seg['masked']}, "
               f"{seg['ms_per_step']:.3f} ms/step, peak {seg['peak_gib']:.2f} GiB", flush=True)
     check(len(result.segments) == 6, f"flower_path: {len(result.segments)} segments, want 6")
-    final = result.segments[-1]
-    check(line_impls(final["grid"], final["samples_per_step"]) == ["footprint"] * 3,
-          "flower_path: the last segment's lines did not take the footprint gather")
+    check(result.segments[-1]["masked"], "flower_path: the last segment ran without the mask")
     first, last = loss_fall(np, result.total_loss, FLOWER_FIRST_SEGMENT)
     print(f"flower_path: loss first-5 mean {first:.6f} -> mean of steps "
           f"{FLOWER_FIRST_SEGMENT - 5}..{FLOWER_FIRST_SEGMENT - 1} {last:.6f} (ratio "
@@ -1898,11 +1945,35 @@ def flower_phase(torch, np, kernels, workdir):
     phase_done("flower_serving", t0)
 
     t0 = time.perf_counter()
-    streams = capture_streams(torch, state, "flower_640", kinds=FLOWER_STREAMS)
+    slots = cfg.batch_size * state.n_samples
+    tracing.take_counts()
+    with parity.recording_renders() as renders, profile(activities=[ProfilerActivity.CPU]):
+        streams = capture_streams(torch, state, "flower_640", kinds=FLOWER_STREAMS)
+    reads = tracing.take_counts().get("line", [])
+    grid = state.geometry.grid_size
     del result, state
     torch.cuda.empty_cache()
+    # the mask gates the whole lattice: the density runs on the admitted
+    # slots alone, and its three line reads (the step's first) take the
+    # line-lerp kernel (route 2) within the one-hot's bounds, else the
+    # footprint gather (route 0), whose tables the backward scatters
+    ((rows, _),) = renders
+    density_reads = reads[:3]
+    want_routes = [2 if line_uses_matmul(rows, grid[v]) else 0 for v in VEC_MODE]
+    print(f"flower_streams: the last segment's step ran the density on {rows} of {slots} "
+          f"lattice slots ({100.0 * rows / slots:.2f}%); its line reads (points, texels, "
+          f"channels, route) {reads}; by route (0, 1, 2) "
+          f"{[sum(r[3] == k for r in reads) for k in (0, 1, 2)]}", flush=True)
+    check(0 < rows < slots, f"flower_streams: the density ran on {rows} of {slots} slots")
+    check([r[0] for r in density_reads] == [rows] * 3
+          and [r[3] for r in density_reads] == want_routes,
+          f"flower_streams: the density's line reads {density_reads}, want {rows} points each "
+          f"on routes {want_routes}")
+    widths = {C for C, kind in FLOWER_STREAMS.items() if not kind.startswith("line")}
+    widths |= {2 * r[2] for r in density_reads if r[3] == 0}
     cases = [kernel_case(torch, name, *stream) for name, stream in streams.items()]
-    check({c["C"] for c in cases} == set(FLOWER_STREAMS), f"flower streams {sorted(streams)}")
+    check({c["C"] for c in cases} == widths, f"flower streams {sorted(streams)}, want the "
+          f"widths {sorted(widths)}")
     phase_done("flower_streams", t0)
     return launches, cases
 
@@ -2277,14 +2348,14 @@ def dp_path_phase(torch, np, cfg, scene, main_psnr):
               f"dp_path: rank {r}'s parameter checksums {res['checksums']} differ from rank 0's "
               f"{got[0]['checksums']}")
         want = sum(n * scatter_launches_per_step(statics, cfg.model_name, batches, grid, a_dtype,
-                                                 shaded, grid_dtype)
-                   for statics, batches, grid, a_dtype, grid_dtype, shaded, n in res["steps"])
+                                                 renders, grid_dtype)
+                   for statics, batches, grid, a_dtype, grid_dtype, renders, n in res["steps"])
         n_launch = res["launches"]["scatter_add"]
         check(n_launch == want > 0, f"dp_path: rank {r} launched the kernel {n_launch} times, "
               f"the per-stratum sum of its shares is {want}")
         lerp_want = sum(n * line_lerp_launches_per_step(statics, cfg.model_name, batches, grid,
-                                                        a_dtype, shaded, grid_dtype)
-                        for statics, batches, grid, a_dtype, grid_dtype, shaded, n in res["steps"])
+                                                        a_dtype, renders, grid_dtype)
+                        for statics, batches, grid, a_dtype, grid_dtype, renders, n in res["steps"])
         n_lerp = res["launches"]["line_lerp"]
         check(n_lerp >= lerp_want > 0, f"dp_path: rank {r} launched the line lerp {n_lerp} "
               f"times, its steps call for {lerp_want}")

@@ -13,7 +13,8 @@ the one-rank reference:
 - ``reconstruct``: ``reconstruction`` on a rank, with what a check of the
   ranks' agreement needs (plan lines, parameter checksums after every
   event, the kernel's launches, the statics each step ran under and the
-  samples each of its renders shaded, ``recording_shaded``);
+  rows each of its renders ran the density on and shaded,
+  ``recording_renders``);
 - ``agreed_resume`` and ``fail_on_rank``: the resume agreement and a
   failing rank, for the launch's tests.
 """
@@ -165,26 +166,29 @@ def serve(group: Optional[RankGroup], device, case: dict) -> dict:
 
 
 @contextlib.contextmanager
-def recording_shaded():
-    """A list that receives each train-step render's shaded samples (its
-    ``num_valid_samples``, kept on the device until read), render by
-    render: train/step.py's render_rays wrapped.  A render without a top-K
-    below its width gathers appearance for just those samples, so the
-    scatter-adds a step launches depend on them."""
+def recording_renders():
+    """A list that receives, render by render, each train-step render's
+    ``(density rows, shaded samples)``: train/step.py's render_rays
+    wrapped.  The density rows are its ``density_rows`` (the slots the
+    density ran on: the admitted ones where the mask gates a whole lattice,
+    else rays x width); the shaded samples are its ``num_valid_samples``,
+    kept on the device until read.  A render without a top-K below its
+    width gathers appearance for just those samples, so the kernels a step
+    launches depend on both."""
     from unittest import mock
 
     from ..train import step
 
-    shaded = []
+    renders = []
     inner = step.render_rays
 
     def recording(*args, **kwargs):
         out = inner(*args, **kwargs)
-        shaded.append(out.num_valid_samples.detach())
+        renders.append((int(out.density_rows), out.num_valid_samples.detach()))
         return out
 
     with mock.patch.object(step, "render_rays", recording):
-        yield shaded
+        yield renders
 
 
 def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = False) -> dict:
@@ -203,7 +207,8 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
 
     lines = []
     checksums: Dict[int, float] = {}
-    # [statics, local batches, grid, line dtype, grid dtype, shaded a render, n_steps]
+    # [statics, local batches, grid, line dtype, grid dtype,
+    #  (density rows, shaded) a render, n_steps]
     steps = []
     event_iters = set(cfg.update_AlphaMask_list) | set(cfg.upsamp_list)
     world = group.world if group is not None else 1
@@ -213,8 +218,9 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
         batches = [q // world for q in (state.quotas or [cfg.batch_size])]
         sig = [build_statics(state), batches, tuple(state.geometry.grid_size),
                state.field.line_a_dtype, state.field.grid_dtype,
-               torch.stack(shaded).tolist() if shaded else []]
-        shaded.clear()
+               list(zip([rows for rows, _ in renders],
+                        torch.stack([n for _, n in renders]).tolist())) if renders else []]
+        renders.clear()
         if steps and steps[-1][:-1] == sig:
             steps[-1][-1] += 1
         else:
@@ -223,7 +229,7 @@ def reconstruct(group: Optional[RankGroup], device, cfg, scene, pooled: bool = F
             checksums[it] = param_digest(state.field)
 
     scatter_add.launches = scatter_add_bf16.launches = line_lerp.launches = 0
-    with recording_shaded() as shaded:
+    with recording_renders() as renders:
         result = reconstruction(cfg, scene, device, save_images=False, log=lines.append,
                                 on_step=on_step, group=group)
     if torch.device(device).type == "cuda":

@@ -3,14 +3,17 @@ tensorf_tpu/render/volume.py).
 
 Dead samples contribute exactly zero density / radiance through ``where``
 gates.  With an alpha mask, a sample lives only where the mask's
-nearest-neighbour gate is set.  A ``sample_budget`` K below the lattice
-compacts each ray to its K nearest candidate samples before the field is
-queried (the reference's boolean compaction, with a fixed K): exact
-whenever K covers every candidate, and ``budget_overflow_frac`` reports
-the rays where it does not.  Shading runs only where the weight passes
-``ray_march_weight_thres``: on exactly those samples, compacted to rows
-(one read-back of their number a render, the one shape here that the
-data sets), or (``shade_top_k``) on the top-K weights per ray, gated.
+nearest-neighbour gate is set; where that gate runs over the whole lattice
+(no budget), the density runs on just the live samples, compacted to rows
+(a read-back of their number), and every other slot's sigma is zero.  A
+``sample_budget`` K below the lattice compacts each ray to its K nearest
+candidate samples before the field is queried (the reference's boolean
+compaction, with a fixed K): exact whenever K covers every candidate, and
+``budget_overflow_frac`` reports the rays where it does not.  Shading runs
+only where the weight passes ``ray_march_weight_thres``: on exactly those
+samples, compacted to rows (one read-back of their number a render, the
+other shape here that the data sets), or (``shade_top_k``) on the top-K
+weights per ray, gated.
 Serving renders take their candidate windows from the count pass's packed
 window bits (``cand_window_bits``) and build no sample lattice.  NDC rays (forward-facing scenes) sample
 linspace(near, far) with per-sample jitter, scale each distance by the
@@ -86,6 +89,21 @@ class RenderOutput(NamedTuple):
     # (0 without a budget): nonzero means the render may under-integrate
     budget_overflow_frac: torch.Tensor  # scalar
     mean_alive_samples: torch.Tensor  # scalar: mean live samples per ray
+    # the slots the density ran on (host scalar): the admitted ones where the
+    # mask gates a whole lattice, else rays x width
+    density_rows: torch.Tensor
+
+
+def _on_rows(keep: torch.Tensor, fn):
+    """``fn`` run on the flat indices of the slots ``keep`` (B, N) admits,
+    compacted to rows (a read-back of their number), and its rows put back
+    into zeros of (B, N, ...): every other slot reads exactly zero and takes
+    no gradient.  Returns that and the number of rows."""
+    B, N = keep.shape
+    rows = torch.nonzero(keep.reshape(-1)).squeeze(-1)
+    out = fn(rows)
+    dense = torch.zeros((B * N,) + out.shape[1:], dtype=out.dtype, device=out.device)
+    return dense.index_put((rows,), out).reshape(B, N, *out.shape[1:]), rows.shape[0]
 
 
 def _ranked_topk(keep: torch.Tensor, k: int):
@@ -361,14 +379,12 @@ def render_rays(
                 xyz, z_vals, dists, ray_valid = _compact(xyz, z_vals, dists, ray_valid, K)
             n_eff = K
 
-        if alpha_mask is not None and not exact_gated:
-            # occupancy gate (reference tensorBase.py:349-354)
+        # the occupancy gate over the whole lattice (reference tensorBase.py:349-354)
+        lattice_gated = alpha_mask is not None and not exact_gated
+        if lattice_gated:
             ray_valid = ray_valid & (sample_alpha_gate(alpha_mask, xyz) > 0)
         mean_alive = torch.mean(torch.sum(ray_valid.to(torch.float32), dim=-1))
     N = n_eff
-
-    def sigma_of(den_feat):
-        return torch.where(ray_valid, feature2density(cfg, den_feat.reshape(B, N)), zero)
 
     def shade(pts, app_feat, K):
         view = viewdirs[:, None, :].expand(B, K, 3).reshape(-1, 3)
@@ -380,7 +396,20 @@ def render_rays(
 
     with tracing.span("tftorch.render.density"):
         xyz_n = normalize_coord(xyz, aabb)  # (B, n_eff, 3)
-        sigma = sigma_of(density_feature(xyz_n.reshape(-1, 3), masks.den))
+        if lattice_gated:
+            # The gate admits few of the lattice's slots (flower's last
+            # segment about one in eight), so the density runs on the admitted
+            # rows alone, their number read back after the march and gate are
+            # queued, and sigma goes back into a zero (B, N): the gated dense
+            # formula's sigma, weights and gradients.  A budget has already
+            # packed the alive slots, and without a mask the lattice is the
+            # box test, mostly true: those stay dense.
+            sigma, n_density = _on_rows(ray_valid, lambda rows: feature2density(
+                cfg, density_feature(xyz_n.reshape(-1, 3).index_select(0, rows), masks.den)))
+        else:
+            n_density = B * N
+            sigma = torch.where(ray_valid, feature2density(
+                cfg, density_feature(xyz_n.reshape(-1, 3), masks.den).reshape(B, N)), zero)
         _, weight, _ = raw2alpha(sigma, dists * cfg.distance_scale)
         app_gate = weight > cfg.ray_march_weight_thres
         num_valid = torch.sum(app_gate.to(torch.int32))
@@ -410,21 +439,21 @@ def render_rays(
             # and scattering whole footprint tables (``chip_dev.py
             # shade_route`` times both), and it is the fused path's
             # arithmetic where that runs in float32.
-            rows = torch.nonzero(app_gate.reshape(-1)).squeeze(-1)
-            n_shade = rows.shape[0]
-            pts = xyz_n.reshape(-1, 3).index_select(0, rows)
             float32 = field.grid_dtype == torch.float32 and field.line_a_dtype is None
-            app_feat = (field.app_feature if float32 else app_feature)(pts, masks.app)
-            rgb = apply_shading(cfg, field.render, pts, viewdirs.index_select(0, rows // N),
-                                app_feat, masks)
-            rgb_s = torch.zeros((B * N, 3), dtype=rgb.dtype, device=rgb.device)
-            rgb_s = rgb_s.index_put((rows,), rgb).reshape(B, N, 3)
+            rows_app_feature = field.app_feature if float32 else app_feature
+
+            def shade_rows(rows):
+                pts = xyz_n.reshape(-1, 3).index_select(0, rows)
+                return apply_shading(cfg, field.render, pts, viewdirs.index_select(0, rows // N),
+                                     rows_app_feature(pts, masks.app), masks)
+
+            rgb_s, n_shade = _on_rows(app_gate, shade_rows)
             rgb_map = torch.sum(weight[..., None] * rgb_s, dim=-2)
 
     if tracing.enabled():
         # the slots each part of the field ran on, and how many of them were of use
         tracing.count("render.rays", B)
-        tracing.count("render.density_rows", B * N)
+        tracing.count("render.density_rows", n_density)
         tracing.count("render.alive", mean_alive, B)
         tracing.count("render.shade_rows", n_shade)
         tracing.count("render.shaded", num_valid)
@@ -432,13 +461,13 @@ def render_rays(
         return _composite(
             rgb_map, weight, sigma, z_vals, rays, flip, num_valid,
             is_train=is_train, white_bg=white_bg, budget_overflow_frac=overflow,
-            mean_alive_samples=mean_alive,
+            mean_alive_samples=mean_alive, density_rows=torch.tensor(n_density),
         )
 
 
 def _composite(
     rgb_map, weight, sigma, z_vals, rays, flip, num_valid, *,
-    is_train: bool, white_bg: bool, budget_overflow_frac, mean_alive_samples,
+    is_train: bool, white_bg: bool, budget_overflow_frac, mean_alive_samples, density_rows,
 ) -> RenderOutput:
     acc = torch.sum(weight, dim=-1)
     # White background; at train time a random 50% flip when the dataset
@@ -460,4 +489,5 @@ def _composite(
         num_valid_samples=num_valid,
         budget_overflow_frac=budget_overflow_frac,
         mean_alive_samples=mean_alive_samples,
+        density_rows=density_rows,
     )

@@ -1234,7 +1234,9 @@ def _write_scalars(writer, metrics: Dict[str, torch.Tensor], read: dict, iterati
 
 def _sampling_summary(state: TrainState) -> dict:
     """How the current segment samples: strata (0 = unstratified), their
-    budgets, lattices and quotas, and the density samples a step queries."""
+    budgets, lattices and quotas, and the slots a step's renders query
+    (rays x width; a render whose mask gates its whole lattice runs the
+    density on the admitted ones among them alone)."""
     statics = build_statics(state)
     quotas = state.quotas or [state.cfg.batch_size]
     return dict(

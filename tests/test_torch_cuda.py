@@ -314,16 +314,25 @@ def _lerp_grad_tol(line, coord, cot):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,C,M", [(538, 96, 300_000), (430, 96, 300_000), (300, 16, 400_000),
-                                   (300, 48, 131_072)],
-                         ids=["cp384_538x96", "cp384_430x96", "vm_density", "vm_app_top32"])
+                                   (300, 48, 131_072), (355, 16, 1_266_993),
+                                   (814, 4, 1_266_993), (906, 4, 1_266_993)],
+                         ids=["cp384_538x96", "cp384_430x96", "vm_density", "vm_app_top32",
+                              "flower_355x16", "flower_814x4", "flower_906x4"])
 def test_line_lerp_kernel_matches_the_one_hot_and_the_gather(L, C, M):
     """The line-lerp kernels at the cells' shapes (cp384's lines of 430 and
     538 texels x 96 on ~300k density rows; synth_full's ~300-texel density
-    lines x 16 and top-32 appearance lines x 48), against the one-hot matmul
-    (cuBLAS, float32) and the plain gather-lerp on the card: the rows and
-    the line's gradient; one launch a forward and one a backward."""
+    lines x 16 and top-32 appearance lines x 48; flower's last-segment
+    density lines of 355 x 16, 814 x 4 and 906 x 4 on the ~1.27 M slots its
+    mask admits), against the one-hot matmul (cuBLAS, float32) and the
+    plain gather-lerp on the card: the rows and the line's gradient; one
+    launch a forward and one a backward; the field's read of the shape
+    takes them (route 2)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorf_tpu_torch.models import tensorf
     from tensorf_tpu_torch.ops.grid_sample import line_sample_matmul
     from tensorf_tpu_torch.ops.line_lerp import line_lerp, line_lerp_reference
+    from tensorf_tpu_torch.utils import tracing
 
     _need_gpu()
     gen = torch.Generator().manual_seed(L + C)
@@ -343,6 +352,11 @@ def test_line_lerp_kernel_matches_the_one_hot_and_the_gather(L, C, M):
         want, want_grad = _lerp_grads(read, line, coord, cot)
         np.testing.assert_allclose(out.detach().cpu().numpy(), want.cpu().numpy(), **LERP_FWD)
         np.testing.assert_allclose(t.grad.cpu().numpy(), want_grad.cpu().numpy(), **tol)
+    tracing.take_counts()
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        tensorf._sample_line_packed(line, coord)
+        torch.cuda.synchronize()
+    assert tracing.take_counts()["line"] == [(M, L, C, 2)]
 
 
 @pytest.mark.cuda
@@ -740,6 +754,121 @@ def test_compacted_flower_step_on_the_card_matches_the_dense_formula():
         grads[name] = (float(total.detach()),
                        {n: p.grad.cpu().numpy() for n, p in field.named_parameters()})
     assert 0 < shaded < B * N // 50
+    assert grads["compacted"][0] == pytest.approx(grads["dense"][0], rel=1e-6)
+    for name, g in grads["dense"][1].items():
+        np.testing.assert_allclose(grads["compacted"][1][name], g, err_msg=name, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_hot_bytes", [None, 64 * 2**20], ids=["lerp_both", "lerp_compacted"])
+def test_compacted_density_on_the_card_matches_the_dense_formula(one_hot_bytes, monkeypatch):
+    """One train step of a flower-like field (NDC rays, TensorVMSplit 16/4/4
+    + 48/12/12, MLP_Fea with PE 0, no top-K) whose alpha mask gates the
+    whole lattice: the density runs on the admitted slots alone, against
+    the dense formula on the card (the density on every slot, ``where`` on
+    the gated validity, every slot shaded and gated by the threshold).  The
+    same loss and every gradient.  With the one-hot's byte bound cut
+    (``lerp_compacted``), the dense formula's density lines take the
+    footprint gather and the compacted rows the line-lerp kernels, as
+    flower's last segment does on the card."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorf_tpu_torch.models import ModelConfig, TensorVMSplit, tensorf
+    from tensorf_tpu_torch.models.alpha_mask import (AlphaGridMask, sample_alpha_gate,
+                                                     with_dilation)
+    from tensorf_tpu_torch.models.config import VEC_MODE
+    from tensorf_tpu_torch.models.shading import apply_shading
+    from tensorf_tpu_torch.ops.freq_mask import FreeMasks
+    from tensorf_tpu_torch.ops.line_lerp import line_lerp
+    from tensorf_tpu_torch.ops.rays import sample_along_rays_ndc
+    from tensorf_tpu_torch.ops.render_math import raw2alpha
+    from tensorf_tpu_torch.render.volume import feature2density, normalize_coord
+    from tensorf_tpu_torch.train import LossWeights, TrainStatics, loss_fn
+    from tensorf_tpu_torch.utils import tracing
+
+    _need_gpu()
+    if one_hot_bytes is not None:
+        monkeypatch.setattr(tensorf, "_ONE_HOT_MAX_BYTES", one_hot_bytes)
+    B, N = 2048, 256
+    cfg = ModelConfig(density_n_comp=(16, 4, 4), app_n_comp=(48, 12, 12), app_dim=27,
+                      shading_mode="MLP_Fea", pos_pe=0, view_pe=0, fea_pe=0, feature_c=128,
+                      fea2dense_act="relu", near_far=(0.0, 1.0))
+    grid = (96, 104, 64)
+    field = TensorVMSplit(cfg, grid, "cuda", torch.Generator().manual_seed(7))
+    aabb = torch.tensor([[-1.5, -1.67, -1.0], [1.5, 1.67, 1.0]], device="cuda")
+    # occupancy in a few blobs, as a trained scene's mask holds its surfaces
+    rng = np.random.default_rng(9)
+    zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n) for n in (32, 52, 48)), indexing="ij")
+    vol = np.zeros(zz.shape, bool)
+    for c in rng.uniform(-0.7, 0.7, size=(6, 3)):
+        vol |= (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 < 0.15 ** 2
+    mask = with_dilation(AlphaGridMask(aabb, torch.from_numpy(vol.astype(np.float32)).cuda()))
+    o = np.concatenate([rng.uniform(-1.2, 1.2, size=(B, 2)), -np.ones((B, 1))], -1)
+    d = np.concatenate([rng.uniform(-0.8, 0.8, size=(B, 2)), 2.0 * np.ones((B, 1))], -1)
+    rays = torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32)).cuda()
+    rgbs = torch.from_numpy(rng.uniform(size=(B, 3)).astype(np.float32)).cuda()
+    jitter = torch.from_numpy(rng.uniform(size=(B, N)).astype(np.float32)).cuda()
+    flip = torch.tensor(1.0, device="cuda")
+
+    def dense_loss():
+        near, far = cfg.near_far
+        xyz, z, valid = sample_along_rays_ndc(rays[:, :3], rays[:, 3:6], aabb, near, far, N,
+                                              jitter)
+        valid = valid & (sample_alpha_gate(mask, xyz) > 0)
+        norm = torch.linalg.norm(rays[:, 3:6], dim=-1, keepdim=True)
+        dists = torch.cat([z[:, 1:] - z[:, :-1], torch.zeros_like(z[:, :1])], dim=-1) * norm
+        pts = normalize_coord(xyz, aabb).reshape(-1, 3)
+        sigma = torch.where(valid, feature2density(
+            field.cfg, field.density_feature_fused(pts, None).reshape(B, N)), 0.0)
+        _, weight, _ = raw2alpha(sigma, dists * field.cfg.distance_scale)
+        gate = weight > field.cfg.ray_march_weight_thres
+        view = (rays[:, None, 3:6] / norm[:, None]).expand(B, N, 3).reshape(-1, 3)
+        rgb_s = apply_shading(field.cfg, field.render, pts, view,
+                              field.app_feature(pts, None), FreeMasks()).reshape(B, N, 3)
+        rgb = torch.sum(weight[..., None] * torch.where(gate[..., None], rgb_s, 0.0), dim=-2)
+        rgb = torch.clamp(rgb + flip * (1.0 - torch.sum(weight, dim=-1)[..., None]), 0.0, 1.0)
+        return torch.mean(torch.square(rgb - rgbs)), weight, int(torch.sum(valid))
+
+    with torch.no_grad():
+        weight, admitted = dense_loss()[1:]
+    field.cfg = dataclasses.replace(cfg, ray_march_weight_thres=float(
+        torch.quantile(weight[weight > 0], 0.5)))
+    statics = TrainStatics(n_samples=N, step_size=0.0, white_bg=False, ndc_ray=True,
+                           total_steps=100, lr_factor=1.0, weights=LossWeights(),
+                           shade_top_k=None, fused=True)
+    lines = [grid[v] for v in VEC_MODE]
+    assert 0 < admitted < B * N // 4
+    if one_hot_bytes is not None:
+        assert admitted * max(lines) * 4 <= one_hot_bytes < B * N * min(lines) * 4
+    grads, routes = {}, {}
+    for name in ("compacted", "dense"):
+        field.zero_grad(set_to_none=True)
+        before = (scatter_add.launches, line_lerp.launches)
+        tracing.take_counts()
+        with profile(activities=[ProfilerActivity.CPU]):
+            if name == "compacted":
+                total, metrics = loss_fn(field, statics, aabb, rays, rgbs, 3, jitter, flip,
+                                         mask)
+            else:
+                total = dense_loss()[0]
+        counts = tracing.take_counts()
+        total.backward()
+        torch.cuda.synchronize()
+        launched = (scatter_add.launches - before[0], line_lerp.launches - before[1])
+        routes[name] = [(r[0], r[3]) for r in counts["line"][:3]]  # the density's lines
+        grads[name] = (float(total.detach()),
+                       {n: p.grad.cpu().numpy() for n, p in field.named_parameters()})
+        if name == "compacted":
+            assert counts["render.density_rows"] == admitted
+            # the density's three plane tables and the shaded rows' direct taps
+            # of three planes and three lines; the density's lines by the kernels
+            assert launched == (9, 6)
+    assert routes["compacted"] == [(admitted, 2)] * 3
+    dense_route = 2 if one_hot_bytes is None else 0
+    assert routes["dense"] == [(B * N, dense_route)] * 3
+    assert int(metrics["num_valid_samples"]) > 0
     assert grads["compacted"][0] == pytest.approx(grads["dense"][0], rel=1e-6)
     for name, g in grads["dense"][1].items():
         np.testing.assert_allclose(grads["compacted"][1][name], g, err_msg=name, **TOL)

@@ -29,6 +29,14 @@ TOP_K = 16
 EDGE_RAY = 7
 
 
+def _ball_mask():
+    """An alpha mask over AABB occupied inside a ball of radius 0.9."""
+    g = (np.arange(10) + 0.5) * 0.3 - 1.5
+    ball = np.linalg.norm(np.stack(np.meshgrid(g, g, g, indexing="ij")), axis=0) < 0.9
+    return tam.with_dilation(tam.AlphaGridMask(aabb=AABB, volume=torch.from_numpy(
+        ball.astype(np.float32))))
+
+
 @pytest.fixture(scope="module")
 def scene():
     """(handle whose threshold sits on a top-K weight of ray EDGE_RAY,
@@ -38,10 +46,7 @@ def scene():
                       app_dim=9, shading_mode="MLP_Fea", pos_pe=2, view_pe=2, fea_pe=2,
                       feature_c=32, density_shift=-3.0)
     field = TensorVMSplit(cfg, (12, 12, 12), device="cpu")
-    g = (np.arange(10) + 0.5) * 0.3 - 1.5
-    ball = np.linalg.norm(np.stack(np.meshgrid(g, g, g, indexing="ij")), axis=0) < 0.9
-    mask = tam.with_dilation(tam.AlphaGridMask(aabb=AABB, volume=torch.from_numpy(
-        ball.astype(np.float32))))
+    mask = _ball_mask()
     rng = np.random.default_rng(0)
     o = rng.normal(size=(300, 3))
     o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
@@ -106,7 +111,9 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
     """chip_smoke.py's expected launch count of a step equals the plane and
     line row gathers the step's backward scatters, counted on the CPU, for
     every model: with strata (one render each, one width under top-K and
-    one above it) and without; with every fused line on the one-hot matmul,
+    one above it) and without, and with a mask gating the whole lattice (the
+    density on the admitted slots alone); with every fused line on the
+    one-hot matmul,
     and with a byte bound that sends the wide passes' lines to the
     footprint gather and keeps some top-K passes' on the matmul."""
     from unittest import mock
@@ -132,15 +139,17 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
     common = dict(n_samples=64, step_size=0.06, white_bg=True, ndc_ray=False, total_steps=10,
                   lr_factor=1.0, weights=LossWeights(), shade_top_k=top_k, fused=fused)
     cases = [
-        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0)),
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0), None),
         (TrainStatics(**common, strata_budgets=(16, None), strata_n_samples=(64, 64),
                       strata_loss_weights=(0.5, 0.5)),
          (rays[:24], rays[24:]), (rgbs[:24], rgbs[24:]), (u[:24], u[24:]),
-         (torch.tensor(0.0), torch.tensor(0.0))),
+         (torch.tensor(0.0), torch.tensor(0.0)), None),
+        # the mask gates the whole lattice: the density runs on the admitted slots
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0), _ball_mask()),
     ]
     if one_hot_bytes is not None:
         monkeypatch.setattr(tensorf, "_ONE_HOT_MAX_BYTES", one_hot_bytes)
-    for statics, rays_, rgbs_, u_, flip in cases:
+    for statics, rays_, rgbs_, u_, flip, mask in cases:
         calls = []
 
         def counting(idx, g, n_rows):
@@ -150,12 +159,16 @@ def test_scatter_launches_per_step_counts_each_models_gathers(model, fused, top_
 
         field.zero_grad(set_to_none=True)
         with mock.patch.object(grid_sample, "scatter_add", counting), \
-                parity.recording_shaded() as shaded:
-            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
+                parity.recording_renders() as renders:
+            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip, mask)
             total.backward()
         batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
+        # a render's recorded density rows are its rays x width but where the
+        # mask gates its lattice
+        assert ((chip_smoke.density_rows(statics, batches, renders)
+                 != chip_smoke.density_rows(statics, batches)) == (mask is not None))
         assert len(calls) == chip_smoke.scatter_launches_per_step(statics, model, batches,
-                                                                  (10, 11, 12), shaded=shaded)
+                                                                  (10, 11, 12), renders=renders)
 
 
 @pytest.mark.parametrize("one_hot_bytes", [None, 30_000], ids=["one_hot", "footprint_lines"])
@@ -168,8 +181,8 @@ def test_line_lerp_launches_per_step_count_each_models_float32_one_hot_reads(
     float32 line reads that the CPU's step takes by the one-hot matmul with
     a graph (the reads the card's kernel takes, a forward and a backward
     each), and each such read gets its backward: every model, strata or
-    not, every line on the one-hot and the wide passes' lines on the
-    footprint gather."""
+    not, a mask gating the whole lattice or not, every line on the one-hot
+    and the wide passes' lines on the footprint gather."""
     from unittest import mock
 
     from tensorf_tpu_torch.models import FIELD_MODELS
@@ -191,16 +204,18 @@ def test_line_lerp_launches_per_step_count_each_models_float32_one_hot_reads(
     common = dict(n_samples=64, step_size=0.06, white_bg=True, ndc_ray=False, total_steps=10,
                   lr_factor=1.0, weights=LossWeights(), shade_top_k=top_k, fused=fused)
     cases = [
-        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0)),
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0), None),
         (TrainStatics(**common, strata_budgets=(16, None), strata_n_samples=(64, 64),
                       strata_loss_weights=(0.5, 0.5)),
          (rays[:24], rays[24:]), (rgbs[:24], rgbs[24:]), (u[:24], u[24:]),
-         (torch.tensor(0.0), torch.tensor(0.0))),
+         (torch.tensor(0.0), torch.tensor(0.0)), None),
+        # the mask gates the whole lattice: the density runs on the admitted slots
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0), _ball_mask()),
     ]
     if one_hot_bytes is not None:
         monkeypatch.setattr(tensorf, "_ONE_HOT_MAX_BYTES", one_hot_bytes)
     matmul = tensorf.line_sample_matmul
-    for statics, rays_, rgbs_, u_, flip in cases:
+    for statics, rays_, rgbs_, u_, flip, mask in cases:
         forwards, backwards = [], []
 
         def counting(line, coord, a_dtype=None):
@@ -212,12 +227,16 @@ def test_line_lerp_launches_per_step_count_each_models_float32_one_hot_reads(
 
         field.zero_grad(set_to_none=True)
         with mock.patch.object(tensorf, "line_sample_matmul", counting), \
-                parity.recording_shaded() as shaded:
-            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
+                parity.recording_renders() as renders:
+            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip, mask)
             total.backward()
         batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
+        # a render's recorded density rows are its rays x width but where the
+        # mask gates its lattice
+        assert ((chip_smoke.density_rows(statics, batches, renders)
+                 != chip_smoke.density_rows(statics, batches)) == (mask is not None))
         want = chip_smoke.line_lerp_launches_per_step(statics, model, batches, (10, 11, 12),
-                                                      shaded=shaded)
+                                                      renders=renders)
         assert len(backwards) == len(forwards)
         assert 2 * len(forwards) == want
         if one_hot_bytes is None:
@@ -249,7 +268,7 @@ def test_bf16_launches_per_step_count_the_bf16_gathers(model, fused, top_k):
     step's launches equal what the step's backward scatters, counted on the
     CPU: in all (scatter_launches_per_step with the bf16 one-hot) and in
     bf16 rows (bf16_launches_per_step: TensorVMSplit's fused plane tables,
-    strata or not)."""
+    strata or not, a mask gating the whole lattice or not)."""
     from unittest import mock
 
     from tensorf_tpu_torch.models import FIELD_MODELS
@@ -273,13 +292,15 @@ def test_bf16_launches_per_step_count_the_bf16_gathers(model, fused, top_k):
     common = dict(n_samples=64, step_size=0.06, white_bg=True, ndc_ray=False, total_steps=10,
                   lr_factor=1.0, weights=LossWeights(), shade_top_k=top_k, fused=fused)
     cases = [
-        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0)),
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0), None),
         (TrainStatics(**common, strata_budgets=(16, None), strata_n_samples=(64, 64),
                       strata_loss_weights=(0.5, 0.5)),
          (rays[:24], rays[24:]), (rgbs[:24], rgbs[24:]), (u[:24], u[24:]),
-         (torch.tensor(0.0), torch.tensor(0.0))),
+         (torch.tensor(0.0), torch.tensor(0.0)), None),
+        # the mask gates the whole lattice: the density runs on the admitted slots
+        (TrainStatics(**common), rays, rgbs, u, torch.tensor(0.0), _ball_mask()),
     ]
-    for statics, rays_, rgbs_, u_, flip in cases:
+    for statics, rays_, rgbs_, u_, flip, mask in cases:
         calls = []
 
         def counting(idx, g, n_rows):
@@ -289,14 +310,18 @@ def test_bf16_launches_per_step_count_the_bf16_gathers(model, fused, top_k):
 
         field.zero_grad(set_to_none=True)
         with mock.patch.object(grid_sample, "scatter_add", counting), \
-                parity.recording_shaded() as shaded:
-            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip)
+                parity.recording_renders() as renders:
+            total, _ = loss_fn(field, statics, AABB, rays_, rgbs_, 3, u_, flip, mask)
             total.backward()
         batches = [r.shape[0] for r in rays_] if isinstance(rays_, tuple) else [48]
+        # a render's recorded density rows are its rays x width but where the
+        # mask gates its lattice
+        assert ((chip_smoke.density_rows(statics, batches, renders)
+                 != chip_smoke.density_rows(statics, batches)) == (mask is not None))
         assert len(calls) == chip_smoke.scatter_launches_per_step(
-            statics, model, batches, (10, 11, 12), field.line_a_dtype, shaded, field.grid_dtype)
+            statics, model, batches, (10, 11, 12), field.line_a_dtype, renders, field.grid_dtype)
         assert calls.count(torch.bfloat16) == chip_smoke.bf16_launches_per_step(
-            statics, model, batches, field.grid_dtype, shaded)
+            statics, model, batches, field.grid_dtype, renders)
         assert (calls.count(torch.bfloat16) > 0) == (model == "TensorVMSplit" and fused)
 
 

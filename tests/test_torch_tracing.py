@@ -170,11 +170,26 @@ def test_render_counters_equal_the_step_counts(scene, stratified, monkeypatch):
     widths = render_widths(statics)
     top = statics.shade_top_k
     assert counts["render.rays"] == batch == sum(sizes)
-    assert counts["render.density_rows"] == sum(n * w for n, w in zip(sizes, widths))
+    per_render = {name: [v for n, v in calls if n == name]
+                  for name in ("render.density_rows", "render.alive", "render.shade_rows",
+                               "render.shaded")}
+    # a render whose budget lies below its lattice runs the density on rays x
+    # budget; one whose whole lattice the mask gates, on its alive slots alone
+    # (every render of this state: its strata's budgets reach their lattices)
+    budgets = statics.strata_budgets or (statics.sample_budget,)
+    lattices = statics.strata_n_samples or (statics.n_samples,) * len(sizes)
+    assert state.alpha_mask is not None
+    assert not any(b is not None and b < lat for b, lat in zip(budgets, lattices))
+    assert widths == list(lattices)
+    assert per_render["render.density_rows"] == [round(a) for a in per_render["render.alive"]]
+    assert all(abs(rows - a) < 1e-3 for rows, a in zip(per_render["render.density_rows"],
+                                                        per_render["render.alive"]))
+    assert counts["render.density_rows"] == sum(per_render["render.density_rows"])
+    assert counts["render.density_rows"] < sum(n * w for n, w in zip(sizes, widths))
+    if not stratified:
+        assert counts["render.density_rows"] == float(m["mean_alive_samples"]) * batch
     # a render shades its rays' top-K slots, or without a top-K below its
     # width just the samples whose weight passes the threshold
-    per_render = {name: [v for n, v in calls if n == name]
-                  for name in ("render.shade_rows", "render.shaded")}
     assert per_render["render.shade_rows"] == [
         n * top if top is not None and top < w else shaded
         for n, w, shaded in zip(sizes, widths, per_render["render.shaded"])]
@@ -183,7 +198,8 @@ def test_render_counters_equal_the_step_counts(scene, stratified, monkeypatch):
     np.testing.assert_allclose(counts["render.alive"], float(m["mean_alive_samples"]) * batch,
                                rtol=1e-6)
     assert 0 < counts["render.shaded"] <= counts["render.shade_rows"]
-    assert 0 < counts["render.alive"] <= counts["render.density_rows"]
+    # render.alive is a float32 mean times the rays: whole slots, to rounding
+    assert 0 < round(counts["render.alive"]) <= counts["render.density_rows"]
 
 
 def test_scatter_shapes_equal_a_wrapper(scene, monkeypatch):
